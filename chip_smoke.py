@@ -19,7 +19,25 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    launch counters show that every encoder layer went through the kernels; the
    encoder is run once more through the plain versions and compared, and
    once with its rel-pos tables zeroed, to show that the comparison would
-   see a kernel that dropped the attention bias.
+   see a kernel that dropped the attention bias;
+4. backward kernels: A', B' (global, window) and C' (global, window) against
+   their fp32 plain backwards at the train step's shapes (ViT-B, 512^2,
+   batch 4), each output within 2e-2 of its largest magnitude, with kernel,
+   plain, library and bound times;
+5. train step, the second main path: ``build_trainer`` on
+   ``rsprompter_anchor-nwpu-scratch-512.py`` (encoder and decoder trainable,
+   ViT-B 512^2, batch 4, bf16 compute on fp32 master weights), seeded random
+   weights and synthetic images with ground truth; one warm-up step and 10
+   timed steps; every loss and the gradient norm finite, every trained
+   parameter reached by the loss has a finite gradient and moves; launch
+   counts per step of A, B, C and A', B', C';
+6. gradient check: one batch with the same draws and proposals through the
+   kernels, through the plain versions, and through the plain versions with
+   the encoder in fp32 (the reference); every parameter's gradient compared
+   on its own, the kernels' distance from the reference held to twice the
+   plain bf16 run's (the noise floor); the encoder alone through kernels and
+   plain with the same cotangents, which sees the backward kernels without
+   the heads' amplified bf16 noise, each of its tensors held to a limit.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -34,9 +52,12 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "rsprompter", "rsprompter_anchor-nwpu.py")
+TRAIN_CONFIG = os.path.join(ROOT, "configs", "rsprompter", "rsprompter_anchor-nwpu-scratch-512.py")
+TRAIN_STEPS_PER_EPOCH = 130  # NWPU's 520 training images at batch 4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 TOL = 2e-2  # max |kernel - plain| relative to max |plain| (bf16 inputs)
@@ -342,13 +363,417 @@ def main_path_phase(kernels, iters: int, profile_dir: str = ""):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 4: backward kernels against their plain backwards
+# ---------------------------------------------------------------------------
+
+
+def compare_each(name: str, got, ref) -> float:
+    """Each output within TOL of its own largest magnitude; the worst
+    absolute error."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if b is None:
+            continue
+        worst = max(worst, compare(f"{name}[{i}]", a, b))
+    return worst
+
+
+def sdpa_backward_ms(q, k, v, bias, dout):
+    """``torch.autograd.grad`` through ``scaled_dot_product_attention`` with a
+    materialised bf16 bias that requires grad (q, k, v and the bias), or
+    None where the card's PyTorch has no such backward. Timed only."""
+    import torch
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v, bias)]
+    try:
+        out = torch.nn.functional.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3])
+        return cuda_time_ms(
+            lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True))
+    except RuntimeError as err:  # no fused backward for a bias that needs grad
+        log(f"library backward unavailable: {err}")
+        return None
+
+
+def backward_kernel_phase(dev):
+    import torch
+
+    from rsprompter_tpu_torch.ops import fused_mlp as fm
+    from rsprompter_tpu_torch.ops import fused_vit_attention as fa
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    def f32(args):
+        return [a.float() if torch.is_tensor(a) else a for a in args]
+
+    rows = []
+    bsz, grid, c, heads, mlp, win = 4, 32, 768, 12, 3072, 14
+    t = bsz * grid * grid
+    ln_w = 1 + rnd(c, scale=0.1, dtype=torch.float32)
+    ln_b = rnd(c, scale=0.1, dtype=torch.float32)
+
+    # --- A': ln_mlp_residual_bwd ---------------------------------------------
+    args = (rnd(t, c), ln_w, ln_b, rnd(mlp, c, scale=0.02), rnd(mlp, scale=0.02),
+            rnd(c, mlp, scale=0.02), rnd(c, scale=0.02), rnd(t, c))
+    got = fm.ln_mlp_residual_bwd(*args, 1e-6)
+    torch.cuda.synchronize()
+    err = compare_each("ln_mlp_residual_bwd", got, fm.ln_mlp_residual_bwd_plain(*f32(args), 1e-6))
+    flops = 5 * 2.0 * t * c * mlp  # fc1 recompute, dO W2, dW2, dW1, dh W1
+    nbytes = (3 * t * c * 2 + 2 * c * mlp * 2 + (mlp + c) * 2 + 2 * c * 4
+              + 2 * c * mlp * 2 + (mlp + c) * 2 + 2 * c * 4)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    rows.append(dict(
+        name="ln_mlp_residual_bwd", kernel=fm.LN_MLP_RESIDUAL_BWD, variant="",
+        route="cuda", source="rsprompter_tpu_torch/csrc/ln_mlp_residual_bwd.cu",
+        replaces="rsprompter_tpu/ops/fused_mlp.py:483",
+        shape=f"x, dO ({t}, {c}) bf16, W1 {mlp}x{c}, W2 {c}x{mlp}", max_abs_err=err,
+        ms=cuda_time_ms(lambda: fm.ln_mlp_residual_bwd(*args, 1e-6)),
+        plain_ms=cuda_time_ms(lambda: fm.ln_mlp_residual_bwd_plain(*args, 1e-6)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    ))
+
+    # --- B': ln_qkv_headmajor_bwd, global and window ---------------------------
+    xg = rnd(bsz, grid, grid, c)
+    wq, bq = rnd(3 * c, c, scale=0.02), rnd(3 * c, scale=0.02)
+    for variant, window, replaces in (
+        ("global", 0, "rsprompter_tpu/ops/fused_mlp.py:334"),
+        ("window", win, "rsprompter_tpu/ops/fused_mlp.py:707"),
+    ):
+        n_img, s = (bsz, grid * grid) if not window else (bsz * 9, win * win)
+        dy = rnd(n_img, 3 * heads, s, 64)
+        a = (xg, ln_w, ln_b, wq, bq, dy, 3 * heads, window, 1e-6)
+        got = fm.ln_qkv_headmajor_bwd(*a)
+        torch.cuda.synchronize()
+        err = compare_each(f"ln_qkv_headmajor_bwd/{variant}", got,
+                           fm.ln_qkv_headmajor_bwd_plain(*f32(a)))
+        # dW and dz over the t real tokens: window pad rows have z = 0 and feed
+        # no token; only db reads their dy, a sum counted in the bytes
+        flops = 2 * 2.0 * t * c * 3 * c
+        nbytes = (2 * t * c * 2 + dy.numel() * 2 + 2 * 3 * c * c * 2 + 2 * 3 * c * 2
+                  + 4 * c * 4)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        rows.append(dict(
+            name=f"ln_qkv_headmajor_bwd/{variant}", kernel=fm.LN_QKV_HEADMAJOR_BWD,
+            variant=variant, route="cuda",
+            source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor_bwd.cu", replaces=replaces,
+            shape=f"x ({bsz}, {grid}, {grid}, {c}), dy {tuple(dy.shape)} bf16",
+            max_abs_err=err, ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor_bwd(*a)),
+            plain_ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor_bwd_plain(*a)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        ))
+
+    # --- C': relpos_attention_bwd, global and window ---------------------------
+    for variant, n_img, hw, replaces in (
+        ("global", bsz, (grid, grid), "rsprompter_tpu/ops/fused_vit_attention.py:779"),
+        ("window", bsz * 9, (win, win), "rsprompter_tpu/ops/fused_vit_attention.py:752"),
+    ):
+        s = hw[0] * hw[1]
+        qkv = rnd(n_img, 3 * heads, s, 64)
+        fh = rnd(n_img, heads, s, hw[0], scale=0.5)
+        fw = rnd(n_img, heads, s, hw[1], scale=0.5)
+        dout = rnd(n_img, heads, s, 64)
+        out, lse = fa._relpos_attention_fwd(qkv, fh, fw, hw, True)
+        a = (qkv, fh, fw, out, lse, dout, hw)
+        got = fa.relpos_attention_bwd(*a)
+        torch.cuda.synchronize()
+        err = compare_each(f"relpos_attention_bwd/{variant}", got, fa.relpos_attention_bwd_plain(
+            qkv.float(), fh.float(), fw.float(), dout.float(), hw))
+        q, k, v = qkv[:, :heads], qkv[:, heads : 2 * heads], qkv[:, 2 * heads :]
+        bias = (fh[..., :, None] + fw[..., None, :]).reshape(n_img, heads, s, s)
+        library_ms = sdpa_backward_ms(q, k, v, bias, dout)
+        del bias
+        flops = 5 * 2.0 * n_img * heads * s * s * 64  # q k^T again, dP, dV, dQ, dK
+        nbytes = ((qkv.numel() + fh.numel() + fw.numel() + out.numel() + dout.numel()) * 2
+                  + lse.numel() * 4 + (qkv.numel() + fh.numel() + fw.numel()) * 2)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        rows.append(dict(
+            name=f"relpos_attention_bwd/{variant}", kernel=fa.RELPOS_ATTENTION_BWD,
+            variant=variant, route="cuda",
+            source="rsprompter_tpu_torch/csrc/relpos_attention_bwd.cu", replaces=replaces,
+            shape=f"qkv {tuple(qkv.shape)} bf16, factors h={hw[0]} w={hw[1]}",
+            max_abs_err=err, ms=cuda_time_ms(lambda: fa.relpos_attention_bwd(*a)),
+            plain_ms=cuda_time_ms(lambda: fa.relpos_attention_bwd_plain(
+                qkv, fh, fw, dout, hw)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        ))
+    for r in rows:
+        log(f"kernel {r['name']}: {r['shape']}; max_abs_err {r['max_abs_err']:.4g} "
+            f"(tol {TOL} x max|plain| per output); kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the train step, and its gradients through the plain versions
+# ---------------------------------------------------------------------------
+
+# per-tensor max|kernels - plain| / max|plain| over every encoder parameter
+# gradient of one bf16 train step (ViT-B 512^2, batch 4), both encoders given
+# the same cotangents; about twice the worst readings on an H100 (0.03444,
+# 0.03722)
+GRAD_TOL = 7e-2
+# Through the whole loss the neck and heads amplify the encoder's bf16 noise
+# (a conv bias before a train-mode BatchNorm, whose true gradient is zero, is
+# all rounding noise there), so no fixed limit holds. The plain bf16 step's
+# distance from a reference step whose encoder computes in fp32 is the floor
+# of that noise, measured in the same run; the kernels' step may be at most
+# this many times as far from the reference, at the median tensor and at the
+# worst one.
+FLOOR_FACTOR = 2.0
+# the loss never reaches the IoU head (RSPrompter trains no IoU target); JAX
+# gives it zero gradients, the port none
+UNREACHED = "roi_head.mask_head.mask_decoder.iou_prediction_head."
+
+
+def device_busy_ms(prof) -> float:
+    """Time the device was running any kernel in a profile: the union of the
+    CUDA kernel intervals (events nest, so their sums double count)."""
+    import torch
+
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def train_phase(kernels, iters: int, profile_dir: str = ""):
+    import torch
+
+    from rsprompter_tpu_torch.engine.train_state import build_trainer
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_batch
+
+    trainer = build_trainer(TRAIN_CONFIG, device="cuda", seed=0,
+                            steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    model, opt = trainer.model, trainer.optimizer
+    cfg = trainer.cfg
+    bsz = cfg["train_dataloader"]["batch_size"]
+    size = tuple(cfg["crop_size"])
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in synthetic_batch(
+        bsz, size, cfg["model"]["num_classes"], max_gt=8, seed=0).items()}
+    gen = torch.Generator(device="cuda")
+
+    def check(metrics, when):
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+        if bad:
+            raise AssertionError(f"train step {when}: non-finite {bad}")
+        return {k: float(v) for k, v in metrics.items()}
+
+    first = check(trainer.step(batch, gen.manual_seed(0)), "warm-up")
+    torch.cuda.synchronize()
+    before = {n: p.detach().clone() for n, p in opt.trained}
+    reached = set()
+    for k in kernels:
+        k.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(iters):
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch, gen.manual_seed(1 + i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        reached |= {n for n, p in opt.trained} - set(opt.unreached)
+        if set(opt.unreached) and not all(n.startswith(UNREACHED) for n in opt.unreached):
+            raise AssertionError(f"train step: no gradient reached {opt.unreached}")
+        last = check(metrics, f"{i + 1}")
+    counts = {k.name: dict(k.variant_launches) for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    for n, p in opt.trained:
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"train step: {n} has no finite gradient")
+        if n in reached and torch.equal(p.detach(), before[n]):
+            raise AssertionError(f"train step: {n} was not updated")
+    unreached = sorted(n for n, _ in opt.trained if n not in reached)
+
+    depth = model.backbone.config.num_hidden_layers
+    n_global = len(model.backbone.config.global_attn_indexes)
+    per_kind = {"global": n_global * iters, "window": (depth - n_global) * iters}
+    expect = {
+        "ln_mlp_residual": {"": depth * iters}, "ln_qkv_headmajor": per_kind,
+        "relpos_attention": per_kind, "ln_mlp_residual_bwd": {"": depth * iters},
+        "ln_qkv_headmajor_bwd": per_kind, "relpos_attention_bwd": per_kind,
+    }
+    for name, want in expect.items():
+        if counts[name] != want:
+            raise AssertionError(f"train: {name} launches {counts[name]}, expected {want}")
+    med = statistics.median(times)
+    log(f"train step launches over {iters} steps: {counts}")
+    log(f"train step: RSPrompter-anchor, ViT-B {size[0]}x{size[1]}, batch {bsz}, bf16 "
+        f"compute, fp32 master weights, encoder and decoder trained: {med:.4f} s/step "
+        f"median of {iters} (min {min(times):.4f}, max {max(times):.4f}), "
+        f"{bsz / med:.3f} images/s; peak device memory {peak_gb:.2f} GiB; "
+        f"{len(opt.trained)} trained / {len(opt.frozen)} frozen tensors; "
+        f"not reached by the loss: {len(unreached)} ({UNREACHED}*)")
+    log(f"train step 1 (warm-up): {json.dumps(first)}")
+    log(f"train step {iters + 1}: {json.dumps(last)}")
+
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.step(batch, gen.manual_seed(99))
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = device_busy_ms(prof)
+        os.makedirs(profile_dir, exist_ok=True)
+        table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50)
+        with open(os.path.join(profile_dir, "train_step_profile.txt"), "w") as f:
+            f.write(table)
+        prof.export_chrome_trace(os.path.join(profile_dir, "train_step_trace.json"))
+        log(f"train step profile: device busy {busy_ms:.2f} ms (union of kernel "
+            f"intervals); profiled step wall {wall_ms:.2f} ms, idle share "
+            f"{1 - busy_ms / wall_ms:.4f}; against the unprofiled median step "
+            f"{med * 1e3:.2f} ms, idle share {1 - busy_ms / (med * 1e3):.4f}")
+        host = {e.key: f"{e.count} calls, {e.cpu_time_total / 1e3:.2f} ms"
+                for e in prof.key_averages() if e.key in (
+                    "cudaLaunchKernel", "cudaStreamSynchronize", "cudaMemcpyAsync")}
+        log(f"train step profile, host side (profiled): {host}")
+        log(table[:8000])
+
+    gradient_phase(model, opt, lambda: model.loss(batch, generator=gen.manual_seed(7)))
+    return counts
+
+
+def relative_grad_diffs(got, ref):
+    """Per tensor max|got - ref| / max(max|ref|, 1e-4 x the largest |ref|);
+    the floor keeps a gradient that is zero up to rounding (a bias before a
+    BatchNorm) from dividing by nothing."""
+    import numpy as np
+
+    if got.keys() != ref.keys():
+        raise AssertionError("gradient check: the two runs reached different parameters")
+    gmax = max(float(g.abs().max()) for g in ref.values())
+    rel = {}
+    for n, r in ref.items():
+        err = float((got[n] - r).abs().max())
+        if not np.isfinite(err):
+            raise AssertionError(f"gradient check: {n} not finite")
+        rel[n] = err / max(float(r.abs().max()), 1e-4 * gmax)
+    return rel
+
+
+def check_grads(what: str, rel, tol: Optional[float]) -> None:
+    """Print the worst tensors; raise above ``tol`` (None: report only)."""
+    worst = max(rel, key=rel.get)
+    tables = [v for n, v in rel.items() if n.endswith(("rel_pos_h", "rel_pos_w"))]
+    log(f"gradient check, {what}, per parameter tensor: worst {rel[worst]:.4g} at "
+        f"{worst} (tol {tol}); median {statistics.median(rel.values()):.4g} over "
+        f"{len(rel)} tensors; rel-pos tables worst {max(tables):.4g}; next worst: "
+        + ", ".join(f"{n} {rel[n]:.4g}"
+                    for n in sorted(rel, key=rel.get, reverse=True)[1:6]))
+    if tol is not None and rel[worst] > tol:
+        raise AssertionError(f"gradient check, {what}: {worst} {rel[worst]:.4g} > {tol}")
+
+
+def gradient_phase(model, opt, loss_fn):
+    """Phase 6. ``loss_fn()`` runs one batch with fixed draws through the
+    whole loss three times: through the kernels, through the plain versions,
+    and through the plain versions with the encoder computing in fp32 (the
+    reference; its outputs are rounded to bf16, as the others', before the
+    neck and heads read them). All three take the kernels' run's proposals:
+    on random weights the RPN's top-k is full of near-ties that bf16 noise
+    reorders, and the runs would otherwise sample different RoIs. Every
+    parameter's gradient is compared on its own, and the kernels' distance
+    from the reference is held to ``FLOOR_FACTOR`` times the plain bf16
+    run's. The encoder is also run through the kernels and the plain
+    versions with the same cotangents of its outputs, those of the kernels'
+    run: that comparison sees the backward kernels alone, without the heads'
+    amplification, and is held to ``GRAD_TOL``."""
+    import torch
+
+    from rsprompter_tpu_torch.apis.build import set_compute_dtype
+    from rsprompter_tpu_torch.engine.train_state import total_loss
+    from rsprompter_tpu_torch.models.detectors import rsprompter_anchor as det_mod
+
+    enc = model.backbone
+    seen = {}
+
+    def cut(mod, inputs, outputs):  # the encoder's outputs become bf16 leaves
+        leaves = [t.detach().to(torch.bfloat16).requires_grad_(True)
+                  for t in (outputs[0],) + tuple(outputs[1])]
+        seen["images"], seen["leaves"] = inputs[0].detach(), leaves
+        return leaves[0], tuple(leaves[1:])
+
+    def encoder_grads(impl, cot):
+        enc.impl = impl
+        enc.zero_grad(set_to_none=True)
+        neck, hidden = enc(seen["images"])
+        outs = (neck,) + tuple(hidden)
+        torch.autograd.backward(outs, [c.to(o.dtype) for c, o in zip(cot, outs)])
+        return {f"backbone.{n}": p.grad.float().clone() for n, p in enc.named_parameters()}
+
+    def whole_loss_grads(impl):
+        enc.impl = impl
+        opt.zero_grad()
+        hook = enc.register_forward_hook(cut)
+        try:
+            total_loss(loss_fn()).backward()
+        finally:
+            hook.remove()
+        cot = [t.grad if t.grad is not None else torch.zeros_like(t) for t in seen["leaves"]]
+        grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        return {**grads, **encoder_grads(impl, cot)}, cot
+
+    rpn_predict, kept = det_mod.rpn_predict, []
+
+    def keep_first(*a, **kw):
+        if not kept:
+            kept.append(rpn_predict(*a, **kw))
+        return kept[0]
+
+    det_mod.rpn_predict = keep_first
+    try:
+        kernel, cot = whole_loss_grads("kernel")
+        plain, _ = whole_loss_grads("plain")
+        same_cot = encoder_grads("plain", cot)
+        set_compute_dtype(enc, torch.float32, cast_params=False)
+        ref, _ = whole_loss_grads("plain")
+    finally:
+        det_mod.rpn_predict = rpn_predict
+        set_compute_dtype(enc, torch.bfloat16, cast_params=False)
+        enc.impl = "kernel"
+    floor = relative_grad_diffs(plain, ref)
+    kernel_ref = relative_grad_diffs(kernel, ref)
+    check_grads("whole loss, plain bf16 vs fp32-encoder reference (the floor)", floor, None)
+    check_grads("whole loss, kernels vs fp32-encoder reference", kernel_ref, None)
+    for what, stat in (("median", statistics.median), ("worst", max)):
+        got, base = stat(kernel_ref.values()), stat(floor.values())
+        msg = (f"gradient check, whole loss, {what} tensor: kernels {got:.4g} from the "
+               f"reference, plain bf16 {base:.4g}; ratio {got / base:.4g} "
+               f"(limit {FLOOR_FACTOR})")
+        log(msg)
+        if got > FLOOR_FACTOR * base:
+            raise AssertionError(msg)
+    check_grads("encoder with the same cotangents, kernels vs plain",
+                relative_grad_diffs({n: kernel[n] for n in same_cot}, same_cot), GRAD_TOL)
+    for n, g in same_cot.items():
+        if n.endswith(("rel_pos_h", "rel_pos_w")) and float(g.abs().max()) == 0.0:
+            raise AssertionError(f"gradient check: {n} has a zero gradient")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10,
                         help="timed forwards of the main path")
+    parser.add_argument("--train-steps", type=int, default=10,
+                        help="timed steps of the train step (after one warm-up)")
     parser.add_argument("--profile-dir", default="",
-                        help="also write a torch.profiler table of one forward here")
+                        help="also write torch.profiler tables of one forward and "
+                             "one train step here")
     args = parser.parse_args()
+    t_start = time.time()
 
     sys.path.insert(0, ROOT)
     import torch
@@ -372,17 +797,24 @@ def main() -> int:
 
     rows = kernel_phase(dev)
     counts = main_path_phase(kernels, args.iters, args.profile_dir)
+    bwd_rows = backward_kernel_phase(dev)
+    train_counts = train_phase(kernels, args.train_steps, args.profile_dir)
     out = []
-    for r in rows:
-        out.append({
+    for r in rows + bwd_rows:
+        name, variant = r["kernel"].name, r["variant"]
+        row = {
             "name": r["name"], "route": r["route"], "source": r["source"],
             "replaces": r["replaces"],
-            "launches": counts[r["kernel"].name].get(r["variant"], 0),
+            "launches": (counts if r in rows else train_counts)[name].get(variant, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+        }
+        if r in rows:  # forward kernels also run in every train step
+            row["train_launches"] = train_counts[name].get(variant, 0)
+        out.append(row)
     log(json.dumps({"kernels": out}))
+    log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
     log(card)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,28 @@
 """Model builder: reference-flavoured config dict -> torch detector.
 
 Counterpart of ``rsprompter_tpu/apis/build.py`` for the one family this port
-covers so far (``type='RSPrompterAnchor'``, predict). Keeps the key
-vocabulary (``hf_sam_pretrain_name``, ``prompt_shape``, ``num_classes``,
-``test_cfg``, ``bf16``, the tiny-model ``vision_config`` override and the
-``rpn_strides`` / ``roi_strides`` ladders).
+covers so far (``type='RSPrompterAnchor'``, predict and the train step).
+Keeps the key vocabulary (``hf_sam_pretrain_name``, ``prompt_shape``,
+``num_classes``, ``train_cfg``, ``test_cfg``, ``bf16``, ``train_backbone``,
+``decoder_freeze``, ``num_samples``, ``pos_fraction``, the tiny-model
+``vision_config`` override and the ``rpn_strides`` / ``roi_strides``
+ladders), and derives the optimizer's freeze paths (``freeze_paths_for``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 import torch.nn as nn
 
 from rsprompter_tpu_torch.models.detectors.rsprompter_anchor import RSPrompterAnchor
-from rsprompter_tpu_torch.models.sam.common import SamLayerNorm
+from rsprompter_tpu_torch.models.sam.common import (
+    Conv2d,
+    FastConvTranspose2x2,
+    Linear,
+    SamLayerNorm,
+)
 from rsprompter_tpu_torch.models.sam.configs import SamVisionConfig
 from rsprompter_tpu_torch.models.sam.positional import SamPositionalEmbedding
 
@@ -40,6 +47,10 @@ def build_detector(model_cfg: Dict[str, Any]) -> RSPrompterAnchor:
     mtype = cfg.pop("type")
     if mtype != "RSPrompterAnchor":
         raise NotImplementedError(f"detector type '{mtype}' is not ported to torch yet")
+    if cfg.get("peft_config") is not None:
+        raise NotImplementedError("LoRA (peft_config) is not ported to torch yet")
+    if cfg.get("mask_loss_resolution", "full") != "full":
+        raise NotImplementedError("mask_loss_resolution='low' is not ported to torch yet")
     arch = _arch_from_cfg(cfg)
     kw = {}
     if cfg.get("vision_config") is not None:
@@ -56,9 +67,26 @@ def build_detector(model_cfg: Dict[str, Any]) -> RSPrompterAnchor:
         aggregator_hidden=cfg.get("aggregator_hidden", 32),
         with_sincos=cfg.get("with_sincos", True),
         multimask_output=cfg.get("multimask_output", False),
+        num_samples=cfg.get("num_samples", 256),
+        pos_fraction=cfg.get("pos_fraction", 0.25),
+        freeze_backbone=not cfg.get("train_backbone", False),
+        train_cfg=cfg.get("train_cfg"),
         test_cfg=cfg.get("test_cfg"),
         **kw,
     )
+
+
+def freeze_paths_for(model_cfg: Dict[str, Any]) -> List[str]:
+    """Parameter-name substrings the optimizer leaves untouched, per the
+    reference's freeze rules (the encoder unless ``train_backbone``; with
+    ``decoder_freeze`` the shared PE, the SAM mask decoder and
+    ``no_mask_embed``). JAX's LoRA train overrides wait for LoRA."""
+    freeze: List[str] = []
+    if not model_cfg.get("train_backbone", False):
+        freeze.append("backbone")
+    if model_cfg["type"] == "RSPrompterAnchor" and model_cfg.get("decoder_freeze", True):
+        freeze += ["shared_image_embedding", "mask_decoder", "no_mask_embed"]
+    return freeze
 
 
 # modules whose parameters keep fp32 when the model computes in bf16 (the
@@ -66,15 +94,21 @@ def build_detector(model_cfg: Dict[str, Any]) -> RSPrompterAnchor:
 _FP32_MODULES = (SamLayerNorm, nn.BatchNorm2d, nn.Embedding, SamPositionalEmbedding)
 
 
-def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast the weights of every layer that computes in ``dtype`` (linears,
-    convolutions, rel-pos tables, pos-embed); norms, embeddings and the
-    Fourier projection stay fp32."""
+def set_compute_dtype(model: nn.Module, dtype: torch.dtype,
+                      cast_params: bool = True) -> nn.Module:
+    """Make every linear and convolution compute in ``dtype``, as JAX's
+    ``dtype=`` does. ``cast_params=False`` keeps fp32 master parameters, cast
+    at each use (training: autograd carries the gradient back through the
+    cast to the fp32 parameter); ``cast_params=True`` also casts the weights
+    of those layers, the rel-pos tables and the pos-embed in place, which
+    saves the per-use casts (predict). Norms, embeddings and the Fourier
+    projection stay fp32 either way."""
     for mod in model.modules():
-        if isinstance(mod, _FP32_MODULES):
-            continue
-        for p in mod.parameters(recurse=False):
-            p.data = p.data.to(dtype)
+        if isinstance(mod, (Linear, Conv2d, FastConvTranspose2x2)):
+            mod.compute_dtype = dtype
+        if cast_params and not isinstance(mod, _FP32_MODULES):
+            for p in mod.parameters(recurse=False):
+                p.data = p.data.to(dtype)
     return model
 
 
@@ -96,6 +130,5 @@ def init_random_weights(model: nn.Module, seed: int) -> None:
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
             elif name.endswith("pos_embed"):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
-        for name, b in model.named_buffers():
-            if name.endswith("positional_embedding"):
-                b.copy_(torch.randn(b.shape, generator=gen) * (b.shape[1]))
+            elif name.endswith("positional_embedding"):
+                p.copy_(torch.randn(p.shape, generator=gen) * (p.shape[1]))

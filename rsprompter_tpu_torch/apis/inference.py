@@ -3,10 +3,11 @@
 Counterpart of ``rsprompter_tpu/apis/inference.py`` and the predict path of
 ``rsprompter_tpu/apis/inferencer.py``: build and load once, infer many. The
 test pipeline is the JAX package's -- keep-ratio resize into the crop, pad
-with the BGR ImageNet mean, uint8 BGR batch -- with the resize done by torch
-(bilinear, half-pixel centres) since the card's machine has no OpenCV; an
-image already at the crop size is not resampled. Post-processing is the u8
-mask chain, run on the device.
+with the BGR ImageNet mean, uint8 BGR batch -- with OpenCV's float
+INTER_LINEAR rebuilt in torch on the device (``ops.image``), since the
+card's machine has no OpenCV, and rounded to uint8 as JAX's
+``PackDetInputs`` rounds it.
+Post-processing is the u8 mask chain, run on the device.
 
 Entry points run on the card unless the caller passes ``device='cpu'``.
 """
@@ -18,7 +19,6 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from rsprompter_tpu_torch.apis.build import (
     build_detector,
@@ -26,6 +26,7 @@ from rsprompter_tpu_torch.apis.build import (
     set_compute_dtype,
 )
 from rsprompter_tpu_torch.core.config import Config
+from rsprompter_tpu_torch.ops.image import resize_bilinear_cv2
 from rsprompter_tpu_torch.ops.masks import finalize_masks, quantize_probs_u8
 
 # pad applied while the image is still BGR (reference test pipeline)
@@ -89,12 +90,8 @@ class DetInferencer:
         for i, img in enumerate(imgs):
             h, w = img.shape[:2]
             nh, nw = _target_size(h, w, self.crop_size)
-            x = torch.as_tensor(np.ascontiguousarray(img), device=self.device).float()
-            if (nh, nw) != (h, w):
-                x = F.interpolate(
-                    x.permute(2, 0, 1)[None], size=(nh, nw), mode="bilinear",
-                    align_corners=False,
-                )[0].permute(1, 2, 0)
+            x = torch.as_tensor(np.ascontiguousarray(img), device=self.device)
+            x = resize_bilinear_cv2(x, (nh, nw))
             images[i, :nh, :nw] = x.round().clamp(0, 255).to(torch.uint8)
             img_shape[i] = torch.tensor([nh, nw])
             metas.append(dict(ori_shape=(h, w), img_shape=(nh, nw),

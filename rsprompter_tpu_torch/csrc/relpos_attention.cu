@@ -9,7 +9,8 @@
 //
 // Inputs: qkv (N, 3n, S, 64) bf16 head-major (q heads, then k, then v), the
 // factors fh (N, n, S, h) and fw (N, n, S, w) bf16 from the torch einsum.
-// Output: (N, n, S, 64) bf16.
+// Output: (N, n, S, 64) bf16, and, when the caller asks for it (the
+// backward does), the fp32 row log-sum-exp (N, n, S) of the biased scores.
 //
 // Bound on the H100 at ViT-B, batch 2: a global layer is 103 GFLOP (about
 // 104 us at 989 TFLOP/s, operations-bound); a windowed layer is 5.9 GFLOP but
@@ -54,8 +55,8 @@ constexpr int SMEM = OFF_FW + BQ * FSTRIDE * 4;
 
 __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(
     const bf16* __restrict__ qkv, const bf16* __restrict__ fh,
-    const bf16* __restrict__ fw, bf16* __restrict__ out, int nh, int S,
-    int h, int w, float scale) {
+    const bf16* __restrict__ fw, bf16* __restrict__ out,
+    float* __restrict__ lse, int nh, int S, int h, int w, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem + OFF_K);    // [key][d]
   bf16* vts = reinterpret_cast<bf16*>(smem + OFF_VT);  // [d][key]
@@ -213,6 +214,11 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(
   const float inv1 = 1.f / l1;
   const int qr0 = q0 + lr0;
   const int qr1 = q0 + lr1;
+  if (lse != nullptr && t == 0) {  // row log-sum-exp for the backward
+    float* lr = lse + ((size_t)n * nh + head) * S;
+    if (qr0 < S) lr[qr0] = m0 + logf(l0);
+    if (qr1 < S) lr[qr1] = m1 + logf(l1);
+  }
   bf16* ob = out + ((size_t)n * nh + head) * plane;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
@@ -229,9 +235,9 @@ __global__ void __launch_bounds__(THREADS) relpos_attention_kernel(
 }  // namespace
 
 extern "C" int rsp_relpos_attention(const void* qkv, const void* fh,
-                                    const void* fw, void* out, int N, int nh,
-                                    int S, int h, int w, float scale,
-                                    void* stream) {
+                                    const void* fw, void* out, void* lse,
+                                    int N, int nh, int S, int h, int w,
+                                    float scale, void* stream) {
   if (h > FMAX || w > FMAX || h * w != S)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
@@ -242,7 +248,7 @@ extern "C" int rsp_relpos_attention(const void* qkv, const void* fh,
   relpos_attention_kernel<<<grid, THREADS, SMEM,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(fh),
-      static_cast<const bf16*>(fw), static_cast<bf16*>(out), nh, S, h, w,
-      scale);
+      static_cast<const bf16*>(fw), static_cast<bf16*>(out),
+      static_cast<float*>(lse), nh, S, h, w, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,12 @@
-"""Shared-2FC bbox head and its test-time decode + per-class NMS (torch).
+"""Shared-2FC bbox head, its masked loss and its test-time decode +
+per-class NMS (torch).
 
 Counterpart of ``rsprompter_tpu/models/roi_heads/bbox_head.py``: flatten RoI
 features -> 2 x 1024 FC -> class logits (C + 1) and class-specific deltas
-(4C, stds (.1, .1, .2, .2)); prediction keeps fixed shapes (padded to
-``max_per_img`` with a keep mask). The flatten is NCHW, as in the reference
-torch head.
+(4C, stds (.1, .1, .2, .2)); the loss is softmax CE over the sampled slots
+and smooth L1 on the positives' deltas of their class; prediction keeps fixed
+shapes (padded to ``max_per_img`` with a keep mask). The flatten is NCHW, as
+in the reference torch head.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from rsprompter_tpu_torch.models.losses import accuracy, cross_entropy, smooth_l1
 from rsprompter_tpu_torch.models.sam.common import Linear
 from rsprompter_tpu_torch.ops.boxes import DeltaXYWHBBoxCoder, clip_to_shape
 from rsprompter_tpu_torch.ops.nms import batched_nms, sort_desc
@@ -38,6 +41,30 @@ class Shared2FCBBoxHead(nn.Module):
         for fc in self.shared_fcs:
             x = F.relu(fc(x))
         return self.fc_cls(x), self.fc_reg(x)
+
+
+def bbox_head_loss(
+    cls_logits: torch.Tensor,  # (R, C+1)
+    bbox_deltas: torch.Tensor,  # (R, 4C)
+    sampled_boxes: torch.Tensor,  # (R, 4)
+    labels: torch.Tensor,  # (R,) gt class of positives, C (background) otherwise
+    matched_gt_boxes: torch.Tensor,  # (R, 4)
+    valid: torch.Tensor,  # (R,)
+    is_pos: torch.Tensor,  # (R,)
+    num_classes: int,
+    target_stds: Sequence[float] = (0.1, 0.1, 0.2, 0.2),
+) -> Dict[str, torch.Tensor]:
+    coder = DeltaXYWHBBoxCoder(target_stds=target_stds)
+    avg = valid.sum().float().clamp(min=1.0)
+    loss_cls = cross_entropy(cls_logits, labels, weight=valid.float(), avg_factor=avg)
+    targets = coder.encode(sampled_boxes, matched_gt_boxes)
+    idx = labels.clamp(0, num_classes - 1).long()
+    pred = bbox_deltas.reshape(-1, num_classes, 4)
+    pred = torch.gather(pred, 1, idx[:, None, None].expand(-1, 1, 4))[:, 0]
+    pos_w = (is_pos & valid).float()[:, None]
+    loss_bbox = smooth_l1(pred, targets, beta=1.0, weight=pos_w, avg_factor=avg)
+    return {"loss_cls": loss_cls, "loss_bbox": loss_bbox,
+            "acc": accuracy(cls_logits, labels, valid)}
 
 
 class DetResult(NamedTuple):

@@ -2,7 +2,8 @@
 
 Counterpart of ``rsprompter_tpu/models/sam/positional.py`` (HF
 ``SamPositionalEmbedding``): coords in [0, 1] -> 2c - 1 -> c @ W -> 2 pi c ->
-[sin, cos]. The (2, num_pos_feats) projection is a buffer, as in HF.
+[sin, cos]. The (2, num_pos_feats) projection is a parameter, as in the JAX
+module: it trains when the decoder does (``decoder_freeze=False``).
 """
 
 from __future__ import annotations
@@ -16,9 +17,7 @@ import torch.nn as nn
 class SamPositionalEmbedding(nn.Module):
     def __init__(self, num_pos_feats: int = 128, scale: float = 128.0):
         super().__init__()
-        self.register_buffer(
-            "positional_embedding", scale * torch.randn(2, num_pos_feats)
-        )
+        self.positional_embedding = nn.Parameter(scale * torch.randn(2, num_pos_feats))
 
     def forward(self, coords: torch.Tensor) -> torch.Tensor:
         """coords (..., 2) in [0, 1] -> (..., 2 * num_pos_feats) fp32."""

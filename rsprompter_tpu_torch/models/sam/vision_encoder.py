@@ -9,8 +9,14 @@ Each block runs on the port's three kernels: kernel B
 grid (the window partition and its zero pad live in the kernel's row map),
 kernel C (``ops.fused_vit_attention.relpos_attention``) for the attention
 with the rel-pos bias, and kernel A (``ops.fused_mlp.ln_mlp_residual``) for
-LN2 + MLP + residual. ``impl='plain'`` runs the same block through the plain
-versions of those kernels (the oracle the GPU check compares against).
+LN2 + MLP + residual. Each is a ``torch.autograd.Function`` whose backward
+is the matching backward kernel (A', B', C'); the rel-pos factor einsum stays
+in torch autograd, which gives the tables their gradients and q its extra
+term, as JAX keeps ``rel_factors_pair``'s vjp outside its kernel. Weights are
+cast to the activations' dtype at each use, so fp32 master parameters train
+through bf16 kernels. ``impl='plain'`` runs the same block through the plain
+forward versions under torch autograd (the oracle the GPU checks compare
+against, forward and gradients).
 
 ``forward`` returns (neck_out (B, h, w, C_out), hidden_states): entry 0 is the
 patch embedding after the pos-embed, entry i+1 the output of block i -- the
@@ -84,13 +90,14 @@ class SamVisionLayer(nn.Module):
         nh = attn.num_heads
         win = self.window_size
         x = x.contiguous()
+        dt = x.dtype
         qkv_bias = attn.qkv.bias
         if qkv_bias is None:
-            qkv_bias = torch.zeros(3 * c, dtype=x.dtype, device=x.device)
+            qkv_bias = torch.zeros(3 * c, dtype=dt, device=x.device)
         qkv_fn = fm.ln_qkv_headmajor_plain if plain else fm.ln_qkv_headmajor
         qkv = qkv_fn(
-            x, self.layer_norm1.weight, self.layer_norm1.bias, attn.qkv.weight,
-            qkv_bias, 3 * nh, win, self.eps,
+            x, self.layer_norm1.weight, self.layer_norm1.bias, attn.qkv.weight.to(dt),
+            qkv_bias.to(dt), 3 * nh, win, self.eps,
         )  # (N, 3n, S, d)
         hw = (win, win) if win else (h, w)
         n_img, _, s, d = qkv.shape
@@ -102,21 +109,14 @@ class SamVisionLayer(nn.Module):
         attn_fn = fa.relpos_attention_plain if plain else fa.relpos_attention
         o = attn_fn(qkv, fh.contiguous(), fw.contiguous(), hw)  # (N, n, S, d)
         o = attn.proj(o.permute(0, 2, 1, 3).reshape(n_img, s, nh * d))
-        if win:
-            nwy, nwx = fm.window_grid(h, w, win)
-            o = (
-                o.reshape(b, nwy, nwx, win, win, c)
-                .permute(0, 1, 3, 2, 4, 5)
-                .reshape(b, nwy * win, nwx * win, c)[:, :h, :w]
-            )
-        else:
-            o = o.reshape(b, h, w, c)
+        o = fm.window_unpartition(o, (b, h, w), win)
         x = (x + o).reshape(-1, c).contiguous()
         mlp_fn = fm.ln_mlp_residual_plain if plain else fm.ln_mlp_residual
+        mlp = self.mlp
         y = mlp_fn(
             x, self.layer_norm2.weight, self.layer_norm2.bias,
-            self.mlp.lin1.weight, self.mlp.lin1.bias, self.mlp.lin2.weight,
-            self.mlp.lin2.bias, self.eps,
+            mlp.lin1.weight.to(dt), mlp.lin1.bias.to(dt), mlp.lin2.weight.to(dt),
+            mlp.lin2.bias.to(dt), self.eps,
         )
         return y.reshape(b, h, w, c)
 

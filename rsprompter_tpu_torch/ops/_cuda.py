@@ -137,8 +137,12 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None
 
 
 def all_kernels() -> List[CudaKernel]:
-    """Every kernel of the port, in the order of the encoder layer."""
-    from rsprompter_tpu_torch.ops.fused_mlp import LN_MLP_RESIDUAL, LN_QKV_HEADMAJOR
-    from rsprompter_tpu_torch.ops.fused_vit_attention import RELPOS_ATTENTION
+    """Every kernel of the port: the encoder layer's forwards in order,
+    then their backwards."""
+    from rsprompter_tpu_torch.ops import fused_mlp as fm
+    from rsprompter_tpu_torch.ops import fused_vit_attention as fa
 
-    return [LN_MLP_RESIDUAL, LN_QKV_HEADMAJOR, RELPOS_ATTENTION]
+    return [
+        fm.LN_MLP_RESIDUAL, fm.LN_QKV_HEADMAJOR, fa.RELPOS_ATTENTION,
+        fm.LN_MLP_RESIDUAL_BWD, fm.LN_QKV_HEADMAJOR_BWD, fa.RELPOS_ATTENTION_BWD,
+    ]

@@ -1,4 +1,4 @@
-"""Box ops: IoU and delta decoding (torch).
+"""Box ops: IoU and delta coding (torch).
 
 Counterpart of ``rsprompter_tpu/ops/boxes.py`` (the reference's
 ``DeltaXYWHBBoxCoder`` and horizontal-box utilities), with a leading batch
@@ -11,6 +11,11 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+
+def take_per_image(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, P, ...) gathered along P by idx (B, K): JAX's vmapped take."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
 
 def bbox_overlaps(boxes1: torch.Tensor, boxes2: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -35,13 +40,32 @@ def clip_to_shape(boxes: torch.Tensor, hw: torch.Tensor) -> torch.Tensor:
 
 
 class DeltaXYWHBBoxCoder:
-    """(dx, dy, dw, dh) decoding with target normalisation; dw/dh clamp at
-    log(wh_ratio_clip)."""
+    """(dx, dy, dw, dh) coding with target normalisation; decoding clamps
+    dw/dh at log(wh_ratio_clip)."""
 
     def __init__(self, target_means: Sequence[float] = (0.0, 0.0, 0.0, 0.0),
                  target_stds: Sequence[float] = (1.0, 1.0, 1.0, 1.0)):
         self.means = np.asarray(target_means, np.float32)
         self.stds = np.asarray(target_stds, np.float32)
+
+    def encode(self, boxes: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+        """boxes (..., 4) proposals, gt (..., 4) targets -> deltas (..., 4)."""
+        eps = 1e-6
+        pw = (boxes[..., 2] - boxes[..., 0]).clamp(min=eps)
+        ph = (boxes[..., 3] - boxes[..., 1]).clamp(min=eps)
+        px = (boxes[..., 0] + boxes[..., 2]) * 0.5
+        py = (boxes[..., 1] + boxes[..., 3]) * 0.5
+        gw = (gt[..., 2] - gt[..., 0]).clamp(min=eps)
+        gh = (gt[..., 3] - gt[..., 1]).clamp(min=eps)
+        gx = (gt[..., 0] + gt[..., 2]) * 0.5
+        gy = (gt[..., 1] + gt[..., 3]) * 0.5
+        deltas = torch.stack(
+            [(gx - px) / pw, (gy - py) / ph, torch.log(gw / pw), torch.log(gh / ph)],
+            dim=-1,
+        )
+        means = torch.as_tensor(self.means, device=deltas.device)
+        stds = torch.as_tensor(self.stds, device=deltas.device)
+        return (deltas - means) / stds
 
     def decode(self, boxes: torch.Tensor, deltas: torch.Tensor,
                wh_ratio_clip: float = 16 / 1000) -> torch.Tensor:

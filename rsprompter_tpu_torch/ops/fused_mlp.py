@@ -1,29 +1,36 @@
-"""Kernels A and B of the ViT trunk, each beside its plain torch version.
+"""Kernels A and B of the ViT trunk and their backwards, each beside its
+plain torch version.
 
 Kernel A, ``ln_mlp_residual`` (``csrc/ln_mlp_residual.cu``), replaces the TPU
 kernel ``rsprompter_tpu/ops/fused_mlp.py:_kernel`` (``fused_mlp_residual``):
 x + fc2(gelu_erf(fc1(LN(x)))), tensor-core bound on the H100 (77.3 GFLOP per
 ViT-B layer at batch 2); the kernel keeps the (T, 4C) hidden activation out of
-device memory (see the source note).
+device memory (see the source note). Its backward A'
+(``csrc/ln_mlp_residual_bwd.cu``) replaces ``_mlp_bwd_kernel``.
 
 Kernel B, ``ln_qkv_headmajor`` (``csrc/ln_qkv_headmajor.cu``), replaces
 ``_ln_qkv_kernel`` (``fused_ln_qkv``, global layers) and
 ``_strip_qkv_kernel`` (``fused_qkv_window_pair``, windowed layers): LN then
 the qkv product, written head-major (N, 3n, S, d), with the window partition
 and its zero pad done in the kernel's row addressing. Tensor-core bound
-(29 GFLOP per layer).
+(29 GFLOP per layer). Its backward B' (``csrc/ln_qkv_headmajor_bwd.cu``)
+replaces ``_ln_qkv_bwd_kernel`` and ``_strip_qkv_bwd_kernel``.
 
-The wrappers take the plain version only for tensors on the CPU. For CUDA
-tensors they launch the kernel or raise. Rounding points follow the JAX
-kernels: LN statistics in fp32 with the normalised row cast to the input
-dtype, each product accumulated in fp32 and cast before its bias add, exact
-(erf) GELU in fp32.
+The public functions are ``torch.autograd.Function``s: their forward is the
+kernel, their backward the backward kernel, for CUDA tensors; for tensors on
+the CPU both are the plain versions. A CUDA tensor gets the kernel or an
+exception, never a plain fallback. Rounding points follow the JAX kernels:
+LN statistics in fp32 with the normalised row cast to the input dtype, each
+product accumulated in fp32 and cast before its bias add, exact (erf) GELU in
+fp32; in the backwards the gradient of the hidden activation (and the
+attention's dS) is cast to the input dtype before its products.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,10 +45,20 @@ LN_MLP_RESIDUAL = CudaKernel(
     "ln_mlp_residual", "ln_mlp_residual.cu", "rsp_ln_mlp_residual",
     [_P] * 8 + [_I] * 3 + [_F, _P],
 )
+LN_MLP_RESIDUAL_BWD = CudaKernel(
+    "ln_mlp_residual_bwd", "ln_mlp_residual_bwd.cu", "rsp_ln_mlp_residual_bwd",
+    [_P] * 20 + [_I] * 3 + [_F, _P],
+)
 LN_QKV_HEADMAJOR = CudaKernel(
     "ln_qkv_headmajor", "ln_qkv_headmajor.cu", "rsp_ln_qkv_headmajor",
     [_P] * 6 + [_I] * 6 + [_F, _P],
 )
+LN_QKV_HEADMAJOR_BWD = CudaKernel(
+    "ln_qkv_headmajor_bwd", "ln_qkv_headmajor_bwd.cu", "rsp_ln_qkv_headmajor_bwd",
+    [_P] * 14 + [_I] * 6 + [_F, _P],
+)
+_NULL = ctypes.c_void_p(None)
+_COLSUM_ROWS = 64  # rows per partial of the kernels' column sums
 
 
 def layer_norm(x: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:
@@ -53,8 +70,40 @@ def layer_norm(x: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def _ln_stats(xf: torch.Tensor, eps: float):
+    """fp32 (xhat, rstd) of the last axis (JAX ``_ln_stats``)."""
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    return (xf - mu) * rstd, rstd
+
+
+def _ln_bwd(dz: torch.Tensor, scale: torch.Tensor, xhat: torch.Tensor, rstd):
+    """LN backward given its stats (JAX ``_ln_bwd_block``), all fp32 and
+    (rows, C): returns (dx, dscale, dbias)."""
+    dscale = (dz * xhat).sum(dim=0)
+    dbias = dz.sum(dim=0)
+    dxhat = dz * scale
+    dx = rstd * (
+        dxhat - dxhat.mean(dim=-1, keepdim=True)
+        - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True)
+    )
+    return dx, dscale, dbias
+
+
+def gelu_grad(hf: torch.Tensor) -> torch.Tensor:
+    """d/dh of the exact GELU in fp32: Phi(h) + h * phi(h)."""
+    cdf = 0.5 * (1.0 + torch.erf(hf * (1.0 / math.sqrt(2.0))))
+    pdf = torch.exp(-0.5 * hf * hf) * (1.0 / math.sqrt(2.0 * math.pi))
+    return cdf + hf * pdf
+
+
+def _bwd_scratch(device, *shapes_dtypes):
+    return [torch.empty(s, dtype=d, device=device) for s, d in shapes_dtypes]
+
+
 # --------------------------------------------------------------------------
-# Kernel A
+# Kernel A and A'
 # --------------------------------------------------------------------------
 
 
@@ -68,10 +117,32 @@ def ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6):
     return x + (g @ w2.to(dt).t()) + b2.to(dt)
 
 
-def ln_mlp_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6):
-    """Kernel A on CUDA tensors (bf16 x and weights, fp32 LN params)."""
-    if x.device.type == "cpu":
-        return ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+def ln_mlp_residual_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, dout,
+                              eps: float = 1e-6):
+    """Backward of :func:`ln_mlp_residual_plain`, step by step as the JAX
+    kernel body ``_mlp_bwd_kernel`` computes it. Returns (dx, dln_w, dln_b,
+    dw1, db1, dw2, db2), each in its input's dtype."""
+    dt = x.dtype
+    xhat, rstd = _ln_stats(x.float(), eps)
+    z = (xhat * ln_w.float() + ln_b.float()).to(dt)
+    h = (z.float() @ w1.to(dt).float().t()).to(dt) + b1.to(dt)
+    hf = h.float()
+    gel = F.gelu(hf, approximate="none").to(dt)
+    do = dout.to(dt)
+    dgl = do.float() @ w2.to(dt).float()  # (T, M)
+    dw2 = do.float().t() @ gel.float()  # (C, M)
+    db2 = do.float().sum(dim=0)
+    dh = (dgl * gelu_grad(hf)).to(dt)
+    dw1 = dh.float().t() @ z.float()  # (M, C)
+    db1 = dh.float().sum(dim=0)
+    dz = dh.float() @ w1.to(dt).float()  # (T, C)
+    dx_ln, dsc, dbi = _ln_bwd(dz, ln_w.float(), xhat, rstd)
+    dx = (do.float() + dx_ln).to(dt)
+    return (dx, dsc.to(ln_w.dtype), dbi.to(ln_b.dtype), dw1.to(w1.dtype),
+            db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype))
+
+
+def _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2):
     t, c = x.shape
     m = w1.shape[0]
     bf = torch.bfloat16
@@ -84,6 +155,13 @@ def ln_mlp_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6):
     check_cuda_tensor("b2", b2, bf, (c,))
     if c != 768 or m % 32:  # ViT-B's width; ViT-L/H come with their checks
         raise ValueError(f"ln_mlp_residual: unsupported widths C={c}, M={m}")
+    return t, c, m
+
+
+def _ln_mlp_residual_fwd(x, ln_w, ln_b, w1, b1, w2, b2, eps):
+    if x.device.type == "cpu":
+        return ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    t, c, m = _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2)
     out = torch.empty_like(x)
     LN_MLP_RESIDUAL.launch(
         ptr(x), ptr(ln_w), ptr(ln_b), ptr(w1), ptr(b1), ptr(w2), ptr(b2),
@@ -92,14 +170,85 @@ def ln_mlp_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6):
     return out
 
 
+def ln_mlp_residual_bwd(x, ln_w, ln_b, w1, b1, w2, b2, dout, eps: float = 1e-6):
+    """Kernel A' on CUDA tensors (the plain backward on the CPU): the
+    gradients of :func:`ln_mlp_residual` given dO."""
+    if x.device.type == "cpu":
+        return ln_mlp_residual_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, dout, eps)
+    t, c, m = _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2)
+    check_cuda_tensor("dout", dout, torch.bfloat16, (t, c))
+    f32, bf = torch.float32, torch.bfloat16
+    chunks = -(-t // _COLSUM_ROWS)
+    dx, dg, dbb, dw1, db1, dw2, db2, z, stats, hg, dh, dz, part = _bwd_scratch(
+        x.device, ((t, c), bf), ((c,), f32), ((c,), f32), ((m, c), f32),
+        ((m,), f32), ((c, m), f32), ((c,), f32), ((t, c), bf), ((2, t), f32),
+        ((t, m), bf), ((t, m), bf), ((t, c), f32), ((chunks, m), f32),
+    )
+    LN_MLP_RESIDUAL_BWD.launch(
+        ptr(x), ptr(ln_w), ptr(ln_b), ptr(w1), ptr(b1), ptr(w2), ptr(dout),
+        ptr(dx), ptr(dg), ptr(dbb), ptr(dw1), ptr(db1), ptr(dw2), ptr(db2),
+        ptr(z), ptr(stats), ptr(hg), ptr(dh), ptr(dz), ptr(part), t, c, m, eps,
+    )
+    return (dx, dg, dbb, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+            db2.to(b2.dtype))
+
+
+class _LnMlpResidual(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
+        ctx.eps = eps
+        return _ln_mlp_residual_fwd(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        grads = ln_mlp_residual_bwd(*ctx.saved_tensors, dout.contiguous(), ctx.eps)
+        return (*grads, None)
+
+
+def ln_mlp_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6):
+    """Kernel A on CUDA tensors (bf16 x and weights, fp32 LN params), with
+    A' as its backward; the plain versions on the CPU."""
+    return _LnMlpResidual.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+
+
 # --------------------------------------------------------------------------
-# Kernel B
+# Kernel B and B'
 # --------------------------------------------------------------------------
 
 
 def window_grid(h: int, w: int, window: int):
     """(windows along h, windows along w) of the zero-padded grid."""
     return -(-h // window), -(-w // window)
+
+
+def window_partition(z: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, H, W, C) -> (N, S, C): zero-pad to the window multiple and
+    partition (window == 0: one row set per image)."""
+    bsz, hh, ww, c = z.shape
+    if not window:
+        return z.reshape(bsz, hh * ww, c)
+    nwy, nwx = window_grid(hh, ww, window)
+    z = F.pad(z, (0, 0, 0, nwx * window - ww, 0, nwy * window - hh))
+    return (
+        z.reshape(bsz, nwy, window, nwx, window, c)
+        .permute(0, 1, 3, 2, 4, 5)
+        .reshape(bsz * nwy * nwx, window * window, c)
+    )
+
+
+def window_unpartition(y: torch.Tensor, grid: Tuple[int, int, int], window: int):
+    """Inverse of :func:`window_partition`, cropping the pad: (N, S, C) -> (B, H, W, C)."""
+    bsz, hh, ww = grid
+    c = y.shape[-1]
+    if not window:
+        return y.reshape(bsz, hh, ww, c)
+    nwy, nwx = window_grid(hh, ww, window)
+    return (
+        y.reshape(bsz, nwy, nwx, window, window, c)
+        .permute(0, 1, 3, 2, 4, 5)
+        .reshape(bsz, nwy * window, nwx * window, c)[:, :hh, :ww]
+    )
 
 
 def ln_qkv_headmajor_plain(
@@ -117,29 +266,52 @@ def ln_qkv_headmajor_plain(
     window == 0: N = B, S = H*W. window > 0: the grid is zero-padded AFTER
     the LayerNorm to a multiple of ``window`` and partitioned, N = B*nW,
     S = window^2 (windows in row-major order)."""
-    bsz, hh, ww, c = x.shape
     dt = x.dtype
     z = layer_norm(x, ln_w, ln_b, eps) if ln_w is not None else x
-    if window:
-        nwy, nwx = window_grid(hh, ww, window)
-        z = F.pad(z, (0, 0, 0, nwx * window - ww, 0, nwy * window - hh))
-        z = (
-            z.reshape(bsz, nwy, window, nwx, window, c)
-            .permute(0, 1, 3, 2, 4, 5)
-            .reshape(bsz * nwy * nwx, window * window, c)
-        )
-    else:
-        z = z.reshape(bsz, hh * ww, c)
-    y = (z @ w.to(dt).t()) + b.to(dt)
+    y = (window_partition(z, window) @ w.to(dt).t()) + b.to(dt)
     n, s, o = y.shape
     return y.reshape(n, s, heads3, o // heads3).permute(0, 2, 1, 3).contiguous()
 
 
-def ln_qkv_headmajor(x, ln_w, ln_b, w, b, heads3: int, window: int = 0,
-                     eps: float = 1e-6):
-    """Kernel B on CUDA tensors (bf16 x and weights, fp32 LN params)."""
-    if x.device.type == "cpu":
-        return ln_qkv_headmajor_plain(x, ln_w, ln_b, w, b, heads3, window, eps)
+def ln_qkv_headmajor_bwd_plain(x, ln_w, ln_b, w, b, dy, heads3: int,
+                               window: int = 0, eps: float = 1e-6):
+    """Backward of :func:`ln_qkv_headmajor_plain`, as the JAX kernel bodies
+    ``_ln_qkv_bwd_kernel`` / ``_strip_qkv_bwd_kernel`` compute it (fp32
+    products of the dtype's values, dx cast to x's dtype). Window pad rows
+    carry z = 0 and feed no token, but their dy adds to db. Returns (dx,
+    dln_w, dln_b, dw, db); the LN grads are None without LN."""
+    bsz, hh, ww, c = x.shape
+    dt = x.dtype
+    if ln_w is not None:
+        xhat, rstd = _ln_stats(x.float(), eps)
+        z = (xhat * ln_w.float() + ln_b.float()).to(dt)
+    else:
+        z = x
+    zr = window_partition(z, window)  # (N, S, C)
+    n, s, _ = zr.shape
+    k = heads3 * dy.shape[-1]
+    dyf = dy.to(dt).float().permute(0, 2, 1, 3).reshape(n * s, k)
+    dw = dyf.t() @ zr.float().reshape(n * s, c)  # (K, C)
+    db = dyf.sum(dim=0)
+    dz = window_unpartition((dyf @ w.to(dt).float()).reshape(n, s, c), (bsz, hh, ww), window)
+    if ln_w is None:
+        return dz.to(dt), None, None, dw.to(w.dtype), db.to(b.dtype)
+    dx, dsc, dbi = _ln_bwd(
+        dz.reshape(-1, c), ln_w.float(), xhat.reshape(-1, c), rstd.reshape(-1, 1)
+    )
+    return (dx.reshape(x.shape).to(dt), dsc.to(ln_w.dtype), dbi.to(ln_b.dtype),
+            dw.to(w.dtype), db.to(b.dtype))
+
+
+def _qkv_rows(x, heads3: int, window: int):
+    bsz, hh, ww, _ = x.shape
+    if window:
+        nwy, nwx = window_grid(hh, ww, window)
+        return bsz * nwy * nwx, window * window
+    return bsz, hh * ww
+
+
+def _check_qkv_args(x, ln_w, ln_b, w, b, heads3):
     bsz, hh, ww, c = x.shape
     bf = torch.bfloat16
     check_cuda_tensor("x", x, bf, (bsz, hh, ww, c))
@@ -150,17 +322,70 @@ def ln_qkv_headmajor(x, ln_w, ln_b, w, b, heads3: int, window: int = 0,
         check_cuda_tensor("ln_b", ln_b, torch.float32, (c,))
     if c % 64:
         raise ValueError(f"ln_qkv_headmajor: C={c} is not a multiple of 64")
-    if window:
-        nwy, nwx = window_grid(hh, ww, window)
-        n, s = bsz * nwy * nwx, window * window
-    else:
-        n, s = bsz, hh * ww
-    out = torch.empty((n, heads3, s, 64), dtype=bf, device=x.device)
-    null = ctypes.c_void_p(None)
+
+
+def _ln_qkv_headmajor_fwd(x, ln_w, ln_b, w, b, heads3, window, eps):
+    if x.device.type == "cpu":
+        return ln_qkv_headmajor_plain(x, ln_w, ln_b, w, b, heads3, window, eps)
+    _check_qkv_args(x, ln_w, ln_b, w, b, heads3)
+    bsz, hh, ww, c = x.shape
+    n, s = _qkv_rows(x, heads3, window)
+    out = torch.empty((n, heads3, s, 64), dtype=torch.bfloat16, device=x.device)
     LN_QKV_HEADMAJOR.launch(
-        ptr(x), ptr(ln_w) if ln_w is not None else null,
-        ptr(ln_b) if ln_b is not None else null, ptr(w), ptr(b), ptr(out),
+        ptr(x), ptr(ln_w) if ln_w is not None else _NULL,
+        ptr(ln_b) if ln_b is not None else _NULL, ptr(w), ptr(b), ptr(out),
         bsz, hh, ww, c, heads3, window, eps,
         variant="window" if window else "global",
     )
     return out
+
+
+def ln_qkv_headmajor_bwd(x, ln_w, ln_b, w, b, dy, heads3: int, window: int = 0,
+                         eps: float = 1e-6):
+    """Kernel B' on CUDA tensors (the plain backward on the CPU): the
+    gradients of :func:`ln_qkv_headmajor` given dy (N, heads3, S, 64)."""
+    if x.device.type == "cpu":
+        return ln_qkv_headmajor_bwd_plain(x, ln_w, ln_b, w, b, dy, heads3, window, eps)
+    _check_qkv_args(x, ln_w, ln_b, w, b, heads3)
+    bsz, hh, ww, c = x.shape
+    n, s = _qkv_rows(x, heads3, window)
+    check_cuda_tensor("dy", dy, torch.bfloat16, (n, heads3, s, 64))
+    t, k = bsz * hh * ww, heads3 * 64
+    f32 = torch.float32
+    chunks = -(-(n * s) // _COLSUM_ROWS)  # db sums every output row, pad rows too
+    dx, dg, dbb, dw, db, z, stats, dz, part = _bwd_scratch(
+        x.device, (x.shape, torch.bfloat16), ((c,), f32), ((c,), f32),
+        ((k, c), f32), ((k,), f32), ((t, c), torch.bfloat16), ((2, t), f32),
+        ((t, c), f32), ((chunks, k), f32),
+    )
+    with_ln = ln_w is not None
+    LN_QKV_HEADMAJOR_BWD.launch(
+        ptr(x), ptr(ln_w) if with_ln else _NULL, ptr(ln_b) if with_ln else _NULL,
+        ptr(w), ptr(dy), ptr(dx), ptr(dg), ptr(dbb), ptr(dw), ptr(db), ptr(z),
+        ptr(stats), ptr(dz), ptr(part), bsz, hh, ww, c, heads3, window,
+        eps, variant="window" if window else "global",
+    )
+    if not with_ln:
+        dg = dbb = None
+    return dx, dg, dbb, dw.to(w.dtype), db.to(b.dtype)
+
+
+class _LnQkvHeadmajor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w, b, heads3, window, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, w, b)
+        ctx.args = (heads3, window, eps)
+        return _ln_qkv_headmajor_fwd(x, ln_w, ln_b, w, b, heads3, window, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, ln_w, ln_b, w, b = ctx.saved_tensors
+        grads = ln_qkv_headmajor_bwd(x, ln_w, ln_b, w, b, dy.contiguous(), *ctx.args)
+        return (*grads, None, None, None)
+
+
+def ln_qkv_headmajor(x, ln_w, ln_b, w, b, heads3: int, window: int = 0,
+                     eps: float = 1e-6):
+    """Kernel B on CUDA tensors (bf16 x and weights, fp32 LN params), with
+    B' as its backward; the plain versions on the CPU."""
+    return _LnQkvHeadmajor.apply(x, ln_w, ln_b, w, b, heads3, window, eps)

@@ -148,7 +148,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_port_import_loads_no_jax():
     code = (
         "import sys; import rsprompter_tpu_torch.apis.inference, "
-        "rsprompter_tpu_torch.utils.convert; "
+        "rsprompter_tpu_torch.utils.convert, rsprompter_tpu_torch.engine.train_state, "
+        "rsprompter_tpu_torch.utils.synthetic; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rsprompter_tpu')]; "
         "assert not bad, bad"
     )
