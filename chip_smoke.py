@@ -13,7 +13,10 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    card, at the shapes of the main path (SAM ViT-B, 1024^2, batch 2), bf16
    inputs from a seed against an fp32 plain reference, with the time of the
    kernel, of the plain version, of one PyTorch library call where one
-   computes the same function, and the least time the card could take;
+   computes the same function, and the least time the card could take; the
+   encoder's 'flash' route adds K12' (qkv without LN) at the windowed and
+   global shapes and reports kernel C there under K10, and kernel C at three
+   heads stands for K11;
 3. main path: RSPrompter-anchor predict at ViT-B 1024^2, batch 2, bf16, with
    seeded random weights, through ``init_detector`` / ``inference_detector``;
    launch counters show that every encoder layer went through the kernels; the
@@ -56,6 +59,7 @@ from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "rsprompter", "rsprompter_anchor-nwpu.py")
+QUERY_CONFIG = os.path.join(ROOT, "configs", "rsprompter", "rsprompter_query-nwpu.py")
 TRAIN_CONFIG = os.path.join(ROOT, "configs", "rsprompter", "rsprompter_anchor-nwpu-scratch-512.py")
 TRAIN_STEPS_PER_EPOCH = 130  # NWPU's 520 training images at batch 4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -217,7 +221,67 @@ def kernel_phase(dev):
             plain_ms=cuda_time_ms(lambda: fa.relpos_attention_plain(qkv, fh, fw, hw)),
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
         ))
+
+    # --- K10': kernel C on the 'flash' route, at K3's and K5's shapes --------
+    flash_replaces = {"global": "rsprompter_tpu/ops/flash_attention.py:37",
+                      "window": "rsprompter_tpu/ops/flash_attention.py:101"}
+    for r in [r for r in rows if r["kernel"] is fa.RELPOS_ATTENTION]:
+        rows.append(dict(r, name=f"relpos_attention/flash-{r['variant']}",
+                         replaces=flash_replaces[r["variant"]], path="query_flash"))
+
+    # --- K11': kernel C at an odd head count (three heads, window shape) ----
+    heads3, n_img, hw = 3, bsz * 25, (win, win)
+    s = hw[0] * hw[1]
+    qkv = rnd(n_img, 3 * heads3, s, 64)
+    fh = rnd(n_img, heads3, s, hw[0], scale=0.5)
+    fw = rnd(n_img, heads3, s, hw[1], scale=0.5)
+    got = fa.relpos_attention(qkv, fh, fw, hw)
+    torch.cuda.synchronize()
+    err = compare("relpos_attention/odd-heads", got,
+                  fa.relpos_attention_plain(qkv.float(), fh.float(), fw.float(), hw))
+    q, k, v = qkv[:, :heads3], qkv[:, heads3 : 2 * heads3], qkv[:, 2 * heads3 :]
+    bias = (fh[..., :, None] + fw[..., None, :]).reshape(n_img, heads3, s, s)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=bias))
+    del bias
+    b_ms, b_by = bound_ms(4.0 * n_img * heads3 * s * s * 64,
+                          (qkv.numel() + fh.numel() + fw.numel() + got.numel()) * 2)
+    rows.append(dict(
+        name="relpos_attention/odd-heads", kernel=fa.RELPOS_ATTENTION, variant="window/odd",
+        route="cuda", source="rsprompter_tpu_torch/csrc/relpos_attention.cu",
+        replaces="rsprompter_tpu/ops/fused_vit_attention.py:254", path=None,
+        shape=f"qkv {tuple(qkv.shape)} bf16, factors h={hw[0]} w={hw[1]}",
+        max_abs_err=err, ms=cuda_time_ms(lambda: fa.relpos_attention(qkv, fh, fw, hw)),
+        plain_ms=cuda_time_ms(lambda: fa.relpos_attention_plain(qkv, fh, fw, hw)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+    ))
+
+    # --- K12': qkv_headmajor (kernel B without LN), global and window -------
+    for variant, n_img, s in (("global", bsz, grid * grid), ("window", bsz * 25, win * win)):
+        xf = rnd(n_img * s, c)
+        a = (xf, wq, bq, 3 * heads, n_img)
+        got = fm.qkv_headmajor(*a)
+        torch.cuda.synchronize()
+        err = compare(f"qkv_headmajor/{variant}", got,
+                      fm.qkv_headmajor_plain(*[v.float() if torch.is_tensor(v) else v for v in a]))
+
+        def library(xf=xf, n_img=n_img, s=s):
+            y = torch.nn.functional.linear(xf, wq, bq)
+            return y.reshape(n_img, s, 3 * heads, 64).permute(0, 2, 1, 3).contiguous()
+
+        b_ms, b_by = bound_ms(2.0 * n_img * s * c * 3 * c,
+                              (xf.numel() + wq.numel() + bq.numel() + got.numel()) * 2)
+        rows.append(dict(
+            name=f"qkv_headmajor/{variant}", kernel=fm.QKV_HEADMAJOR, variant=variant,
+            route="cuda", source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor.cu",
+            replaces="rsprompter_tpu/ops/fused_mlp.py:154", path="query_flash",
+            shape=f"x {tuple(xf.shape)} -> {tuple(got.shape)} bf16", max_abs_err=err,
+            ms=cuda_time_ms(lambda: fm.qkv_headmajor(*a)),
+            plain_ms=cuda_time_ms(lambda: fm.qkv_headmajor_plain(*a)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(library),
+        ))
     for r in rows:
+        r.setdefault("path", "anchor_predict")
         log(f"kernel {r['name']}: {r['shape']}; max_abs_err {r['max_abs_err']:.4g} "
             f"(tol {TOL} x max|plain|); kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
@@ -287,6 +351,7 @@ def main_path_phase(kernels, iters: int, profile_dir: str = ""):
         "ln_mlp_residual": {"": depth * iters},
         "ln_qkv_headmajor": per_kind,
         "relpos_attention": per_kind,
+        "qkv_headmajor": {},
     }
     for name, want in expect.items():
         if counts[name] != want:
@@ -500,6 +565,7 @@ def backward_kernel_phase(dev):
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
         ))
     for r in rows:
+        r["path"] = "train_step"
         log(f"kernel {r['name']}: {r['shape']}; max_abs_err {r['max_abs_err']:.4g} "
             f"(tol {TOL} x max|plain| per output); kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
@@ -601,6 +667,7 @@ def train_phase(kernels, iters: int, profile_dir: str = ""):
         "ln_mlp_residual": {"": depth * iters}, "ln_qkv_headmajor": per_kind,
         "relpos_attention": per_kind, "ln_mlp_residual_bwd": {"": depth * iters},
         "ln_qkv_headmajor_bwd": per_kind, "relpos_attention_bwd": per_kind,
+        "qkv_headmajor": {},
     }
     for name, want in expect.items():
         if counts[name] != want:
@@ -763,6 +830,235 @@ def gradient_phase(model, opt, loss_fn):
             raise AssertionError(f"gradient check: {n} has a zero gradient")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: RSPrompter-query predict on both encoder routes
+# ---------------------------------------------------------------------------
+
+# The last decoder layer's class and mask logits through the kernels against
+# the plain versions, max|diff| / max|plain| each: about twice the worst
+# reading on an H100 (class 0.06723, mask 0.06696 on 'fused'; the bf16 noise
+# of the encoder passes through six decoder layers whose attention masks
+# threshold logits at 0, so single queries move).
+QUERY_LOGIT_TOL = 0.15
+
+
+def stage_ms(stages, run, iters: int = 5):
+    """Stream time of each stage in one call of ``run``: CUDA events recorded
+    when each of the stage's modules is entered and left, the intervals
+    summed over the call (a module may run several times); the median over
+    ``iters`` calls. It counts the stream's gaps inside a stage (host launch
+    time) too, so it is the stage's share of the forward, not its busy time."""
+    import torch
+
+    events = {name: [] for name in stages}
+    hooks = []
+    for name, mods in stages.items():
+        for mod in mods:
+            def pre(_m, _a, name=name):
+                events[name].append([torch.cuda.Event(enable_timing=True)])
+                events[name][-1][0].record()
+
+            def post(_m, _a, _o, name=name):
+                events[name][-1].append(torch.cuda.Event(enable_timing=True))
+                events[name][-1][1].record()
+
+            hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    per_call = {name: [] for name in stages}
+    try:
+        for _ in range(iters):
+            for ev in events.values():
+                ev.clear()
+            run()
+            torch.cuda.synchronize()
+            for name, ev in events.items():
+                per_call[name].append(sum(a.elapsed_time(b) for a, b in ev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return {name: statistics.median(v) for name, v in per_call.items()}
+
+
+def rel_diff(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+
+
+def query_phase(kernels, iters: int, profile_dir: str = ""):
+    """Returns {route: launch counts over the timed forwards}."""
+    import numpy as np
+    import torch
+
+    from rsprompter_tpu_torch.apis.inference import inference_detector, init_detector
+    from rsprompter_tpu_torch.core.config import Config
+    from rsprompter_tpu_torch.models.preprocess import preprocess_images
+
+    models = {}
+    for impl in ("fused", "flash"):
+        cfg = Config.fromfile(QUERY_CONFIG)
+        cfg.merge_from_options({"model.attn_impl": impl})
+        weights = None if impl == "fused" else models["fused"].model.state_dict()
+        models[impl] = init_detector(cfg, checkpoint=weights, device="cuda", batch_size=2,
+                                     seed=0)
+    vcfg = models["fused"].model.backbone.config
+    depth, n_global = vcfg.num_hidden_layers, len(vcfg.global_attn_indexes)
+    per_kind = {"global": n_global * iters, "window": (depth - n_global) * iters}
+    expect = {
+        "fused": {"ln_mlp_residual": {"": depth * iters}, "ln_qkv_headmajor": per_kind,
+                  "relpos_attention": per_kind, "qkv_headmajor": {}},
+        "flash": {"ln_mlp_residual": {}, "ln_qkv_headmajor": {},
+                  "relpos_attention": per_kind, "qkv_headmajor": per_kind},
+    }
+    imgs = synthetic_images(0)
+    counts, medians = {}, {}
+    for impl, model in models.items():
+        inference_detector(model, imgs)  # warm-up
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            preds = inference_detector(model, imgs)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts[impl] = {k.name: dict(k.variant_launches) for k in kernels}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        for k in kernels:
+            want = expect[impl].get(k.name, {})
+            if counts[impl][k.name] != want:
+                raise AssertionError(f"query/{impl}: {k.name} launches "
+                                     f"{counts[impl][k.name]}, expected {want}")
+        n_dets = []
+        for img, p in zip(imgs, preds):
+            h, w = img.shape[:2]
+            if not (np.isfinite(p["bboxes"]).all() and np.isfinite(p["scores"]).all()):
+                raise AssertionError(f"query/{impl}: non-finite detections")
+            if len(p["scores"]) == 0:
+                raise AssertionError(f"query/{impl}: no detections")
+            if p["masks"].shape != (len(p["scores"]), h, w) or p["masks"].dtype != np.bool_:
+                raise AssertionError(f"query/{impl}: masks {p['masks'].shape}")
+            if not ((p["scores"] >= 0) & (p["scores"] <= 1)).all():
+                raise AssertionError(f"query/{impl}: scores outside [0, 1]")
+            n_dets.append(len(p["scores"]))
+        ms = medians[impl] = statistics.median(times)
+        log(f"query predict, attn_impl={impl!r}: launches over {iters} forwards "
+            f"{ {n: c for n, c in counts[impl].items() if c} }")
+        log(f"query predict, attn_impl={impl!r}: RSPrompter-query, ViT-B 1024^2, batch 2, "
+            f"bf16: {ms:.2f} ms/batch median of {iters} "
+            f"({', '.join(f'{t:.2f}' for t in times)}), {2e3 / ms:.3f} images/s; peak "
+            f"device memory {peak_gb:.2f} GiB; detections per image {n_dets}")
+
+    # where the time of one forward goes, by stage, on each route
+    batch, _ = models["fused"].make_batch(imgs)
+    for impl, model in models.items():
+        det = model.model
+        head = det.panoptic_head
+        stages = {
+            "encoder": [det.backbone],
+            "neck": [det.neck_feature_aggregator, det.neck_feature_spliter],
+            "pixel decoder": [head.pixel_decoder],
+            "Mask2Former decoder layers": list(head.transformer_decoder.layers),
+            "dense prompts (SamMaskEmbedding)": [head.sam_mask_embed],
+            "SAM mask decoder (140 prompts)": [head.mask_decoder],
+            "query head": [head],
+        }
+        split = stage_ms(stages, lambda: det.predict(batch))
+        whole = cuda_time_ms(lambda: det.predict(batch), warmup=1, iters=5)
+        rest = split.pop("query head") - sum(split[k] for k in list(split)[2:])
+        split["per-layer heads (class, prompts, masks, attention masks)"] = rest
+        log(f"query/{impl}: stream ms per stage of model.predict ({whole:.2f} ms in all, "
+            f"host image pipeline and mask finalisation excluded): "
+            + "; ".join(f"{k} {v:.2f}" for k, v in split.items()))
+
+    # the two routes' encoders, and each against its plain versions
+    x = preprocess_images(batch["images"])
+    out, enc_ms = {}, {}
+    with torch.no_grad():
+        for impl, model in models.items():
+            enc = model.model.backbone
+            for mode in ("kernel", "plain"):
+                enc.impl = mode
+                out[impl, mode] = enc(x)
+                enc_ms[impl, mode] = cuda_time_ms(lambda: enc(x), warmup=1, iters=5)
+            enc.impl = "kernel"
+        enc = models["flash"].model.backbone
+        tables = [t for n, t in enc.named_parameters() if n.endswith(("rel_pos_h", "rel_pos_w"))]
+        saved = [t.clone() for t in tables]
+        for t in tables:
+            t.zero_()
+        enc.impl = "plain"
+        out_nobias = enc(x)
+        enc.impl = "kernel"
+        for t, v in zip(tables, saved):
+            t.copy_(v)
+    readings = {
+        "flash vs fused (kernels)": worst_rel_diff(out["flash", "kernel"], out["fused", "kernel"]),
+        "fused kernels vs plain": worst_rel_diff(out["fused", "kernel"], out["fused", "plain"]),
+        "flash kernels vs plain": worst_rel_diff(out["flash", "kernel"], out["flash", "plain"]),
+        "flash plain vs fused plain": worst_rel_diff(out["flash", "plain"], out["fused", "plain"]),
+    }
+    bias_effect = worst_rel_diff(out_nobias, out["flash", "plain"])
+    log("query encoder, worst max|diff|/max|ref| over neck + 13 hidden states: "
+        + "; ".join(f"{k} {v:.4g}" for k, v in readings.items())
+        + f" (tol {ENCODER_TOL}); flash plain with the rel-pos tables zeroed {bias_effect:.4g}; "
+        + "encoder forward ms: " + ", ".join(f"{i} {m} {t:.2f}" for (i, m), t in enc_ms.items()))
+    for what, v in readings.items():
+        if v > ENCODER_TOL:
+            raise AssertionError(f"query encoder: {what} {v:.4g} > {ENCODER_TOL}")
+    if bias_effect < 2 * ENCODER_TOL:
+        raise AssertionError(f"query encoder: zeroing the rel-pos tables moves it by "
+                             f"{bias_effect:.4g}, too little for the comparison to see")
+    del out, out_nobias
+
+    # the last layer's logits through the kernels against plain, and the
+    # fusion head's outputs
+    for impl, model in models.items():
+        det = model.model
+        cls_k, mask_k = det.predict_logits(batch)
+        det.backbone.impl = "plain"
+        cls_p, mask_p = det.predict_logits(batch)
+        det.backbone.impl = "kernel"
+        r_cls, r_mask = rel_diff(cls_k, cls_p), rel_diff(mask_k, mask_p)
+        flip = ((mask_k > 0) != (mask_p > 0)).float().mean().item()
+        log(f"query/{impl}: last-layer logits, kernels vs plain, max|diff|/max|plain|: class "
+            f"{r_cls:.4g}, mask {r_mask:.4g} (tol {QUERY_LOGIT_TOL}); mask logits "
+            f"{tuple(mask_k.shape)}, sign flips {flip:.3g}")
+        if max(r_cls, r_mask) > QUERY_LOGIT_TOL:
+            raise AssertionError(f"query/{impl}: logits kernels vs plain {r_cls:.4g} / "
+                                 f"{r_mask:.4g} > {QUERY_LOGIT_TOL}")
+        dets, probs = det.predict(batch)
+        if not all(torch.isfinite(t.float()).all() for t in (dets.boxes, dets.scores, probs)):
+            raise AssertionError(f"query/{impl}: non-finite detections")
+        if probs.min().item() < 0 or probs.max().item() > 1:
+            raise AssertionError(f"query/{impl}: mask probabilities outside [0, 1]")
+
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(profile_dir, exist_ok=True)
+        for impl, model in models.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                inference_detector(model, imgs)
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
+            with open(os.path.join(profile_dir, f"query_{impl}_profile.txt"), "w") as f:
+                f.write(table)
+            busy = device_busy_ms(prof)
+            log(f"query/{impl} profile: device busy {busy:.2f} ms (union of kernel "
+                f"intervals) in a profiled forward of {wall_ms:.2f} ms; against the "
+                f"unprofiled median {medians[impl]:.2f} ms/batch, idle share "
+                f"{1 - busy / medians[impl]:.4f}")
+            host = {e.key: f"{e.count} calls, {e.cpu_time_total / 1e3:.2f} ms"
+                    for e in prof.key_averages() if e.key in (
+                        "cudaLaunchKernel", "cudaStreamSynchronize", "cudaMemcpyAsync")}
+            log(f"query/{impl} profile, host side (profiled): {host}")
+            log(table[:6000])
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10,
@@ -770,8 +1066,8 @@ def main() -> int:
     parser.add_argument("--train-steps", type=int, default=10,
                         help="timed steps of the train step (after one warm-up)")
     parser.add_argument("--profile-dir", default="",
-                        help="also write torch.profiler tables of one forward and "
-                             "one train step here")
+                        help="also write torch.profiler tables of one forward, one "
+                             "train step and one query forward per route here")
     args = parser.parse_args()
     t_start = time.time()
 
@@ -796,23 +1092,25 @@ def main() -> int:
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
 
     rows = kernel_phase(dev)
-    counts = main_path_phase(kernels, args.iters, args.profile_dir)
-    bwd_rows = backward_kernel_phase(dev)
-    train_counts = train_phase(kernels, args.train_steps, args.profile_dir)
+    paths = {"anchor_predict": main_path_phase(kernels, args.iters, args.profile_dir)}
+    rows += backward_kernel_phase(dev)
+    paths["train_step"] = train_phase(kernels, args.train_steps, args.profile_dir)
+    query = query_phase(kernels, args.iters, args.profile_dir)
+    paths["query_fused"], paths["query_flash"] = query["fused"], query["flash"]
     out = []
-    for r in rows + bwd_rows:
+    for r in rows:
         name, variant = r["kernel"].name, r["variant"]
-        row = {
+        by_path = {p: c[name].get(variant, 0) for p, c in paths.items()}
+        out.append({
             "name": r["name"], "route": r["route"], "source": r["source"],
             "replaces": r["replaces"],
-            "launches": (counts if r in rows else train_counts)[name].get(variant, 0),
+            # on its own path (K11': no path runs an odd head count)
+            "launches": by_path[r["path"]] if r["path"] else 0,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        }
-        if r in rows:  # forward kernels also run in every train step
-            row["train_launches"] = train_counts[name].get(variant, 0)
-        out.append(row)
+            "path": r["path"], "launches_by_path": by_path,
+        })
     log(json.dumps({"kernels": out}))
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
     log(card)

@@ -1,12 +1,17 @@
 """Model builder: reference-flavoured config dict -> torch detector.
 
-Counterpart of ``rsprompter_tpu/apis/build.py`` for the one family this port
-covers so far (``type='RSPrompterAnchor'``, predict and the train step).
-Keeps the key vocabulary (``hf_sam_pretrain_name``, ``prompt_shape``,
-``num_classes``, ``train_cfg``, ``test_cfg``, ``bf16``, ``train_backbone``,
+Counterpart of ``rsprompter_tpu/apis/build.py`` for the families this port
+covers so far: ``type='RSPrompterAnchor'`` (predict and the train step) and
+``type='RSPrompterQuery'`` (predict). Keeps the key vocabulary
+(``hf_sam_pretrain_name``, ``prompt_shape``, ``num_classes``, ``train_cfg``,
+``test_cfg``, ``bf16``, ``attn_impl``, ``train_backbone``,
 ``decoder_freeze``, ``num_samples``, ``pos_fraction``, the tiny-model
 ``vision_config`` override and the ``rpn_strides`` / ``roi_strides``
 ladders), and derives the optimizer's freeze paths (``freeze_paths_for``).
+
+``attn_impl`` picks the encoder's route (``models/sam/vision_encoder.py``):
+``'fused'`` (the default, kernels A, B, C) or ``'flash'`` (K12' and C). Any
+other value raises; the plain versions serve the tests and checks only.
 """
 
 from __future__ import annotations
@@ -17,9 +22,12 @@ import torch
 import torch.nn as nn
 
 from rsprompter_tpu_torch.models.detectors.rsprompter_anchor import RSPrompterAnchor
+from rsprompter_tpu_torch.models.detectors.rsprompter_query import RSPrompterQuery
 from rsprompter_tpu_torch.models.sam.common import (
     Conv2d,
     FastConvTranspose2x2,
+    Fp32Linear,
+    GroupNorm,
     Linear,
     SamLayerNorm,
 )
@@ -41,24 +49,18 @@ def _arch_from_cfg(cfg: Dict[str, Any]) -> str:
     return name
 
 
-def build_detector(model_cfg: Dict[str, Any]) -> RSPrompterAnchor:
+def build_detector(model_cfg: Dict[str, Any]) -> nn.Module:
     """Build the detector module (fp32 parameters) from a config dict."""
     cfg = dict(model_cfg)
     mtype = cfg.pop("type")
-    if mtype != "RSPrompterAnchor":
+    if mtype not in ("RSPrompterAnchor", "RSPrompterQuery"):
         raise NotImplementedError(f"detector type '{mtype}' is not ported to torch yet")
     if cfg.get("peft_config") is not None:
         raise NotImplementedError("LoRA (peft_config) is not ported to torch yet")
-    if cfg.get("mask_loss_resolution", "full") != "full":
-        raise NotImplementedError("mask_loss_resolution='low' is not ported to torch yet")
+    if cfg.get("aggregator_type", "multi") != "multi":
+        raise NotImplementedError("aggregator_type='pseudo' is not ported to torch yet")
     arch = _arch_from_cfg(cfg)
-    kw = {}
-    if cfg.get("vision_config") is not None:
-        kw["vision_config"] = SamVisionConfig(**cfg["vision_config"])
-    for key in ("rpn_strides", "roi_strides"):
-        if cfg.get(key) is not None:
-            kw[key] = tuple(cfg[key])
-    return RSPrompterAnchor(
+    common = dict(
         arch=arch,
         image_size=cfg.get("image_size", 1024),
         num_classes=cfg.get("num_classes", 1),
@@ -66,13 +68,27 @@ def build_detector(model_cfg: Dict[str, Any]) -> RSPrompterAnchor:
         select_layers=tuple(cfg.get("select_layers", _ARCH_SELECT_LAYERS[arch])),
         aggregator_hidden=cfg.get("aggregator_hidden", 32),
         with_sincos=cfg.get("with_sincos", True),
+        test_cfg=cfg.get("test_cfg"),
+        attn_impl=cfg.get("attn_impl", "fused"),
+    )
+    if cfg.get("vision_config") is not None:
+        common["vision_config"] = SamVisionConfig(**cfg["vision_config"])
+    if mtype == "RSPrompterQuery":
+        if not cfg.get("decoder_plus", True):
+            raise NotImplementedError("decoder_plus=False is not ported to torch yet")
+        return RSPrompterQuery(**common)
+    if cfg.get("mask_loss_resolution", "full") != "full":
+        raise NotImplementedError("mask_loss_resolution='low' is not ported to torch yet")
+    for key in ("rpn_strides", "roi_strides"):
+        if cfg.get(key) is not None:
+            common[key] = tuple(cfg[key])
+    return RSPrompterAnchor(
+        **common,
         multimask_output=cfg.get("multimask_output", False),
         num_samples=cfg.get("num_samples", 256),
         pos_fraction=cfg.get("pos_fraction", 0.25),
         freeze_backbone=not cfg.get("train_backbone", False),
         train_cfg=cfg.get("train_cfg"),
-        test_cfg=cfg.get("test_cfg"),
-        **kw,
     )
 
 
@@ -91,7 +107,8 @@ def freeze_paths_for(model_cfg: Dict[str, Any]) -> List[str]:
 
 # modules whose parameters keep fp32 when the model computes in bf16 (the
 # JAX package gives them no compute dtype either)
-_FP32_MODULES = (SamLayerNorm, nn.BatchNorm2d, nn.Embedding, SamPositionalEmbedding)
+_FP32_MODULES = (SamLayerNorm, GroupNorm, nn.BatchNorm2d, nn.Embedding,
+                 SamPositionalEmbedding, Fp32Linear)
 
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype,
@@ -104,7 +121,8 @@ def set_compute_dtype(model: nn.Module, dtype: torch.dtype,
     saves the per-use casts (predict). Norms, embeddings and the Fourier
     projection stay fp32 either way."""
     for mod in model.modules():
-        if isinstance(mod, (Linear, Conv2d, FastConvTranspose2x2)):
+        if (isinstance(mod, (Linear, Conv2d, FastConvTranspose2x2))
+                and not isinstance(mod, _FP32_MODULES)):
             mod.compute_dtype = dtype
         if cast_params and not isinstance(mod, _FP32_MODULES):
             for p in mod.parameters(recurse=False):

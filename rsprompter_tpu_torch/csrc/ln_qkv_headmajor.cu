@@ -4,6 +4,13 @@
 // (fused_ln_qkv, the global layers) and :_strip_qkv_kernel
 // (fused_qkv_window_pair, the windowed layers).
 //
+// Kernel K12' is the same kernel with its LayerNorm compiled out (template
+// flag LN = false), entry rsp_qkv_headmajor: flat tokens (N*S, C) -> x.W + b
+// head-major (N, 3n, S, 64). It replaces fused_mlp.py:_qkv_pair_kernel
+// (fused_qkv_pair) and serves the encoder's 'flash' route, whose tokens are
+// already normalised (and, in windowed layers, partitioned and zero-padded)
+// in torch; its rows map one to one onto the global row map with H = 1.
+//
 // One row map covers both cases. Output row (n, s):
 //   global   (window == 0): N = B, S = H*W, token (n, s);
 //   windowed (window  > 0): N = B*nwy*nwx, S = window^2, grid position
@@ -36,6 +43,7 @@ constexpr int THREADS = WARPS * 32;
 constexpr int KS = 64;            // K slice
 constexpr int WSTRIDE = KS + 8;   // bf16 row stride of a weight slice
 
+template <bool LN>
 __global__ void __launch_bounds__(THREADS) ln_qkv_headmajor_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ beta, const bf16* __restrict__ w,
@@ -80,7 +88,7 @@ __global__ void __launch_bounds__(THREADS) ln_qkv_headmajor_kernel(
     bf16* zr = zs + r * zstride;
     if (token < 0) {
       for (int c = lane; c < C; c += 32) zr[c] = rsp::to_bf(0.f);
-    } else if (gamma != nullptr) {
+    } else if constexpr (LN) {
       rsp::warp_layer_norm_row(x + token * C, gamma, beta, zr, C, eps, lane);
     } else {
       for (int c = lane; c < C; c += 32) zr[c] = x[token * C + c];
@@ -143,13 +151,10 @@ __global__ void __launch_bounds__(THREADS) ln_qkv_headmajor_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int rsp_ln_qkv_headmajor(const void* x, const void* gamma,
-                                    const void* beta, const void* w,
-                                    const void* bias, void* out, int B, int H,
-                                    int W, int C, int heads3, int window,
-                                    float eps, void* stream) {
+template <bool LN>
+int launch(const void* x, const void* gamma, const void* beta, const void* w,
+           const void* bias, void* out, int B, int H, int W, int C, int heads3,
+           int window, float eps, cudaStream_t stream) {
   if (C % KS != 0) return static_cast<int>(cudaErrorInvalidValue);
   int S, N, nwx = 1, nwin = 1;
   if (window == 0) {
@@ -165,15 +170,38 @@ extern "C" int rsp_ln_qkv_headmajor(const void* x, const void* gamma,
   const int rows = N * S;
   const int smem = BM * (C + 8) * 2 + 2 * 64 * WSTRIDE * 2;
   cudaError_t err = cudaFuncSetAttribute(
-      ln_qkv_headmajor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ln_qkv_headmajor_kernel<LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (rows + BM - 1) / BM;
-  ln_qkv_headmajor_kernel<<<blocks, THREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+  ln_qkv_headmajor_kernel<LN><<<blocks, THREADS, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(gamma),
       static_cast<const float*>(beta), static_cast<const bf16*>(w),
       static_cast<const bf16*>(bias), static_cast<bf16*>(out), H, W, C, heads3,
       window, nwx, nwin, S, rows, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Kernel B; gamma == nullptr skips the LayerNorm.
+extern "C" int rsp_ln_qkv_headmajor(const void* x, const void* gamma,
+                                    const void* beta, const void* w,
+                                    const void* bias, void* out, int B, int H,
+                                    int W, int C, int heads3, int window,
+                                    float eps, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  if (gamma == nullptr)
+    return launch<false>(x, gamma, beta, w, bias, out, B, H, W, C, heads3,
+                         window, eps, st);
+  return launch<true>(x, gamma, beta, w, bias, out, B, H, W, C, heads3, window,
+                      eps, st);
+}
+
+// Kernel K12': x (N*S, C) -> head-major x.W + b (N, heads3, S, 64).
+extern "C" int rsp_qkv_headmajor(const void* x, const void* w, const void* bias,
+                                 void* out, int N, int S, int C, int heads3,
+                                 void* stream) {
+  return launch<false>(x, nullptr, nullptr, w, bias, out, N, 1, S, C, heads3,
+                       0, 0.f, static_cast<cudaStream_t>(stream));
 }

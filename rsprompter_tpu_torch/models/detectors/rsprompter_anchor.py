@@ -59,6 +59,7 @@ class RSPrompterAnchor(nn.Module):
         freeze_backbone: bool = True,
         train_cfg: Any = None,
         test_cfg: Any = None,
+        attn_impl: str = "fused",
     ):
         super().__init__()
         self.freeze_backbone = freeze_backbone
@@ -69,7 +70,7 @@ class RSPrompterAnchor(nn.Module):
         if vcfg.output_channels != decoder_cfg.hidden_size:
             decoder_cfg = dataclasses.replace(decoder_cfg, hidden_size=vcfg.output_channels)
         self.test_cfg = dict(test_cfg or {})
-        self.backbone = SamVisionEncoder(vcfg)
+        self.backbone = SamVisionEncoder(vcfg, attn_impl)
         self.shared_image_embedding = SamPositionalEmbedding(
             vcfg.output_channels // 2, scale=vcfg.output_channels // 2
         )

@@ -1,0 +1,89 @@
+"""RSPrompter query-variant detector (torch): predict.
+
+Counterpart of ``rsprompter_tpu/models/detectors/rsprompter_query.py``
+(reference ``RSPrompterQuery``, ``mmdet/rsprompter/models.py:174-272``) with
+``aggregator_type='multi'``: SAM ViT encoder -> RS aggregator + simple FPN
+features, image embeddings and the image-wide Fourier PE -> the Mask2Former
+query head prompting the SAM mask decoder -> the fusion head's top-k
+instances. Attribute names mirror the JAX module's parameter tree. The loss
+comes with the query train step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+
+from rsprompter_tpu_torch.models.dense_heads.mask2former_head import Mask2FormerHead
+from rsprompter_tpu_torch.models.necks.rsfpn import RSFeatureAggregator, RSSimpleFPN
+from rsprompter_tpu_torch.models.preprocess import preprocess_images
+from rsprompter_tpu_torch.models.sam.configs import SamVisionConfig, sam_config
+from rsprompter_tpu_torch.models.sam.positional import (
+    SamPositionalEmbedding,
+    image_wide_positional_embeddings,
+)
+from rsprompter_tpu_torch.models.sam.vision_encoder import SamVisionEncoder
+from rsprompter_tpu_torch.models.seg_heads.fusion_head import instance_postprocess
+
+
+class RSPrompterQuery(nn.Module):
+    def __init__(
+        self,
+        arch: str = "base",
+        vision_config: Optional[SamVisionConfig] = None,
+        image_size: int = 1024,
+        num_classes: int = 1,
+        prompt_shape: Tuple[int, int] = (100, 5),
+        select_layers: Tuple[int, ...] = tuple(range(1, 13, 2)),
+        aggregator_hidden: int = 32,
+        with_sincos: bool = True,
+        test_cfg: Any = None,
+        attn_impl: str = "fused",
+    ):
+        super().__init__()
+        self.num_classes = num_classes
+        self.max_per_image = dict(test_cfg or {}).get("max_per_image", 100)
+        vcfg = vision_config or sam_config(arch, image_size=image_size).vision_config
+        decoder_cfg = sam_config("base").mask_decoder_config
+        if vcfg.output_channels != decoder_cfg.hidden_size:
+            decoder_cfg = dataclasses.replace(decoder_cfg, hidden_size=vcfg.output_channels)
+        self.backbone = SamVisionEncoder(vcfg, attn_impl)
+        self.shared_image_embedding = SamPositionalEmbedding(
+            vcfg.output_channels // 2, scale=vcfg.output_channels // 2
+        )
+        self.neck_feature_aggregator = RSFeatureAggregator(
+            vcfg.hidden_size, aggregator_hidden, 256, select_layers, vcfg.num_hidden_layers
+        )
+        self.neck_feature_spliter = RSSimpleFPN(backbone_channel=256)
+        self.panoptic_head = Mask2FormerHead(
+            decoder_cfg, num_classes=num_classes, num_queries=prompt_shape[0],
+            out_channels=vcfg.output_channels, per_pointset_point=prompt_shape[1],
+            with_sincos=with_sincos,
+        )
+
+    def extract_feat(self, images: torch.Tensor):
+        image_embeddings, hidden_states = self.backbone(preprocess_images(images))
+        image_pe = image_wide_positional_embeddings(
+            self.shared_image_embedding, image_embeddings.shape[1]
+        )
+        feats = self.neck_feature_spliter(self.neck_feature_aggregator(hidden_states))
+        return feats, image_embeddings, image_pe
+
+    @torch.no_grad()
+    def predict_logits(self, batch: Dict[str, torch.Tensor]):
+        """The last decoder layer's (class logits (B, Q, C+1), mask logits
+        (B, Q, 4h, 4w) fp32), before the fusion head's top-k."""
+        feats, image_embeddings, image_pe = self.extract_feat(batch["images"])
+        return self.panoptic_head.predict(feats, image_embeddings, image_pe)
+
+    @torch.no_grad()
+    def predict(self, batch: Dict[str, torch.Tensor]):
+        """batch: images (B, H, W, 3) uint8 BGR (or normalised float).
+        Returns (DetResult in batch-input pixels, mask probs (B, k, 4h, 4w))."""
+        cls_pred, mask_pred = self.predict_logits(batch)
+        scale = batch["images"].shape[1] / mask_pred.shape[-2]
+        return instance_postprocess(cls_pred, mask_pred, self.num_classes,
+                                    self.max_per_image, scale_boxes=scale)

@@ -36,6 +36,11 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
+class Fp32Linear(Linear):
+    """A linear layer that stays fp32 under ``set_compute_dtype``, as a flax
+    ``Dense`` built without ``dtype=`` does (the query head's MLPs)."""
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` on NHWC input and output, in ``compute_dtype``."""
 
@@ -89,6 +94,38 @@ class SamLayerNorm(nn.Module):
         var = (xf - mu).square().mean(dim=-1, keepdim=True)
         y = (xf - mu) * torch.rsqrt(var + self.eps)
         return (y * self.weight.float() + self.bias.float()).to(x.dtype)
+
+
+class LayerNorm(SamLayerNorm):
+    """flax ``nn.LayerNorm`` defaults: eps 1e-6, fp32 statistics, output in
+    the promotion of the input's and the parameters' dtypes (fp32 for bf16
+    input, as the parameters stay fp32)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        return super().forward(x.to(dt))
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` on NHWC input: ``min(32, C)`` groups over
+    (H, W, C / groups), eps 1e-6, fp32 statistics, output dtype as
+    :class:`LayerNorm`."""
+
+    def __init__(self, dim: int, groups: int = 32, eps: float = 1e-6):
+        super().__init__()
+        self.groups = min(groups, dim)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        b, h, w, c = x.shape
+        xg = x.float().reshape(b, h * w, self.groups, c // self.groups)
+        mu = xg.mean(dim=(1, 3), keepdim=True)
+        var = (xg - mu).square().mean(dim=(1, 3), keepdim=True)
+        y = ((xg - mu) * torch.rsqrt(var + self.eps)).reshape(b, h, w, c)
+        return (y * self.weight.float() + self.bias.float()).to(dt)
 
 
 class MLPBlock(nn.Module):

@@ -7,7 +7,8 @@ TPU layouts (block-diagonal head packing, the packed upscaler, the shared
 first block) compute the same math and are not carried over.
 
 Tokens = [iou_token, mask_tokens, sparse prompts]; ``multimask_output``
-selects mask slice 1: (else 0:1).
+selects mask slice 1: (else 0:1). The dense prompt is one per image (B, h, w,
+C) or one per prompt (B, P, h, w, C), the query head's ``decoder_plus`` case.
 """
 
 from __future__ import annotations
@@ -137,7 +138,7 @@ class SamMaskDecoder(nn.Module):
         image_embeddings: torch.Tensor,  # (B, h, w, C)
         image_positional_embeddings: torch.Tensor,  # (B, h, w, C)
         sparse_prompt_embeddings: torch.Tensor,  # (B, P, T, C)
-        dense_prompt_embeddings: torch.Tensor,  # (B, h, w, C)
+        dense_prompt_embeddings: torch.Tensor,  # (B, h, w, C) or (B, P, h, w, C)
         multimask_output: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         b, h, w, c = image_embeddings.shape
@@ -149,8 +150,11 @@ class SamMaskDecoder(nn.Module):
              sparse_prompt_embeddings.to(out_tokens.dtype)], dim=2,
         )
         t = tokens.shape[2]
-        img = (image_embeddings + dense_prompt_embeddings).reshape(b, 1, h * w, c)
-        img = img.expand(b, p, h * w, c).reshape(b * p, h * w, c)
+        if dense_prompt_embeddings.ndim == 5:
+            img = (image_embeddings[:, None] + dense_prompt_embeddings).reshape(b * p, h * w, c)
+        else:
+            img = (image_embeddings + dense_prompt_embeddings).reshape(b, 1, h * w, c)
+            img = img.expand(b, p, h * w, c).reshape(b * p, h * w, c)
         pe = image_positional_embeddings.reshape(b, 1, h * w, c)
         pe = pe.expand(b, p, h * w, c).reshape(b * p, h * w, c)
         point_emb, img_emb = self.transformer(tokens.reshape(b * p, t, c), img, pe)

@@ -4,19 +4,30 @@ Counterpart of ``rsprompter_tpu/models/sam/vision_encoder.py``: 16x16 patch
 embed -> abs pos-embed -> N pre-LN blocks (windowed attention except at
 ``global_attn_indexes``) -> 1x1 conv + LN + 3x3 conv + LN neck.
 
-Each block runs on the port's three kernels: kernel B
-(``ops.fused_mlp.ln_qkv_headmajor``) for LN1 + qkv straight off the token
-grid (the window partition and its zero pad live in the kernel's row map),
-kernel C (``ops.fused_vit_attention.relpos_attention``) for the attention
-with the rel-pos bias, and kernel A (``ops.fused_mlp.ln_mlp_residual``) for
-LN2 + MLP + residual. Each is a ``torch.autograd.Function`` whose backward
-is the matching backward kernel (A', B', C'); the rel-pos factor einsum stays
-in torch autograd, which gives the tables their gradients and q its extra
-term, as JAX keeps ``rel_factors_pair``'s vjp outside its kernel. Weights are
-cast to the activations' dtype at each use, so fp32 master parameters train
-through bf16 kernels. ``impl='plain'`` runs the same block through the plain
-forward versions under torch autograd (the oracle the GPU checks compare
-against, forward and gradients).
+The config key ``attn_impl`` picks the block's route, as in JAX
+(``rsprompter_tpu/apis/build.py`` reads it, ``SamVisionLayer`` branches):
+
+* ``'fused'`` (the default): kernel B (``ops.fused_mlp.ln_qkv_headmajor``)
+  for LN1 + qkv straight off the token grid (the window partition and its
+  zero pad live in the kernel's row map), kernel C
+  (``ops.fused_vit_attention.relpos_attention``) for the attention with the
+  rel-pos bias, and kernel A (``ops.fused_mlp.ln_mlp_residual``) for LN2 +
+  MLP + residual. Each is a ``torch.autograd.Function`` whose backward is
+  the matching backward kernel (A', B', C'); the rel-pos factor einsum stays
+  in torch autograd, which gives the tables their gradients and q its extra
+  term, as JAX keeps ``rel_factors_pair``'s vjp outside its kernel.
+* ``'flash'`` (JAX's non-fused block, ``vision_encoder.py:355-369`` and
+  ``:452-456``): plain LN1, the explicit window partition zero-padded after
+  LN1, kernel K12' (``ops.fused_mlp.qkv_headmajor``) for qkv, the rel-pos
+  factors in fp32 cast to q's dtype, kernel C in the place of JAX's flash
+  kernel (``flash_attention_rel_pos``), proj, unpartition, residual, then
+  LN2 and ``MLPBlock`` in torch (JAX runs them outside any Pallas kernel on
+  this route). Inference only: K12' has no backward kernel yet.
+
+Weights are cast to the activations' dtype at each use, so fp32 master
+parameters train through bf16 kernels. ``impl='plain'`` runs either route
+through the plain forward versions under torch autograd (the oracle the GPU
+checks compare against, forward and gradients).
 
 ``forward`` returns (neck_out (B, h, w, C_out), hidden_states): entry 0 is the
 patch embedding after the pos-embed, entry i+1 the output of block i -- the
@@ -68,11 +79,13 @@ class SamVisionAttention(nn.Module):
 class SamVisionLayer(nn.Module):
     """Pre-LN ViT block; ``window_size > 0`` attends within zero-padded windows."""
 
-    def __init__(self, config: SamVisionConfig, window_size: int):
+    def __init__(self, config: SamVisionConfig, window_size: int,
+                 attn_impl: str = "fused"):
         super().__init__()
         c = config.hidden_size
         grid = config.grid_size
         self.window_size = window_size
+        self.attn_impl = attn_impl
         self.eps = config.layer_norm_eps
         self.layer_norm1 = SamLayerNorm(c, eps=self.eps)
         self.attn = SamVisionAttention(
@@ -84,6 +97,8 @@ class SamVisionLayer(nn.Module):
         self.mlp = MLPBlock(c, config.mlp_dim)
 
     def forward(self, x: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
+        if self.attn_impl == "flash":
+            return self._forward_flash(x, impl == "plain")
         plain = impl == "plain"
         b, h, w, c = x.shape
         attn = self.attn
@@ -120,6 +135,35 @@ class SamVisionLayer(nn.Module):
         )
         return y.reshape(b, h, w, c)
 
+    def _forward_flash(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
+        b, h, w, c = x.shape
+        attn = self.attn
+        nh = attn.num_heads
+        win = self.window_size
+        dt = x.dtype
+        z = fm.layer_norm(x, self.layer_norm1.weight, self.layer_norm1.bias, self.eps)
+        z = fm.window_partition(z, win)  # (N, S, C), zero pad after LN1
+        n_img, s, _ = z.shape
+        qkv_bias = attn.qkv.bias
+        if qkv_bias is None:
+            qkv_bias = torch.zeros(3 * c, dtype=dt, device=x.device)
+        qkv_fn = fm.qkv_headmajor_plain if plain else fm.qkv_headmajor
+        qkv = qkv_fn(z.reshape(n_img * s, c), attn.qkv.weight.to(dt), qkv_bias.to(dt),
+                     3 * nh, n_img)  # (N, 3n, S, d)
+        hw = (win, win) if win else (h, w)
+        d = qkv.shape[-1]
+        if attn.use_rel_pos:
+            fh, fw = rel_pos_factors(qkv[:, :nh], attn.rel_pos_h, attn.rel_pos_w, hw,
+                                     fp32=True)
+        else:
+            fh = qkv.new_zeros((n_img, nh, s, hw[0]))
+            fw = qkv.new_zeros((n_img, nh, s, hw[1]))
+        attn_fn = fa.relpos_attention_plain if plain else fa.relpos_attention
+        o = attn_fn(qkv, fh.contiguous(), fw.contiguous(), hw)  # (N, n, S, d)
+        o = attn.proj(o.permute(0, 2, 1, 3).reshape(n_img, s, nh * d))
+        x = x + fm.window_unpartition(o, (b, h, w), win)
+        return x + self.mlp(self.layer_norm2(x))
+
 
 class SamVisionNeck(nn.Module):
     """1x1 conv -> LN -> 3x3 conv -> LN to ``output_channels`` (bias-free)."""
@@ -137,10 +181,16 @@ class SamVisionNeck(nn.Module):
 
 
 class SamVisionEncoder(nn.Module):
-    """Full SAM image encoder. ``impl``: 'kernel' (default) or 'plain'."""
+    """Full SAM image encoder. ``attn_impl``: the block route, 'fused'
+    (default) or 'flash'; ``impl``: 'kernel' (default) or 'plain'."""
 
-    def __init__(self, config: SamVisionConfig):
+    def __init__(self, config: SamVisionConfig, attn_impl: str = "fused"):
         super().__init__()
+        if attn_impl not in ("fused", "flash"):
+            raise ValueError(
+                f"attn_impl={attn_impl!r}: the port's encoder routes are 'fused' "
+                "(kernels A, B, C) and 'flash' (K12' and C)"
+            )
         self.config = config
         self.impl = "kernel"
         self.patch_embed = SamPatchEmbeddings(
@@ -153,7 +203,8 @@ class SamVisionEncoder(nn.Module):
             self.pos_embed = None
         self.layers = nn.ModuleList(
             SamVisionLayer(
-                config, 0 if i in config.global_attn_indexes else config.window_size
+                config, 0 if i in config.global_attn_indexes else config.window_size,
+                attn_impl,
             )
             for i in range(config.num_hidden_layers)
         )

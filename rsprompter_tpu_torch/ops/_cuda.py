@@ -99,9 +99,11 @@ def build(kernels: Iterable[CudaKernel]) -> Dict[str, float]:
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
+    started = set()  # kernels that share a source share its library
     for k in kernels:
-        if k.library_path().exists():
+        if k.library_path().exists() or k.source in started:
             continue
+        started.add(k.source)
         procs.append((k, time.time(), subprocess.Popen(
             k.build_command(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,
@@ -138,11 +140,12 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None
 
 def all_kernels() -> List[CudaKernel]:
     """Every kernel of the port: the encoder layer's forwards in order,
-    then their backwards."""
+    then their backwards, then the 'flash' route's K12'."""
     from rsprompter_tpu_torch.ops import fused_mlp as fm
     from rsprompter_tpu_torch.ops import fused_vit_attention as fa
 
     return [
         fm.LN_MLP_RESIDUAL, fm.LN_QKV_HEADMAJOR, fa.RELPOS_ATTENTION,
         fm.LN_MLP_RESIDUAL_BWD, fm.LN_QKV_HEADMAJOR_BWD, fa.RELPOS_ATTENTION_BWD,
+        fm.QKV_HEADMAJOR,
     ]

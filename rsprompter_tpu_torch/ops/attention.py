@@ -35,17 +35,21 @@ def rel_pos_factors(
     rel_pos_h: torch.Tensor,
     rel_pos_w: torch.Tensor,
     hw: Tuple[int, int],
+    fp32: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (N, n, h*w, d) -> fh (N, n, h*w, h), fw (N, n, h*w, w) in q's dtype:
-    fh[q, kr] = q . Rh[qr, kr] and fw[q, kc] = q . Rw[qc, kc]."""
+    fh[q, kr] = q . Rh[qr, kr] and fw[q, kc] = q . Rw[qc, kc]. ``fp32``
+    computes them in fp32 and casts after, as JAX's flash route does
+    (``flash_attention.py:255-260``)."""
     h, w = hw
     n_, nh, s, d = q.shape
-    rh = get_rel_pos(h, h, rel_pos_h).to(q.dtype)
-    rw = get_rel_pos(w, w, rel_pos_w).to(q.dtype)
-    q_r = q.reshape(n_, nh, h, w, d)
+    ct = torch.float32 if fp32 else q.dtype
+    rh = get_rel_pos(h, h, rel_pos_h).to(ct)
+    rw = get_rel_pos(w, w, rel_pos_w).to(ct)
+    q_r = q.reshape(n_, nh, h, w, d).to(ct)
     fh = torch.einsum("bnhwc,hkc->bnhwk", q_r, rh).reshape(n_, nh, s, h)
     fw = torch.einsum("bnhwc,wkc->bnhwk", q_r, rw).reshape(n_, nh, s, w)
-    return fh, fw
+    return fh.to(q.dtype), fw.to(q.dtype)
 
 
 def attention_rel_pos(

@@ -16,6 +16,11 @@ and its zero pad done in the kernel's row addressing. Tensor-core bound
 (29 GFLOP per layer). Its backward B' (``csrc/ln_qkv_headmajor_bwd.cu``)
 replaces ``_ln_qkv_bwd_kernel`` and ``_strip_qkv_bwd_kernel``.
 
+Kernel K12', ``qkv_headmajor`` (the same source, LN compiled out), replaces
+``_qkv_pair_kernel`` (``fused_qkv_pair``): flat tokens (N*S, C) -> x.W + b
+head-major (N, 3n, S, d). The encoder's ``'flash'`` route runs it. It has no
+backward kernel yet: nothing trains on that route.
+
 The public functions are ``torch.autograd.Function``s: their forward is the
 kernel, their backward the backward kernel, for CUDA tensors; for tensors on
 the CPU both are the plain versions. A CUDA tensor gets the kernel or an
@@ -52,6 +57,10 @@ LN_MLP_RESIDUAL_BWD = CudaKernel(
 LN_QKV_HEADMAJOR = CudaKernel(
     "ln_qkv_headmajor", "ln_qkv_headmajor.cu", "rsp_ln_qkv_headmajor",
     [_P] * 6 + [_I] * 6 + [_F, _P],
+)
+QKV_HEADMAJOR = CudaKernel(
+    "qkv_headmajor", "ln_qkv_headmajor.cu", "rsp_qkv_headmajor",
+    [_P] * 4 + [_I] * 4 + [_P],
 )
 LN_QKV_HEADMAJOR_BWD = CudaKernel(
     "ln_qkv_headmajor_bwd", "ln_qkv_headmajor_bwd.cu", "rsp_ln_qkv_headmajor_bwd",
@@ -389,3 +398,53 @@ def ln_qkv_headmajor(x, ln_w, ln_b, w, b, heads3: int, window: int = 0,
     """Kernel B on CUDA tensors (bf16 x and weights, fp32 LN params), with
     B' as its backward; the plain versions on the CPU."""
     return _LnQkvHeadmajor.apply(x, ln_w, ln_b, w, b, heads3, window, eps)
+
+
+# --------------------------------------------------------------------------
+# Kernel K12' (kernel B without its LayerNorm)
+# --------------------------------------------------------------------------
+
+
+def qkv_headmajor_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        heads3: int, n: int) -> torch.Tensor:
+    """x (N*S, C) flat tokens -> head-major x W^T + b (N, heads3, S, d), the
+    product cast to x's dtype before the bias add (JAX ``_qkv_pair_kernel``)."""
+    dt = x.dtype
+    y = (x @ w.to(dt).t()) + b.to(dt)
+    return y.reshape(n, -1, heads3, y.shape[-1] // heads3).permute(0, 2, 1, 3).contiguous()
+
+
+def _qkv_headmajor_fwd(x, w, b, heads3, n):
+    if x.device.type == "cpu":
+        return qkv_headmajor_plain(x, w, b, heads3, n)
+    t, c = x.shape
+    bf = torch.bfloat16
+    check_cuda_tensor("x", x, bf, (t, c))
+    check_cuda_tensor("w", w, bf, (heads3 * 64, c))
+    check_cuda_tensor("b", b, bf, (heads3 * 64,))
+    if c % 64 or t % n:
+        raise ValueError(f"qkv_headmajor: C={c} not a multiple of 64 or {t} rows for N={n}")
+    out = torch.empty((n, heads3, t // n, 64), dtype=bf, device=x.device)
+    QKV_HEADMAJOR.launch(ptr(x), ptr(w), ptr(b), ptr(out), n, t // n, c, heads3,
+                         variant="window" if t // n <= 512 else "global")
+    return out
+
+
+class _QkvHeadmajor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, heads3, n):
+        return _qkv_headmajor_fwd(x, w, b, heads3, n)
+
+    @staticmethod
+    def backward(ctx, dy):
+        raise NotImplementedError(
+            "qkv_headmajor has no backward kernel: training on the encoder's "
+            "'flash' route is a later slice of the port"
+        )
+
+
+def qkv_headmajor(x, w, b, heads3: int, n: int):
+    """Kernel K12' on CUDA tensors (bf16 x (N*S, C), w (heads3*64, C), b);
+    the plain version on the CPU. Returns (N, heads3, S, 64). Its backward
+    raises: nothing trains through it yet."""
+    return _QkvHeadmajor.apply(x, w, b, heads3, n)

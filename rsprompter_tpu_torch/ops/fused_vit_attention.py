@@ -19,6 +19,14 @@ and q. Bound on the H100: tensor-core operations for the 4096-token global
 layers (103 GFLOP per ViT-B layer at batch 2), device-memory bytes for the
 196-token windows (about 70 MB per layer).
 
+It also serves two more TPU kernels, at their own call sites: the encoder's
+``'flash'`` route runs it where JAX runs ``flash_attention.py``'s
+``_fwd_kernel`` / ``_fwd_kernel_smallseq`` (K10: exact softmax, p rounded to
+the input dtype before PV, normalised after, as here), and at an odd head
+count it computes ``fused_vit_attention.py``'s per-head ``_window_kernel`` /
+``_global_kernel`` (K11; the clamp dropped as above). Launches at an odd head
+count are counted under their own variant (``window/odd``, ``global/odd``).
+
 ``relpos_attention`` is a ``torch.autograd.Function``: kernel forward and
 backward for CUDA tensors, the plain versions for tensors on the CPU.
 """
@@ -46,8 +54,8 @@ RELPOS_ATTENTION_BWD = CudaKernel(
 )
 
 
-def _variant(s: int) -> str:
-    return "global" if s > 512 else "window"
+def _variant(s: int, heads: int) -> str:
+    return ("global" if s > 512 else "window") + ("/odd" if heads % 2 else "")
 
 
 def _biased_scores(q, k, fh, fw):
@@ -117,7 +125,7 @@ def _relpos_attention_fwd(qkv, fh, fw, hw, with_lse: bool):
     RELPOS_ATTENTION.launch(
         ptr(qkv), ptr(fh), ptr(fw), ptr(out),
         ptr(lse) if with_lse else ctypes.c_void_p(None), nb, n, s, hw[0], hw[1],
-        64 ** -0.5, variant=_variant(s),
+        64 ** -0.5, variant=_variant(s, n),
     )
     return out, lse
 
@@ -138,7 +146,7 @@ def relpos_attention_bwd(qkv, fh, fw, out, lse, dout, hw: Tuple[int, int]):
     RELPOS_ATTENTION_BWD.launch(
         ptr(qkv), ptr(fh), ptr(fw), ptr(out), ptr(lse), ptr(dout), ptr(dqkv),
         ptr(dfh), ptr(dfw), ptr(delta), nb, n, s, hw[0], hw[1], 64 ** -0.5,
-        variant=_variant(s),
+        variant=_variant(s, n),
     )
     return dqkv, dfh, dfw
 

@@ -20,8 +20,16 @@ torch converter):
 
 Module names ``layers_3`` become ``layers.3`` (every trailing ``_N`` is an
 index) and flax's ``bn`` wrapper level disappears. The two linears fed by a
-flattened conv map (``shared_fcs_0``, ``point_emb_4``) flatten NHWC in JAX
-and NCHW in the port, so their input columns are permuted.
+flattened conv map (``shared_fcs_0`` and the anchor head's ``point_emb_4``)
+flatten NHWC in JAX and NCHW in the port, so their input columns are
+permuted.
+
+The query head's pixel decoder and transformer decoder take the reference's
+mmdet module names (``MODULE_RENAMES``): ``input_convs_0_conv`` ->
+``input_convs.0.conv`` beside ``input_convs.0.gn``, ``encoder_layers_0`` ->
+``encoder.layers.0``, ``transformer_decoder_layers_0`` ->
+``transformer_decoder.layers.0``; the per-level ``level_encoding_i`` vectors
+stack into the rows of ``level_encoding.weight`` (an ``nn.Embedding``).
 """
 
 from __future__ import annotations
@@ -38,8 +46,17 @@ _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "mean": "running_mean", "var": "running_var"}
 # flax path substrings whose 4-D kernels are ConvTranspose2d weights
 TRANSPOSE_CONV_HINTS = ("upscale_conv", "deconv", "fpn1_0", "fpn1_3", "fpn2_0")
-# linears whose input is a flattened (C, H, W) conv map: name -> C
+# linears whose input is a flattened (C, H, W) conv map: name -> C (the
+# query head's point_emb_4 takes query vectors, not a map)
 FLATTEN_LINEARS = {"shared_fcs_0": 256, "point_emb_4": 256}
+FLATTEN_EXCEPT = "panoptic_head"
+# flax module name -> the mmdet module path of the query head
+MODULE_RENAMES = (
+    (re.compile(r"^(input|lateral|output)_convs_(\d+)_conv$"), r"\1_convs.\2.conv"),
+    (re.compile(r"^(encoder|transformer_decoder)_layers_(\d+)$"), r"\1.layers.\2"),
+    (re.compile(r"^transformer_decoder_post_norm$"), "transformer_decoder.post_norm"),
+)
+LEVEL_ENCODING = re.compile(r"^level_encoding_(\d+)$")
 
 
 def _expand_indices(name: str) -> str:
@@ -49,8 +66,15 @@ def _expand_indices(name: str) -> str:
     return m.group(1) + m.group(2).replace("_", ".")
 
 
+def _module_name(name: str) -> str:
+    for pattern, repl in MODULE_RENAMES:
+        if pattern.match(name):
+            return pattern.sub(repl, name)
+    return _expand_indices(name)
+
+
 def torch_key(path: Tuple[str, ...]) -> str:
-    parts = [_expand_indices(p) for p in path[:-1] if p != "bn"]
+    parts = [_module_name(p) for p in path[:-1] if p != "bn"]
     parts.append(_LEAF_NAMES.get(path[-1], path[-1]))
     return ".".join(parts)
 
@@ -61,7 +85,8 @@ def _convert_leaf(path: Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
     if arr.ndim == 2:
         out = arr.T  # (out, in)
         channels = next(
-            (c for name, c in FLATTEN_LINEARS.items() if name in path), None
+            (c for name, c in FLATTEN_LINEARS.items()
+             if name in path and FLATTEN_EXCEPT not in path), None
         )
         if channels is not None:
             o, n_in = out.shape
@@ -80,11 +105,17 @@ def _convert_leaf(path: Tuple[str, ...], arr: np.ndarray) -> np.ndarray:
 def jax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Nested {'params': ..., 'batch_stats': ...} numpy dicts -> state_dict."""
     out: Dict[str, torch.Tensor] = {}
+    levels: Dict[str, Dict[int, np.ndarray]] = {}
 
     def walk(node, path):
         if isinstance(node, Mapping):
             for k, v in node.items():
                 walk(v, path + (k,))
+            return
+        m = LEVEL_ENCODING.match(path[-1])
+        if m:
+            key = torch_key(path[:-1] + ("level_encoding", "embedding"))
+            levels.setdefault(key, {})[int(m.group(1))] = np.asarray(node, np.float32)
             return
         arr = _convert_leaf(path, np.asarray(node, dtype=np.float32))
         key = torch_key(path)
@@ -95,4 +126,6 @@ def jax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for collection in ("params", "batch_stats"):
         if collection in variables:
             walk(variables[collection], ())
+    for key, rows in levels.items():
+        out[key] = torch.from_numpy(np.stack([rows[i] for i in range(len(rows))]))
     return out

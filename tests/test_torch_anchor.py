@@ -149,7 +149,13 @@ def test_port_import_loads_no_jax():
     code = (
         "import sys; import rsprompter_tpu_torch.apis.inference, "
         "rsprompter_tpu_torch.utils.convert, rsprompter_tpu_torch.engine.train_state, "
-        "rsprompter_tpu_torch.utils.synthetic; "
+        "rsprompter_tpu_torch.utils.synthetic, "
+        "rsprompter_tpu_torch.models.detectors.rsprompter_query, "
+        "rsprompter_tpu_torch.models.dense_heads.mask2former_head, "
+        "rsprompter_tpu_torch.models.dense_heads.pixel_decoder, "
+        "rsprompter_tpu_torch.models.seg_heads.fusion_head, "
+        "rsprompter_tpu_torch.models.sam.prompt_encoder, "
+        "rsprompter_tpu_torch.ops.msdeform_attn, rsprompter_tpu_torch.ops.sampling; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rsprompter_tpu')]; "
         "assert not bad, bad"
     )

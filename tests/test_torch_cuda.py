@@ -90,6 +90,35 @@ def _close_each(got, ref):
         assert err <= TOL * b.float().abs().max().item(), (i, err)
 
 
+@pytest.mark.parametrize("n,s", [(1, 37), (3, 100), (5, 196)])
+def test_qkv_headmajor_kernel(gen, n, s):
+    """K12' at small, ragged row counts (N*S not a multiple of 32)."""
+    c, heads3 = 768, 36
+    args = (_rnd(gen, n * s, c), _rnd(gen, heads3 * 64, c, scale=0.02),
+            _rnd(gen, heads3 * 64, scale=0.02), heads3, n)
+    _close(fm.qkv_headmajor(*args), fm.qkv_headmajor_plain(*_f32(args)))
+
+
+def test_qkv_headmajor_has_no_backward_on_cuda(gen):
+    x = _rnd(gen, 64, 768).requires_grad_(True)
+    y = fm.qkv_headmajor(x, _rnd(gen, 6 * 64, 768, scale=0.02), _rnd(gen, 6 * 64), 6, 1)
+    with pytest.raises(NotImplementedError, match="flash"):
+        y.float().sum().backward()
+
+
+@pytest.mark.parametrize("heads,hw", [(3, (14, 14)), (1, (9, 7)), (5, (8, 8))])
+def test_relpos_attention_kernel_odd_heads(gen, heads, hw):
+    """Kernel C at odd head counts, the per-head layout of K11."""
+    n_img, s = 4, hw[0] * hw[1]
+    qkv = _rnd(gen, n_img, 3 * heads, s, 64)
+    fh = _rnd(gen, n_img, heads, s, hw[0], scale=0.5)
+    fw = _rnd(gen, n_img, heads, s, hw[1], scale=0.5)
+    _close(
+        fa.relpos_attention(qkv, fh, fw, hw),
+        fa.relpos_attention_plain(qkv.float(), fh.float(), fw.float(), hw),
+    )
+
+
 @pytest.mark.parametrize("t", [100, 4096])
 def test_ln_mlp_residual_bwd_kernel(gen, t):
     c, m = 768, 3072
