@@ -13,7 +13,10 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    card, at the shapes of the main path (SAM ViT-B, 1024^2, batch 2), bf16
    inputs from a seed against an fp32 plain reference, with the time of the
    kernel, of the plain version, of one PyTorch library call where one
-   computes the same function, and the least time the card could take; the
+   computes the same function, and the least time the card could take, and,
+   in the log only, for the redesigned kernels (B, K12', C), the previous
+   design's time (``PREV_MS``); kernel B is its row pass (LN, window
+   partition, zero pad) then the GEMM that K12' is too; the
    encoder's 'flash' route adds K12' (qkv without LN) at the windowed and
    global shapes and reports kernel C there under K10, and kernel C at three
    heads stands for K11;
@@ -26,7 +29,8 @@ Phases (every failure raises; the script exits non-zero and prints no result):
 4. backward kernels: A', B' (global, window) and C' (global, window) against
    their fp32 plain backwards at the train step's shapes (ViT-B, 512^2,
    batch 4), each output within 2e-2 of its largest magnitude, with kernel,
-   plain, library and bound times;
+   plain, library and bound times; K12''s backward (torch products) through
+   its Function against plain autograd;
 5. train step, the second main path: ``build_trainer`` on
    ``rsprompter_anchor-nwpu-scratch-512.py`` (encoder and decoder trainable,
    ViT-B 512^2, batch 4, bf16 compute on fp32 master weights), seeded random
@@ -65,6 +69,18 @@ TRAIN_STEPS_PER_EPOCH = 130  # NWPU's 520 training images at batch 4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 TOL = 2e-2  # max |kernel - plain| relative to max |plain| (bf16 inputs)
+# Times of the redesigned kernels (kernel B, K12' and kernel C, now TMA +
+# wgmma) as their previous mma.sync designs gave them on an NVIDIA H100 80GB
+# HBM3 at 700.00 W (PERF.md's kernel table). They were taken with each call
+# timed alone, not as cuda_time_ms times, so they go in the log beside this
+# run's ms as a reminder, never in the kernels line.
+PREV_MS = {
+    "ln_qkv_headmajor/global": 0.4308, "ln_qkv_headmajor/window": 0.6145,
+    "relpos_attention/global": 1.5003, "relpos_attention/window": 0.2363,
+    "relpos_attention/flash-global": 1.5003, "relpos_attention/flash-window": 0.2363,
+    "relpos_attention/odd-heads": 0.1146,
+    "qkv_headmajor/global": 0.4299, "qkv_headmajor/window": 0.6017,
+}
 
 
 def log(msg: str) -> None:
@@ -79,8 +95,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
-    """Median of per-call CUDA-event times over a warmed loop."""
+def cuda_time_ms(fn, warmup: int = 3, iters: int = 15, repeat: int = 10) -> float:
+    """Per-call device time: CUDA events around ``repeat`` back-to-back calls,
+    the elapsed time over ``repeat``, median of ``iters`` such runs after a
+    warm-up. Back to back, the host enqueues the next call while the device
+    runs this one, so a call's host-side work (the wrappers' checks, the
+    tensor-map encoding) stays out of the time unless the call is shorter
+    than it. (Timing each call alone, as ``PREV_MS`` was taken, also counts
+    the device's wait for the host's enqueue.)"""
     import torch
 
     for _ in range(warmup):
@@ -90,10 +112,11 @@ def cuda_time_ms(fn, warmup: int = 3, iters: int = 15) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(repeat):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / repeat)
     return statistics.median(times)
 
 
@@ -162,13 +185,40 @@ def kernel_phase(dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
     ))
 
-    # --- kernel B: ln_qkv_headmajor, global and window ----------------------
+    # --- kernel B: ln_qkv_headmajor (row pass + GEMM), global and window ---
     xg = rnd(bsz, grid, grid, c)
     wq, bq = rnd(3 * c, c, scale=0.02), rnd(3 * c, scale=0.02)
     for variant, window, replaces in (
         ("global", 0, "rsprompter_tpu/ops/fused_mlp.py:143"),
         ("window", win, "rsprompter_tpu/ops/fused_mlp.py:604"),
     ):
+        # the row pass alone (LN, window partition, zero pad into z)
+        n_img, s = fm._qkv_rows(xg, 3 * heads, window)
+        z = torch.empty((n_img * s, c), dtype=torch.bfloat16, device=dev)
+
+        def row_pass(z=z, window=window):
+            fm.LN_ROWS.launch(fm.ptr(xg), fm.ptr(ln_w), fm.ptr(ln_b), fm.ptr(z), bsz, grid,
+                              grid, c, window, 1e-6, variant="check")
+
+        row_pass()
+        torch.cuda.synchronize()
+        err = compare(f"ln_rows/{variant}", z,
+                      fm.ln_rows_plain(xg.float(), ln_w, ln_b, window, 1e-6))
+        b_ms, b_by = bound_ms(0.0, xg.numel() * 2 + z.numel() * 2 + 2 * c * 4)
+        rows.append(dict(
+            name=f"ln_rows/{variant}", kernel=fm.LN_ROWS, variant=variant, route="cuda",
+            source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor.cu", replaces=replaces,
+            shape=f"x ({bsz}, {grid}, {grid}, {c}) -> z {tuple(z.shape)} bf16",
+            max_abs_err=err, ms=cuda_time_ms(row_pass),
+            plain_ms=cuda_time_ms(lambda window=window: fm.ln_rows_plain(
+                xg, ln_w, ln_b, window, 1e-6)),
+            bound_ms=b_ms, bound_by=b_by,
+            # one call computes the global pass (LN alone); the window pass
+            # also partitions and pads
+            library_ms=None if window else cuda_time_ms(
+                lambda: torch.nn.functional.layer_norm(
+                    xg, (c,), ln_w.to(xg.dtype), ln_b.to(xg.dtype), 1e-6)),
+        ))
         a = (xg, ln_w, ln_b, wq, bq, 3 * heads, window, 1e-6)
         got = fm.ln_qkv_headmajor(*a)
         torch.cuda.synchronize()
@@ -283,9 +333,10 @@ def kernel_phase(dev):
     for r in rows:
         r.setdefault("path", "anchor_predict")
         log(f"kernel {r['name']}: {r['shape']}; max_abs_err {r['max_abs_err']:.4g} "
-            f"(tol {TOL} x max|plain|); kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"(tol {TOL} x max|plain|); kernel {r['ms']:.4f} ms (previous design, "
+            f"timed alone per call: {PREV_MS.get(r['name'])}), plain {r['plain_ms']:.4f} ms, library "
+            f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
     return rows
 
 
@@ -349,6 +400,7 @@ def main_path_phase(kernels, iters: int, profile_dir: str = ""):
     per_kind = {"global": n_global * iters, "window": (depth - n_global) * iters}
     expect = {
         "ln_mlp_residual": {"": depth * iters},
+        "ln_rows": per_kind,
         "ln_qkv_headmajor": per_kind,
         "relpos_attention": per_kind,
         "qkv_headmajor": {},
@@ -564,12 +616,26 @@ def backward_kernel_phase(dev):
                 qkv, fh, fw, dout, hw)),
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
         ))
+    # --- K12''s backward (torch products, as JAX leaves it to XLA) through
+    # the kernel's Function on the card, at the train step's windowed shape
+    n_img, s = bsz * 9, win * win
+    leaves = [t.requires_grad_(True) for t in (rnd(n_img * s, c), rnd(3 * c, c, scale=0.02),
+                                               rnd(3 * c, scale=0.02))]
+    dy = rnd(n_img, 3 * heads, s, 64)
+    fm.qkv_headmajor(*leaves, 3 * heads, n_img).backward(dy)
+    ref = [t.detach().float().requires_grad_(True) for t in leaves]
+    fm.qkv_headmajor_plain(*ref, 3 * heads, n_img).backward(dy.float())
+    err = compare_each("qkv_headmajor backward", [t.grad for t in leaves],
+                       [t.grad for t in ref])
+    log(f"K12' backward through the kernel's Function vs plain autograd: max_abs_err "
+        f"{err:.4g} (tol {TOL} x max|plain| per gradient)")
     for r in rows:
         r["path"] = "train_step"
         log(f"kernel {r['name']}: {r['shape']}; max_abs_err {r['max_abs_err']:.4g} "
             f"(tol {TOL} x max|plain| per output); kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
     return rows
 
 
@@ -664,7 +730,8 @@ def train_phase(kernels, iters: int, profile_dir: str = ""):
     n_global = len(model.backbone.config.global_attn_indexes)
     per_kind = {"global": n_global * iters, "window": (depth - n_global) * iters}
     expect = {
-        "ln_mlp_residual": {"": depth * iters}, "ln_qkv_headmajor": per_kind,
+        "ln_mlp_residual": {"": depth * iters}, "ln_rows": per_kind,
+        "ln_qkv_headmajor": per_kind,
         "relpos_attention": per_kind, "ln_mlp_residual_bwd": {"": depth * iters},
         "ln_qkv_headmajor_bwd": per_kind, "relpos_attention_bwd": per_kind,
         "qkv_headmajor": {},
@@ -902,8 +969,9 @@ def query_phase(kernels, iters: int, profile_dir: str = ""):
     depth, n_global = vcfg.num_hidden_layers, len(vcfg.global_attn_indexes)
     per_kind = {"global": n_global * iters, "window": (depth - n_global) * iters}
     expect = {
-        "fused": {"ln_mlp_residual": {"": depth * iters}, "ln_qkv_headmajor": per_kind,
-                  "relpos_attention": per_kind, "qkv_headmajor": {}},
+        "fused": {"ln_mlp_residual": {"": depth * iters}, "ln_rows": per_kind,
+                  "ln_qkv_headmajor": per_kind, "relpos_attention": per_kind,
+                  "qkv_headmajor": {}},
         "flash": {"ln_mlp_residual": {}, "ln_qkv_headmajor": {},
                   "relpos_attention": per_kind, "qkv_headmajor": per_kind},
     }
@@ -1107,6 +1175,7 @@ def main() -> int:
             # on its own path (K11': no path runs an odd head count)
             "launches": by_path[r["path"]] if r["path"] else 0,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "share_of_bound": r["bound_ms"] / r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "path": r["path"], "launches_by_path": by_path,

@@ -78,11 +78,6 @@ class Trainer:
                 f"training '{model_cfg['type']}' is not ported to torch yet "
                 "(the query family's losses come with its train step)"
             )
-        if model_cfg.get("attn_impl", "fused") != "fused":
-            raise NotImplementedError(
-                f"attn_impl={model_cfg['attn_impl']!r} has no backward kernels yet: "
-                "training on the 'flash' route is a later slice of the port"
-            )
         self.model = build_detector(model_cfg)
         init_random_weights(self.model, seed)  # checkpoints come with the runner
         if model_cfg.get("bf16", False):

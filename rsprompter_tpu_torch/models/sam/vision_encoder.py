@@ -22,7 +22,7 @@ The config key ``attn_impl`` picks the block's route, as in JAX
   factors in fp32 cast to q's dtype, kernel C in the place of JAX's flash
   kernel (``flash_attention_rel_pos``), proj, unpartition, residual, then
   LN2 and ``MLPBlock`` in torch (JAX runs them outside any Pallas kernel on
-  this route). Inference only: K12' has no backward kernel yet.
+  this route). K12''s backward is plain torch products, as in JAX.
 
 Weights are cast to the activations' dtype at each use, so fp32 master
 parameters train through bf16 kernels. ``impl='plain'`` runs either route

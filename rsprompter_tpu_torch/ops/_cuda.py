@@ -139,13 +139,14 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None
 
 
 def all_kernels() -> List[CudaKernel]:
-    """Every kernel of the port: the encoder layer's forwards in order,
-    then their backwards, then the 'flash' route's K12'."""
+    """Every kernel of the port: the encoder layer's forwards in order
+    (kernel B's row pass, then its GEMM), then their backwards, then the
+    'flash' route's K12'."""
     from rsprompter_tpu_torch.ops import fused_mlp as fm
     from rsprompter_tpu_torch.ops import fused_vit_attention as fa
 
     return [
-        fm.LN_MLP_RESIDUAL, fm.LN_QKV_HEADMAJOR, fa.RELPOS_ATTENTION,
+        fm.LN_MLP_RESIDUAL, fm.LN_ROWS, fm.LN_QKV_HEADMAJOR, fa.RELPOS_ATTENTION,
         fm.LN_MLP_RESIDUAL_BWD, fm.LN_QKV_HEADMAJOR_BWD, fa.RELPOS_ATTENTION_BWD,
         fm.QKV_HEADMAJOR,
     ]

@@ -11,15 +11,18 @@ device memory (see the source note). Its backward A'
 Kernel B, ``ln_qkv_headmajor`` (``csrc/ln_qkv_headmajor.cu``), replaces
 ``_ln_qkv_kernel`` (``fused_ln_qkv``, global layers) and
 ``_strip_qkv_kernel`` (``fused_qkv_window_pair``, windowed layers): LN then
-the qkv product, written head-major (N, 3n, S, d), with the window partition
-and its zero pad done in the kernel's row addressing. Tensor-core bound
-(29 GFLOP per layer). Its backward B' (``csrc/ln_qkv_headmajor_bwd.cu``)
-replaces ``_ln_qkv_bwd_kernel`` and ``_strip_qkv_bwd_kernel``.
+the qkv product, written head-major (N, 3n, S, d). It is two launches: the
+row pass ``ln_rows`` (LN, window partition and zero pad into z, counted as
+``LN_ROWS``) and the wgmma GEMM that K12' is too (counted as
+``LN_QKV_HEADMAJOR`` when kernel B launches it). Tensor-core bound (29 GFLOP
+per layer). Its backward B' (``csrc/ln_qkv_headmajor_bwd.cu``) replaces
+``_ln_qkv_bwd_kernel`` and ``_strip_qkv_bwd_kernel``.
 
-Kernel K12', ``qkv_headmajor`` (the same source, LN compiled out), replaces
+Kernel K12', ``qkv_headmajor`` (the same GEMM), replaces
 ``_qkv_pair_kernel`` (``fused_qkv_pair``): flat tokens (N*S, C) -> x.W + b
-head-major (N, 3n, S, d). The encoder's ``'flash'`` route runs it. It has no
-backward kernel yet: nothing trains on that route.
+head-major (N, 3n, S, d). The encoder's ``'flash'`` route runs it. Its
+backward is plain torch products on every device, as JAX's
+``_qkv_pair_bwd_vjp`` leaves it to XLA.
 
 The public functions are ``torch.autograd.Function``s: their forward is the
 kernel, their backward the backward kernel, for CUDA tensors; for tensors on
@@ -54,9 +57,13 @@ LN_MLP_RESIDUAL_BWD = CudaKernel(
     "ln_mlp_residual_bwd", "ln_mlp_residual_bwd.cu", "rsp_ln_mlp_residual_bwd",
     [_P] * 20 + [_I] * 3 + [_F, _P],
 )
+LN_ROWS = CudaKernel(
+    "ln_rows", "ln_qkv_headmajor.cu", "rsp_ln_rows", [_P] * 4 + [_I] * 5 + [_F, _P],
+)
+# kernel B's GEMM and K12' are one entry point, counted apart by call site
 LN_QKV_HEADMAJOR = CudaKernel(
-    "ln_qkv_headmajor", "ln_qkv_headmajor.cu", "rsp_ln_qkv_headmajor",
-    [_P] * 6 + [_I] * 6 + [_F, _P],
+    "ln_qkv_headmajor", "ln_qkv_headmajor.cu", "rsp_qkv_headmajor",
+    [_P] * 4 + [_I] * 4 + [_P],
 )
 QKV_HEADMAJOR = CudaKernel(
     "qkv_headmajor", "ln_qkv_headmajor.cu", "rsp_qkv_headmajor",
@@ -282,6 +289,13 @@ def ln_qkv_headmajor_plain(
     return y.reshape(n, s, heads3, o // heads3).permute(0, 2, 1, 3).contiguous()
 
 
+def ln_rows_plain(x, ln_w, ln_b, window: int = 0, eps: float = 1e-6) -> torch.Tensor:
+    """Kernel B's row pass: x (B, H, W, C) -> z (N*S, C), LN (when ``ln_w``
+    is given) then the zero-padded window partition, in x's dtype."""
+    z = layer_norm(x, ln_w, ln_b, eps) if ln_w is not None else x
+    return window_partition(z, window).reshape(-1, x.shape[-1])
+
+
 def ln_qkv_headmajor_bwd_plain(x, ln_w, ln_b, w, b, dy, heads3: int,
                                window: int = 0, eps: float = 1e-6):
     """Backward of :func:`ln_qkv_headmajor_plain`, as the JAX kernel bodies
@@ -329,8 +343,8 @@ def _check_qkv_args(x, ln_w, ln_b, w, b, heads3):
     if ln_w is not None:
         check_cuda_tensor("ln_w", ln_w, torch.float32, (c,))
         check_cuda_tensor("ln_b", ln_b, torch.float32, (c,))
-    if c % 64:
-        raise ValueError(f"ln_qkv_headmajor: C={c} is not a multiple of 64")
+    if c % 64 or c > 2048:
+        raise ValueError(f"ln_qkv_headmajor: C={c} is not a multiple of 64 up to 2048")
 
 
 def _ln_qkv_headmajor_fwd(x, ln_w, ln_b, w, b, heads3, window, eps):
@@ -339,13 +353,16 @@ def _ln_qkv_headmajor_fwd(x, ln_w, ln_b, w, b, heads3, window, eps):
     _check_qkv_args(x, ln_w, ln_b, w, b, heads3)
     bsz, hh, ww, c = x.shape
     n, s = _qkv_rows(x, heads3, window)
-    out = torch.empty((n, heads3, s, 64), dtype=torch.bfloat16, device=x.device)
-    LN_QKV_HEADMAJOR.launch(
+    variant = "window" if window else "global"
+    z = torch.empty((n * s, c), dtype=torch.bfloat16, device=x.device)
+    LN_ROWS.launch(
         ptr(x), ptr(ln_w) if ln_w is not None else _NULL,
-        ptr(ln_b) if ln_b is not None else _NULL, ptr(w), ptr(b), ptr(out),
-        bsz, hh, ww, c, heads3, window, eps,
-        variant="window" if window else "global",
+        ptr(ln_b) if ln_b is not None else _NULL, ptr(z), bsz, hh, ww, c, window, eps,
+        variant=variant,
     )
+    out = torch.empty((n, heads3, s, 64), dtype=torch.bfloat16, device=x.device)
+    LN_QKV_HEADMAJOR.launch(ptr(z), ptr(w), ptr(b), ptr(out), n, s, c, heads3,
+                            variant=variant)
     return out
 
 
@@ -430,21 +447,31 @@ def _qkv_headmajor_fwd(x, w, b, heads3, n):
     return out
 
 
+def qkv_headmajor_bwd(x, w, dy):
+    """Backward of :func:`qkv_headmajor` given dy (N, heads3, S, d), as JAX's
+    ``_qkv_pair_bwd_vjp`` takes it (``jax.vjp`` of ``x @ w + b``, left to
+    XLA): plain torch products on every device. Returns (dx, dw, db): dx =
+    dy W in x's dtype, dw = dy^T x, db = the column sums of dy."""
+    dyf = dy.permute(0, 2, 1, 3).reshape(x.shape[0], w.shape[0]).to(x.dtype)
+    return dyf @ w.to(x.dtype), (dyf.t() @ x).to(w.dtype), dyf.sum(dim=0)
+
+
 class _QkvHeadmajor(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, heads3, n):
+        ctx.save_for_backward(x, w)
+        ctx.b_dtype = b.dtype
         return _qkv_headmajor_fwd(x, w, b, heads3, n)
 
     @staticmethod
     def backward(ctx, dy):
-        raise NotImplementedError(
-            "qkv_headmajor has no backward kernel: training on the encoder's "
-            "'flash' route is a later slice of the port"
-        )
+        x, w = ctx.saved_tensors
+        dx, dw, db = qkv_headmajor_bwd(x, w, dy)
+        return dx, dw, db.to(ctx.b_dtype), None, None
 
 
 def qkv_headmajor(x, w, b, heads3: int, n: int):
     """Kernel K12' on CUDA tensors (bf16 x (N*S, C), w (heads3*64, C), b);
     the plain version on the CPU. Returns (N, heads3, S, 64). Its backward
-    raises: nothing trains through it yet."""
+    is :func:`qkv_headmajor_bwd` on every device."""
     return _QkvHeadmajor.apply(x, w, b, heads3, n)

@@ -5,7 +5,7 @@ backward C'.
 of ``rsprompter_tpu/ops/fused_vit_attention.py``: ``_window_kernel_pair``
 (windowed layers), ``_global_kernel_pair_tiled`` (global layers, inference
 default) and ``_global_kernel_pair`` (exact-softmax variant). It is one
-flash-style kernel with an exact online softmax; the TPU's +-60 logit clamp
+FlashAttention-3-style kernel (TMA, wgmma) with an exact online softmax; the TPU's +-60 logit clamp
 is dropped (PARITY.md deviation 8). Its backward C'
 (``csrc/relpos_attention_bwd.cu``) replaces ``_window_bwd_kernel_pair`` and
 ``_global_bwd_kernel_pair``: from the forward's output and row log-sum-exp it

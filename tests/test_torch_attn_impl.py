@@ -110,13 +110,67 @@ def test_qkv_headmajor_matches_fused_qkv_pair():
     np.testing.assert_allclose(got.numpy(), ref.reshape(n, heads3, s, 64), atol=TOL, rtol=TOL)
 
 
-def test_qkv_headmajor_backward_raises():
-    """Nothing trains on the 'flash' route yet: K12' has no backward."""
-    x = torch.randn(2 * 10, 64, requires_grad=True)
-    y = fm.qkv_headmajor(x, torch.randn(6 * 64, 64), torch.randn(6 * 64), 6, 2)
-    assert y.shape == (2, 6, 10, 64)
-    with pytest.raises(NotImplementedError, match="flash"):
-        y.sum().backward()
+def test_qkv_headmajor_backward_matches_jax():
+    """dx, dw, db of ``qkv_headmajor`` against ``jax.vjp`` of ``fused_qkv_pair`` (K12, its
+    backward ``_qkv_pair_bwd_vjp``), the cotangent packed two heads per 128
+    lanes as JAX lays the output out."""
+    rng = np.random.default_rng(2)
+    n, s, c, heads3 = 2, 16, 64, 6
+    x = rng.standard_normal((n * s, c)).astype(np.float32)
+    w = (rng.standard_normal((c, heads3 * 64)) / np.sqrt(c)).astype(np.float32)
+    b = rng.standard_normal(heads3 * 64).astype(np.float32)
+    dy = rng.standard_normal((n, heads3, s, 64)).astype(np.float32)
+    _, vjp = jax.vjp(lambda x, w, b: fused_qkv_pair(x, w, b, heads3, n),
+                     *map(jax.numpy.asarray, (x, w, b)))
+    packed = dy.reshape(n, heads3 // 2, 2, s, 64).transpose(0, 1, 3, 2, 4)
+    jdx, jdw, jdb = vjp(jax.numpy.asarray(packed.reshape(n, heads3 // 2, s, 128)))
+
+    xt = torch.from_numpy(x).requires_grad_(True)
+    wt = torch.from_numpy(w.T.copy()).requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True)
+    y = fm.qkv_headmajor(xt, wt, bt, heads3, n)
+    assert y.shape == (n, heads3, s, 64)
+    y.backward(torch.from_numpy(dy))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jdx), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jdw).T, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(bt.grad.numpy(), np.asarray(jdb), atol=TOL, rtol=TOL)
+
+
+def test_flash_train_step_matches_fused():
+    """One train step's loss and every gradient on the 'flash' route (torch
+    LN1 + partition, K12' and its backward, kernel C) against the 'fused'
+    route (kernels B, C, A) at the same seeded weights, fp32 on the CPU."""
+    from rsprompter_tpu_torch.engine.train_state import total_loss
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_batch
+
+    image = 64
+    model = dict(
+        type="RSPrompterAnchor", bf16=False, num_classes=3, prompt_shape=(10, 3),
+        image_size=image, select_layers=(1, 2), aggregator_hidden=8,
+        vision_config=dict(ODD_KW, patch_size=8), rpn_strides=(2, 4, 8, 16, 32),
+        roi_strides=(2, 4, 8, 16), num_samples=32, pos_fraction=0.25,
+        train_backbone=True, decoder_freeze=False,
+        train_cfg=dict(rpn=dict(num=64, pos_fraction=0.5),
+                       rpn_proposal=dict(nms_pre=100, max_per_img=24, pre_nms_total=200)),
+    )
+    batch = {k: torch.from_numpy(np.asarray(v)) for k, v in synthetic_batch(
+        2, (image, image), 3, max_gt=5, seed=2).items()}
+    runs = {}
+    for impl in ("fused", "flash"):
+        trainer = build_trainer({"model": dict(model, attn_impl=impl)}, device="cpu", seed=0)
+        trainer.model.train()
+        loss = total_loss(trainer.model.loss(batch, generator=torch.Generator().manual_seed(0)))
+        loss.backward()
+        runs[impl] = loss.item(), {n: p.grad for n, p in trainer.model.named_parameters()
+                                   if p.grad is not None}
+    (loss_f, grads_f), (loss_l, grads_l) = runs["fused"], runs["flash"]
+    assert abs(loss_l - loss_f) <= 1e-4 * abs(loss_f)
+    assert grads_l.keys() == grads_f.keys()
+    assert all(float(grads_l[n].abs().max()) > 0 for n in grads_l if ".attn.qkv." in n)
+    gmax = max(float(g.abs().max()) for g in grads_f.values())
+    for n, g in grads_f.items():
+        np.testing.assert_allclose(grads_l[n].numpy(), g.numpy(), rtol=1e-4, atol=1e-4 * gmax,
+                                   err_msg=n)
 
 
 @pytest.mark.parametrize("attn_impl", ["xla", "pallas"])
@@ -126,10 +180,8 @@ def test_unknown_attn_impl_raises(attn_impl):
         build_detector(cfg)
 
 
-@pytest.mark.parametrize("model", [
-    dict(type="RSPrompterQuery"),
-    dict(type="RSPrompterAnchor", attn_impl="flash"),
-], ids=["query", "anchor-flash"])
+@pytest.mark.parametrize("model", [dict(type="RSPrompterQuery")], ids=["query"])
 def test_build_trainer_raises_for_later_slices(model):
+    """The query family has no train step yet."""
     with pytest.raises(NotImplementedError):
         build_trainer({"model": dict(model, vision_config=ODD_KW)}, device="cpu")

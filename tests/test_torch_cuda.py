@@ -99,11 +99,77 @@ def test_qkv_headmajor_kernel(gen, n, s):
     _close(fm.qkv_headmajor(*args), fm.qkv_headmajor_plain(*_f32(args)))
 
 
-def test_qkv_headmajor_has_no_backward_on_cuda(gen):
-    x = _rnd(gen, 64, 768).requires_grad_(True)
-    y = fm.qkv_headmajor(x, _rnd(gen, 6 * 64, 768, scale=0.02), _rnd(gen, 6 * 64), 6, 1)
-    with pytest.raises(NotImplementedError, match="flash"):
-        y.float().sum().backward()
+def test_qkv_headmajor_backward_on_cuda(gen):
+    """K12' backpropagates on the card: dx, dw, db through the Function against the plain forward's autograd."""
+    x = _rnd(gen, 100, 768)
+    w, b = _rnd(gen, 6 * 64, 768, scale=0.02), _rnd(gen, 6 * 64)
+    dy = _rnd(gen, 2, 6, 50, 64)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    fm.qkv_headmajor(*leaves, 6, 2).backward(dy)
+    ref = [t.float().requires_grad_(True) for t in (x, w, b)]
+    fm.qkv_headmajor_plain(*ref, 6, 2).backward(dy.float())
+    _close_each([t.grad for t in leaves], [t.grad for t in ref])
+
+
+@pytest.mark.parametrize("c", [768, 1024, 1280])
+def test_qkv_gemm_widths(gen, c):
+    """Kernel B and K12' at ViT-B/L/H widths: 300 rows (not a multiple of the
+    128-row tile) and 9 heads of 64 (576 columns: the second 256-wide tile
+    holds one real head of four)."""
+    heads3, grid = 9, (15, 20)
+    w, b = _rnd(gen, heads3 * 64, c, scale=0.02), _rnd(gen, heads3 * 64, scale=0.02)
+    ln = (1 + _rnd(gen, c, scale=0.1, dtype=torch.float32),
+          _rnd(gen, c, scale=0.1, dtype=torch.float32))
+    x = _rnd(gen, 1, *grid, c)
+    args = (x, *ln, w, b, heads3, 0, 1e-6)
+    _close(fm.ln_qkv_headmajor(*args), fm.ln_qkv_headmajor_plain(*_f32(args)))
+    flat = (x.reshape(-1, c), w, b, heads3, 1)
+    _close(fm.qkv_headmajor(*flat), fm.qkv_headmajor_plain(*_f32(flat)))
+
+
+@pytest.mark.parametrize("grid,window,ln", [((10, 9), 4, True), ((64, 64), 14, True),
+                                            ((10, 9), 4, False)])
+def test_ln_rows_kernel(gen, grid, window, ln):
+    """Kernel B's row pass alone: LN, window partition and zero pad."""
+    c = 768
+    x = _rnd(gen, 2, *grid, c)
+    lw = 1 + _rnd(gen, c, scale=0.1, dtype=torch.float32) if ln else None
+    lb = _rnd(gen, c, scale=0.1, dtype=torch.float32) if ln else None
+    n, s = fm._qkv_rows(x, 3, window)
+    z = torch.empty((n * s, c), dtype=torch.bfloat16, device="cuda")
+    fm.LN_ROWS.launch(fm.ptr(x), fm.ptr(lw) if ln else fm._NULL, fm.ptr(lb) if ln else fm._NULL,
+                      fm.ptr(z), 2, *grid, c, window, 1e-6)
+    _close(z, fm.ln_rows_plain(*_f32((x, lw, lb)), window))
+
+
+@pytest.mark.parametrize("hw", [(64, 64), (32, 32), (9, 7)])
+def test_relpos_attention_lse(gen, hw):
+    """The row log-sum-exp the backward reads, in natural-log units, against
+    a plain logsumexp of the biased scores (S = 4096, 1024, 63)."""
+    n_img, heads, s = 1, 2, hw[0] * hw[1]
+    qkv = _rnd(gen, n_img, 3 * heads, s, 64)
+    fh = _rnd(gen, n_img, heads, s, hw[0], scale=0.5)
+    fw = _rnd(gen, n_img, heads, s, hw[1], scale=0.5)
+    out, lse = fa._relpos_attention_fwd(qkv, fh, fw, hw, True)
+    qf = qkv.float()
+    scores = fa._biased_scores(qf[:, :heads], qf[:, heads : 2 * heads], fh, fw)
+    _close(out, fa.relpos_attention_plain(qf, fh.float(), fw.float(), hw))
+    torch.cuda.synchronize()
+    err = (lse - torch.logsumexp(scores, dim=-1)).abs().max().item()
+    assert err <= 1e-3 * scores.abs().max().item(), err
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    x = _rnd(gen, 1, 4, 4, 96)  # C not a multiple of 64
+    w, b = _rnd(gen, 3 * 64, 96), _rnd(gen, 3 * 64)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fm.ln_qkv_headmajor(x, None, None, w, b, 3)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        fm.qkv_headmajor(x.reshape(16, 96), w, b, 3, 1)
+    hw = (65, 1)  # h > 64
+    qkv = _rnd(gen, 1, 3, 65, 64)
+    with pytest.raises(ValueError, match="exceeds 64x64"):
+        fa.relpos_attention(qkv, _rnd(gen, 1, 1, 65, 65), _rnd(gen, 1, 1, 65, 1), hw)
 
 
 @pytest.mark.parametrize("heads,hw", [(3, (14, 14)), (1, (9, 7)), (5, (8, 8))])
