@@ -29,8 +29,9 @@ Phases (every failure raises; the script exits non-zero and prints no result):
 4. backward kernels: A', B' (global, window) and C' (global, window) against
    their fp32 plain backwards at the train step's shapes (ViT-B, 512^2,
    batch 4), each output within 2e-2 of its largest magnitude, with kernel,
-   plain, library and bound times; K12''s backward (torch products) through
-   its Function against plain autograd;
+   plain, library and bound times; a second launch of C' on the same
+   inputs must give the same bits (its sums run in a fixed order); K12''s
+   backward (torch products) through its Function against plain autograd;
 5. train step, the second main path: ``build_trainer`` on
    ``rsprompter_anchor-nwpu-scratch-512.py`` (encoder and decoder trainable,
    ViT-B 512^2, batch 4, bf16 compute on fp32 master weights), seeded random
@@ -598,6 +599,16 @@ def backward_kernel_phase(dev):
         torch.cuda.synchronize()
         err = compare_each(f"relpos_attention_bwd/{variant}", got, fa.relpos_attention_bwd_plain(
             qkv.float(), fh.float(), fw.float(), dout.float(), hw))
+        again = fa.relpos_attention_bwd(*a)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dqkv", "dfh", "dfw"), got, again):
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    f"relpos_attention_bwd/{variant}: a second launch changed {name} "
+                    f"(max |diff| {(x.float() - y.float()).abs().max().item():.4g})")
+        log(f"relpos_attention_bwd/{variant}: a second launch gives the same bits "
+            "in dqkv, dfh and dfw")
+        del again
         q, k, v = qkv[:, :heads], qkv[:, heads : 2 * heads], qkv[:, 2 * heads :]
         bias = (fh[..., :, None] + fw[..., None, :]).reshape(n_img, heads, s, s)
         library_ms = sdpa_backward_ms(q, k, v, bias, dout)

@@ -50,7 +50,7 @@ RELPOS_ATTENTION = CudaKernel(
 )
 RELPOS_ATTENTION_BWD = CudaKernel(
     "relpos_attention_bwd", "relpos_attention_bwd.cu", "rsp_relpos_attention_bwd",
-    [_P] * 10 + [_I] * 5 + [_F, _P],
+    [_P] * 12 + [_I] * 7 + [_F, _P],
 )
 
 
@@ -142,11 +142,17 @@ def relpos_attention_bwd(qkv, fh, fw, out, lse, dout, hw: Tuple[int, int]):
     dqkv = torch.empty_like(qkv)
     dfh = torch.empty_like(fh)
     dfw = torch.empty_like(fw)
+    # scratch (csrc/relpos_attention_bwd.cu's header): delta; F = [fh | fw]
+    # zero-padded to nf columns (whole 128-byte tiles); the group matrix E
+    # over the keys padded to whole 64-key tiles
+    nf, sp = (64 if sum(hw) <= 64 else 128), -(-s // 64) * 64
     delta = torch.empty((nb, n, s), dtype=torch.float32, device=qkv.device)
+    fcat = torch.empty((nb, n, s, nf), dtype=torch.bfloat16, device=qkv.device)
+    groups = torch.empty((sp, nf), dtype=torch.bfloat16, device=qkv.device)
     RELPOS_ATTENTION_BWD.launch(
         ptr(qkv), ptr(fh), ptr(fw), ptr(out), ptr(lse), ptr(dout), ptr(dqkv),
-        ptr(dfh), ptr(dfw), ptr(delta), nb, n, s, hw[0], hw[1], 64 ** -0.5,
-        variant=_variant(s, n),
+        ptr(dfh), ptr(dfw), ptr(delta), ptr(fcat), ptr(groups),
+        nb, n, s, hw[0], hw[1], nf, sp, 64 ** -0.5, variant=_variant(s, n),
     )
     return dqkv, dfh, dfw
 

@@ -1,5 +1,6 @@
-"""Time the port's kernel B, K12' and kernel C from several source trees on
-one CUDA card, each tree the same way, so two designs compare in one run.
+"""Time the port's kernel B, K12', kernel C and its backward C' from several
+source trees on one CUDA card, each tree the same way, so two designs
+compare in one run.
 
     python scripts/torch_kernel_ab.py [--generic-copy DST] ROOT [ROOT ...]
 
@@ -7,9 +8,12 @@ Each ROOT is a directory holding an ``rsprompter_tpu_torch/`` package (this
 repository's root, or an unpacked ``git archive`` of another commit); each
 is timed in a subprocess of its own, in the order given (parent, change,
 change, parent), its kernels built from its own sources into ``ROOT/build``.
-Inputs are those of ``chip_smoke.py``'s kernel phase (ViT-B 1024^2, batch 2,
-bf16, seed 0), and every output is first held against its fp32 plain
-version within 2e-2 of its largest magnitude. Each kernel gets two readings:
+Inputs are those of ``chip_smoke.py``'s kernel phases (forward kernels at
+ViT-B 1024^2, batch 2; C' at the train step's 512^2, batch 4: global qkv
+(4, 36, 1024, 64), windows (36, 36, 196, 64); bf16, seed 0), and every
+output is first held against its fp32 plain version within 2e-2 of its
+largest magnitude (C': each of dqkv, dfh, dfw). Each kernel gets two
+readings:
 
 - ``alone``: CUDA events around one call, median of 15 after 3 warm-up
   calls. The device also waits for the host's enqueue of that call.
@@ -90,7 +94,7 @@ def worker(root: str) -> dict:
 
     if not fm.__file__.startswith(root):
         raise RuntimeError(f"imported {fm.__file__}, not the package under {root}")
-    _cuda.build([fm.LN_QKV_HEADMAJOR, fa.RELPOS_ATTENTION])
+    _cuda.build([fm.LN_QKV_HEADMAJOR, fa.RELPOS_ATTENTION, fa.RELPOS_ATTENTION_BWD])
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -126,15 +130,33 @@ def worker(root: str) -> dict:
             lambda a=(qkv, fh, fw, hw): fa.relpos_attention(*a),
             lambda a=(qkv, fh, fw, hw): fa.relpos_attention_plain(
                 a[0].float(), a[1].float(), a[2].float(), a[3]))
+    # C' at the train step's shapes (ViT-B 512^2, batch 4), from the forward's
+    # output and log-sum-exp
+    for name, n_img, hw in (("global", 4, (32, 32)), ("window", 36, (win, win))):
+        s = hw[0] * hw[1]
+        qkv = rnd(n_img, 3 * heads, s, 64)
+        fh = rnd(n_img, heads, s, hw[0], scale=0.5)
+        fw = rnd(n_img, heads, s, hw[1], scale=0.5)
+        dout = rnd(n_img, heads, s, 64)
+        o, lse = fa._relpos_attention_fwd(qkv, fh, fw, hw, True)
+        cases[f"relpos_attention_bwd/{name}"] = (
+            lambda a=(qkv, fh, fw, o, lse, dout, hw): fa.relpos_attention_bwd(*a),
+            lambda a=(qkv, fh, fw, dout, hw): fa.relpos_attention_bwd_plain(
+                a[0].float(), a[1].float(), a[2].float(), a[3].float(), a[4]))
     out = {}
     for name, (kernel, plain) in cases.items():
         got = kernel()
         torch.cuda.synchronize()
         ref = plain()
-        err = (got.float() - ref).abs().max().item()
-        if not torch.isfinite(got.float()).all() or err > TOL * ref.abs().max().item():
-            raise AssertionError(f"{root}: {name} disagrees with plain (max |diff| {err:.4g})")
-        del got, ref
+        if not isinstance(got, tuple):
+            got, ref = (got,), (ref,)
+        err = 0.0
+        for x, r in zip(got, ref):  # each output against its own scale
+            e = (x.float() - r.float()).abs().max().item()
+            if not torch.isfinite(x.float()).all() or e > TOL * r.float().abs().max().item():
+                raise AssertionError(f"{root}: {name} disagrees with plain (max |diff| {e:.4g})")
+            err = max(err, e)
+        del got, ref, x, r
         out[name] = {"alone": time_alone(kernel), "b2b": time_b2b(kernel),
                      "max_abs_err": err}
     return out
@@ -181,7 +203,7 @@ def main() -> int:
         ms = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append({"root": root, "ms": ms})
         for name, r in ms.items():
-            print(f"{root:24s} {name:28s} alone {r['alone']:.4f} ms  b2b {r['b2b']:.4f} ms  "
+            print(f"{root:24s} {name:32s} alone {r['alone']:.4f} ms  b2b {r['b2b']:.4f} ms  "
                   f"max_abs_err {r['max_abs_err']:.4g}", flush=True)
     print(json.dumps({"card": card, "runs": runs}), flush=True)
     return 0

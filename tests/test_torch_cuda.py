@@ -214,19 +214,39 @@ def test_ln_qkv_headmajor_bwd_kernel(gen, grid, window, ln):
                 fm.ln_qkv_headmajor_bwd_plain(*_f32(args), 3 * heads, window))
 
 
-@pytest.mark.parametrize("hw", [(14, 14), (9, 7), (5, 13), (32, 32)])
-def test_relpos_attention_bwd_kernel(gen, hw):
-    """S = 196, 63, 65, 1024: key tiles of 64 end ragged in the first three."""
-    n_img, heads, s = 3, 4, hw[0] * hw[1]
+def _bwd_inputs(gen, n_img, heads, hw):
+    s = hw[0] * hw[1]
     qkv = _rnd(gen, n_img, 3 * heads, s, 64)
     fh = _rnd(gen, n_img, heads, s, hw[0], scale=0.5)
     fw = _rnd(gen, n_img, heads, s, hw[1], scale=0.5)
     dout = _rnd(gen, n_img, heads, s, 64)
     out, lse = fa._relpos_attention_fwd(qkv, fh, fw, hw, True)
+    return qkv, fh, fw, out, lse, dout, hw
+
+
+@pytest.mark.parametrize("hw", [(14, 14), (9, 7), (5, 13), (32, 32), (64, 64)])
+def test_relpos_attention_bwd_kernel(gen, hw):
+    """S = 196, 63, 65, 1024, 4096: key tiles of 64 end ragged in the first
+    three; (64, 64) is the 1024^2 global grid, whose h + w = 128 takes the
+    wider factor tiles."""
+    n_img, heads = (1, 2) if hw == (64, 64) else (3, 4)
+    qkv, fh, fw, out, lse, dout, _ = a = _bwd_inputs(gen, n_img, heads, hw)
     _close_each(
-        fa.relpos_attention_bwd(qkv, fh, fw, out, lse, dout, hw),
+        fa.relpos_attention_bwd(*a),
         fa.relpos_attention_bwd_plain(qkv.float(), fh.float(), fw.float(), dout.float(), hw),
     )
+
+
+@pytest.mark.parametrize("hw", [(14, 14), (32, 32)])
+def test_relpos_attention_bwd_is_deterministic(gen, hw):
+    """Two launches on the same inputs give the same bits in dqkv, dfh and
+    dfw: every sum is taken in a fixed order, with no atomics."""
+    a = _bwd_inputs(gen, 3, 4, hw)
+    first = fa.relpos_attention_bwd(*a)
+    second = fa.relpos_attention_bwd(*a)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def test_wrappers_record_their_backward_on_cuda(gen):
