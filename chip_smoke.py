@@ -13,13 +13,13 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    card, at the shapes of the main path (SAM ViT-B, 1024^2, batch 2), bf16
    inputs from a seed against an fp32 plain reference, with the time of the
    kernel, of the plain version, of one PyTorch library call where one
-   computes the same function, and the least time the card could take, and,
-   in the log only, for the redesigned kernels (B, K12', C), the previous
-   design's time (``PREV_MS``); kernel B is its row pass (LN, window
-   partition, zero pad) then the GEMM that K12' is too; the
-   encoder's 'flash' route adds K12' (qkv without LN) at the windowed and
-   global shapes and reports kernel C there under K10, and kernel C at three
-   heads stands for K11;
+   computes the same function, and the least time the card could take;
+   kernel A is the row pass (LN) then its fc1 and fc2 GEMMs, kernel B its
+   row pass (LN, window partition, zero pad) then the GEMM that K12' is too;
+   the encoder's 'flash' route adds K12' (qkv without LN) at the windowed
+   and global shapes and reports kernel C there under K10, and kernel C at
+   three heads stands for K11; kernel C is also held against plain at
+   ragged grids (9 x 7, 16 x 16);
 3. main path: RSPrompter-anchor predict at ViT-B 1024^2, batch 2, bf16, with
    seeded random weights, through ``init_detector`` / ``inference_detector``;
    launch counters show that every encoder layer went through the kernels; the
@@ -45,7 +45,14 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    on its own, the kernels' distance from the reference held to twice the
    plain bf16 run's (the noise floor); the encoder alone through kernels and
    plain with the same cotangents, which sees the backward kernels without
-   the heads' amplified bf16 noise, each of its tensors held to a limit.
+   the heads' amplified bf16 noise, each of its tensors held to a limit;
+7. query predict: RSPrompter-query at ViT-B 1024^2, batch 2, on both encoder
+   routes ('fused', 'flash'): launch counts, the routes against each other
+   and against plain, the last layer's logits against plain;
+8. the SAM checkpoint: a seeded HF-named ViT-B SAM state_dict written to a
+   temporary directory, the anchor detector built through ``init_detector``
+   with a config whose ``hf_sam_pretrain_ckpt_path`` names it; every SAM
+   tensor on the card must equal the file's after the dtype cast.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -70,18 +77,6 @@ TRAIN_STEPS_PER_EPOCH = 130  # NWPU's 520 training images at batch 4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 TOL = 2e-2  # max |kernel - plain| relative to max |plain| (bf16 inputs)
-# Times of the redesigned kernels (kernel B, K12' and kernel C, now TMA +
-# wgmma) as their previous mma.sync designs gave them on an NVIDIA H100 80GB
-# HBM3 at 700.00 W (PERF.md's kernel table). They were taken with each call
-# timed alone, not as cuda_time_ms times, so they go in the log beside this
-# run's ms as a reminder, never in the kernels line.
-PREV_MS = {
-    "ln_qkv_headmajor/global": 0.4308, "ln_qkv_headmajor/window": 0.6145,
-    "relpos_attention/global": 1.5003, "relpos_attention/window": 0.2363,
-    "relpos_attention/flash-global": 1.5003, "relpos_attention/flash-window": 0.2363,
-    "relpos_attention/odd-heads": 0.1146,
-    "qkv_headmajor/global": 0.4299, "qkv_headmajor/window": 0.6017,
-}
 
 
 def log(msg: str) -> None:
@@ -102,8 +97,8 @@ def cuda_time_ms(fn, warmup: int = 3, iters: int = 15, repeat: int = 10) -> floa
     warm-up. Back to back, the host enqueues the next call while the device
     runs this one, so a call's host-side work (the wrappers' checks, the
     tensor-map encoding) stays out of the time unless the call is shorter
-    than it. (Timing each call alone, as ``PREV_MS`` was taken, also counts
-    the device's wait for the host's enqueue.)"""
+    than it. (Timing each call alone also counts the device's wait for the
+    host's enqueue.)"""
     import torch
 
     for _ in range(warmup):
@@ -175,8 +170,23 @@ def kernel_phase(dev):
     flops = 4.0 * t * c * mlp
     nbytes = 2 * t * c * 2 + 2 * c * mlp * 2 + (mlp + c) * 2 + 2 * c * 4
     b_ms, b_by = bound_ms(flops, nbytes)
+    # its three launches alone: the row pass, fc1 + GELU, fc2 + residual
+    z, hid, out = torch.empty_like(x), torch.empty((t, mlp), dtype=x.dtype, device=dev), \
+        torch.empty_like(x)
+    parts = {
+        "row pass": lambda: fm.LN_ROWS.launch(fm.ptr(x), fm.ptr(ln_w), fm.ptr(ln_b), fm.ptr(z),
+                                              1, 1, t, c, 0, 1e-6, variant="check"),
+        "fc1": lambda: fm.LN_MLP_RESIDUAL.launch(fm.ptr(z), fm.ptr(w1), fm.ptr(b1), fm._NULL,
+                                                 fm.ptr(hid), t, mlp, c, 0, variant="check"),
+        "fc2": lambda: fm.LN_MLP_RESIDUAL.launch(fm.ptr(hid), fm.ptr(w2), fm.ptr(b2),
+                                                 fm.ptr(x), fm.ptr(out), t, c, mlp, 1,
+                                                 variant="check"),
+    }
+    log("kernel A's launches alone (ms): " + ", ".join(
+        f"{k} {cuda_time_ms(f):.4f}" for k, f in parts.items()))
+    del z, hid, out
     rows.append(dict(
-        name="ln_mlp_residual", kernel=fm.LN_MLP_RESIDUAL, variant="",
+        name="ln_mlp_residual", kernel=fm.LN_MLP_RESIDUAL, variant="fc1",
         route="cuda", source="rsprompter_tpu_torch/csrc/ln_mlp_residual.cu",
         replaces="rsprompter_tpu/ops/fused_mlp.py:54",
         shape=f"x ({t}, {c}) bf16, W1 {c}x{mlp}, W2 {mlp}x{c}",
@@ -307,6 +317,20 @@ def kernel_phase(dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
     ))
 
+    # --- kernel C at ragged grids, held against plain: 9 x 7 on the window
+    # path (factor rows not 16-byte aligned, a key tile of 64), 16 x 16 past
+    # its S <= 200 on the global path
+    for hw in ((9, 7), (16, 16)):
+        s = hw[0] * hw[1]
+        qkv = rnd(n_img, 3 * heads, s, 64)
+        fh = rnd(n_img, heads, s, hw[0], scale=0.5)
+        fw = rnd(n_img, heads, s, hw[1], scale=0.5)
+        err = compare(f"relpos_attention/window {hw}", fa.relpos_attention(qkv, fh, fw, hw),
+                      fa.relpos_attention_plain(qkv.float(), fh.float(), fw.float(), hw))
+        log(f"kernel relpos_attention/window at {hw}: qkv {tuple(qkv.shape)}; max_abs_err "
+            f"{err:.4g} (tol {TOL} x max|plain|); kernel "
+            f"{cuda_time_ms(lambda: fa.relpos_attention(qkv, fh, fw, hw)):.4f} ms")
+
     # --- K12': qkv_headmajor (kernel B without LN), global and window -------
     for variant, n_img, s in (("global", bsz, grid * grid), ("window", bsz * 25, win * win)):
         xf = rnd(n_img * s, c)
@@ -334,8 +358,7 @@ def kernel_phase(dev):
     for r in rows:
         r.setdefault("path", "anchor_predict")
         log(f"kernel {r['name']}: {r['shape']}; max_abs_err {r['max_abs_err']:.4g} "
-            f"(tol {TOL} x max|plain|); kernel {r['ms']:.4f} ms (previous design, "
-            f"timed alone per call: {PREV_MS.get(r['name'])}), plain {r['plain_ms']:.4f} ms, library "
+            f"(tol {TOL} x max|plain|); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
     return rows
@@ -349,6 +372,12 @@ def kernel_phase(dev):
 # the 13 hidden states: about twice the worst reading on an H100 (0.02105 with
 # rel-pos tables at N(0, 0.5)); zeroing those tables moves it by 0.7484
 ENCODER_TOL = 4e-2
+
+
+def mlp_launches(n: int):
+    """Kernel A's GEMM launches for ``n`` calls (its row pass counts under
+    ``ln_rows`` as ``mlp``)."""
+    return {"fc1": n, "fc2": n}
 
 
 def worst_rel_diff(got, ref) -> float:
@@ -400,8 +429,8 @@ def main_path_phase(kernels, iters: int, profile_dir: str = ""):
 
     per_kind = {"global": n_global * iters, "window": (depth - n_global) * iters}
     expect = {
-        "ln_mlp_residual": {"": depth * iters},
-        "ln_rows": per_kind,
+        "ln_mlp_residual": mlp_launches(depth * iters),
+        "ln_rows": dict(per_kind, mlp=depth * iters),
         "ln_qkv_headmajor": per_kind,
         "relpos_attention": per_kind,
         "qkv_headmajor": {},
@@ -741,8 +770,8 @@ def train_phase(kernels, iters: int, profile_dir: str = ""):
     n_global = len(model.backbone.config.global_attn_indexes)
     per_kind = {"global": n_global * iters, "window": (depth - n_global) * iters}
     expect = {
-        "ln_mlp_residual": {"": depth * iters}, "ln_rows": per_kind,
-        "ln_qkv_headmajor": per_kind,
+        "ln_mlp_residual": mlp_launches(depth * iters),
+        "ln_rows": dict(per_kind, mlp=depth * iters), "ln_qkv_headmajor": per_kind,
         "relpos_attention": per_kind, "ln_mlp_residual_bwd": {"": depth * iters},
         "ln_qkv_headmajor_bwd": per_kind, "relpos_attention_bwd": per_kind,
         "qkv_headmajor": {},
@@ -980,7 +1009,8 @@ def query_phase(kernels, iters: int, profile_dir: str = ""):
     depth, n_global = vcfg.num_hidden_layers, len(vcfg.global_attn_indexes)
     per_kind = {"global": n_global * iters, "window": (depth - n_global) * iters}
     expect = {
-        "fused": {"ln_mlp_residual": {"": depth * iters}, "ln_rows": per_kind,
+        "fused": {"ln_mlp_residual": mlp_launches(depth * iters),
+                  "ln_rows": dict(per_kind, mlp=depth * iters),
                   "ln_qkv_headmajor": per_kind, "relpos_attention": per_kind,
                   "qkv_headmajor": {}},
         "flash": {"ln_mlp_residual": {}, "ln_qkv_headmajor": {},
@@ -1138,6 +1168,58 @@ def query_phase(kernels, iters: int, profile_dir: str = ""):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the config's SAM checkpoint
+# ---------------------------------------------------------------------------
+
+
+def sam_checkpoint_phase(config: str = CONFIG, device: str = "cuda") -> int:
+    """Write a seeded ViT-B SAM state_dict under Hugging Face's names (the
+    anchor detector's SAM tensors at full width, 1024^2) to a temporary
+    directory, build the anchor detector through ``init_detector`` with the
+    config's ``hf_sam_pretrain_ckpt_path`` pointing at it, and fail unless
+    every SAM tensor on the card equals the file's after the dtype cast.
+    Returns the number of tensors compared."""
+    import tempfile
+
+    import torch
+
+    from rsprompter_tpu_torch.apis.build import build_detector
+    from rsprompter_tpu_torch.apis.inference import init_detector
+    from rsprompter_tpu_torch.core.config import Config
+    from rsprompter_tpu_torch.engine.checkpoint import SAM_SUBTREE_PREFIXES
+
+    cfg = Config.fromfile(config)
+    prefixes = SAM_SUBTREE_PREFIXES[cfg["model"]["type"]]
+    g = torch.Generator().manual_seed(2)
+    hf, names = {}, {}
+    for name, t in build_detector(cfg["model"]).state_dict().items():
+        for prefix, hf_prefix in prefixes.items():
+            if name.startswith(prefix):
+                key = hf_prefix + name[len(prefix):]
+                hf[key] = 0.5 * torch.randn(t.shape, generator=g)
+                names[name] = key
+    n_params = sum(v.numel() for v in hf.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pytorch_model.bin")
+        torch.save(hf, path)
+        cfg.merge_from_options({"model.hf_sam_pretrain_ckpt_path": path})
+        model = init_detector(cfg, device=device, batch_size=2, seed=0).model
+    own = model.state_dict()
+    wrong = [n for n, key in names.items()
+             if not torch.equal(own[n].cpu(), hf[key].to(own[n].dtype))]
+    if wrong or len(names) == 0:
+        raise AssertionError(f"SAM checkpoint: {len(wrong)} of {len(names)} tensors differ "
+                             f"from the file (first: {wrong[:3]})")
+    dtypes = sorted({str(own[n].dtype) for n in names})
+    log(f"SAM checkpoint: {len(names)} tensors ({n_params} values) of "
+        f"{', '.join(p.rstrip('.') for p in prefixes)} loaded from the config's "
+        f"hf_sam_pretrain_ckpt_path through init_detector; each equals the file's "
+        f"after the cast to {'/'.join(dtypes)} on {device}")
+    del model
+    return len(names)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10,
@@ -1176,6 +1258,7 @@ def main() -> int:
     paths["train_step"] = train_phase(kernels, args.train_steps, args.profile_dir)
     query = query_phase(kernels, args.iters, args.profile_dir)
     paths["query_fused"], paths["query_flash"] = query["fused"], query["flash"]
+    sam_checkpoint_phase()
     out = []
     for r in rows:
         name, variant = r["kernel"].name, r["variant"]

@@ -26,6 +26,7 @@ from rsprompter_tpu_torch.apis.build import (
     set_compute_dtype,
 )
 from rsprompter_tpu_torch.core.config import Config
+from rsprompter_tpu_torch.engine.checkpoint import load_config_sam
 from rsprompter_tpu_torch.ops.image import resize_bilinear_cv2
 from rsprompter_tpu_torch.ops.masks import finalize_masks, quantize_probs_u8
 
@@ -72,7 +73,8 @@ class DetInferencer:
         self.model = build_detector(cfg["model"])
         if weights is None:
             init_random_weights(self.model, seed)
-        else:
+            load_config_sam(self.model, cfg["model"])  # where the config's file exists
+        else:  # a full state_dict wins, as JAX restores it after the SAM load
             sd = torch.load(weights, map_location="cpu") if isinstance(weights, str) else weights
             self.model.load_state_dict(sd, strict=True)
         if cfg["model"].get("bf16", False):
@@ -140,8 +142,10 @@ def init_detector(
     device: Union[str, torch.device] = "cuda",
     **kwargs,
 ) -> DetInferencer:
-    """Build a ready-to-run detector; seeded random weights without a
-    checkpoint (a saved ``state_dict`` path or a ``state_dict``)."""
+    """Build a ready-to-run detector: seeded random weights, the SAM
+    subtrees from the config's ``hf_sam_pretrain_ckpt_path`` where that file
+    exists, then ``checkpoint`` (a saved ``state_dict`` path or a
+    ``state_dict``) over all of it where one is given."""
     return DetInferencer(config, weights=checkpoint, device=device, **kwargs)
 
 

@@ -22,28 +22,47 @@
 // Design, FlashAttention-3 style: Q, K and V arrive by TMA (128-byte swizzle,
 // mbarriers; rows past S read zeros) issued by one producer thread; consumer
 // warpgroups of 64 queries each run S = Q K^T as wgmma from shared memory,
-// add the bias, mask keys past S to -inf in a partial last tile (pad tokens
-// inside a window are real keys), update the online softmax in base 2 (log2
-// e folded into the scale and the factors, exp2f), round p to bf16 and run
-// O += P V as wgmma with P straight from the score registers as the A
-// operand and V read N-major from shared memory, so nothing is transposed.
-// Two block shapes (Tile below): global layers stream 128-key K / V tiles
-// through a 2-stage ring under 2 consumer warpgroups, each overlapping a
-// tile's softmax with the next Q K^T and the last P V; windows (S <= 256)
-// put all 196 queries of a (window, head) under 4 consumer warpgroups with
-// every 64-key tile resident, so K and V are read once. Where w divides 64
-// (the 64 x 64 and 32 x 32 global grids) a column's fw term is the same in
-// every key tile and lives in registers, and fh is one value per row and 64
-// or 32 columns, folded into the row max and the exponent; other grids look
-// both factors up in the block's factor rows in shared memory, with the
-// (key / w, key % w) pair walked from one division per tile (at the 64 x 64
-// grid that path takes 3.3x as long on an H100 80GB HBM3 at 700 W, timed by
-// scripts/torch_kernel_ab.py --generic-copy). The output is
-// normalised after P V, staged through shared memory and stored 16 bytes a
-// thread; the row log-sum-exp is converted to natural log before its store.
-// The previous design used mma.sync with K / V loaded synchronously through
-// registers into one buffer (V transposed by 2-byte scalar stores), expf,
-// and a division plus two shared lookups per score: 3.3x SDPA global.
+// mask keys past S to -inf (pad tokens inside a window are real keys), take
+// the softmax in base 2 (log2 e folded into the scale, exp2), round p to
+// bf16 and run O += P V as wgmma with P straight from the score registers as
+// the A operand and V read N-major from shared memory, so nothing is
+// transposed. The output is normalised after P V, staged through shared
+// memory and stored 16 bytes a thread; the row log-sum-exp is converted to
+// natural log before its store. Two paths:
+// - Global layers (LongTile): 2 consumer warpgroups stream 128-key K / V
+//   tiles through a 2-stage ring with an online softmax, each overlapping a
+//   tile's softmax with the next Q K^T and the last P V. Where w divides 64
+//   (the 64 x 64 and 32 x 32 grids) a column's fw term is the same in every
+//   key tile and lives in registers, and fh is one value per row and 64 or
+//   32 columns, folded into the row max and the exponent; other grids look
+//   both factors up in the block's factor rows in shared memory (3.3x as
+//   long at the 64 x 64 grid, H100 80GB HBM3 at 700 W,
+//   scripts/torch_kernel_ab.py --generic-copy).
+// - Windows and small grids (S <= 200, h + w <= 64; Win below): bytes-bound
+//   (about 67 MB at ViT-B, 20 us), but 600 (window, head) items of 196
+//   tokens made the first design latency-bound. One persistent block per
+//   SM walks units (item, pair of 64-query tiles), two consumer warpgroups
+//   taking a tile each, and the producer thread keeps the next unit in
+//   flight while they compute, so the ring runs across items: K, V and Q
+//   by TMA, and each tile's factor rows (two contiguous runs, not 16-byte
+//   aligned: h + w = 28 bf16 a row) by 1-D bulk copies of their aligned
+//   hulls. Every key is in one tile of N = 200 at 14 x 14 (64 or 128 for
+//   smaller S): an exact single-pass softmax, 196 x 200 scores where
+//   256 x 256 were computed, and warps whose 16 rows all lie past S skip
+//   it. The bias is one more product, as in kernel C': with F = [fh | fw |
+//   0] (64 columns, spread from the raw rows in shared memory, two threads
+//   a row) and E[key, f] = 1 / scale where f == key / w or f == h + key % w
+//   (8 at d = 64, exact in bf16; built once per block), Q K^T + F E^T is
+//   the biased score over the scale, so a score costs one fma and one exp2
+//   and no lookup. Two earlier versions were slower: one that loaded each
+//   tile's factor rows into registers a tile ahead (their latency still sat
+//   on every tile's path), and one that wrote F to device memory in a
+//   second launch (one more launch's host time a call, where the
+//   three-head shape is bound by the host). Grids of 200 < S <= 256 (a
+//   256^2 input's 16 x 16 global grid) take the global path.
+// Windows were first one block of 4 warpgroups per (window, head): 600
+// cold starts at one block per SM, a lookup per score, 256 x 256 scores
+// (1.24x SDPA with a materialised bias).
 #include <math.h>
 
 #include "hopper.cuh"
@@ -57,29 +76,23 @@ constexpr int QTILE = 64 * D * 2;  // one warpgroup's Q tile, 8 KB
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// A block's shape: NWG consumer warpgroups of 64 queries each, then the
-// producer; BK keys per tile. Long sequences take <2, 128>: a K / V ring of
-// two 128-key stages, each consumer overlapping a tile's softmax with the
-// next tile's Q K^T and the last tile's P V, which needs about 180
-// registers: the producer is a whole warpgroup that hands its registers to
-// the consumers (setmaxnreg). Windows (S <= 256) take <4, 64>: every query
-// of a (window, head) in one block, all its 64-key tiles resident, one tile
-// at a time per warpgroup (the four warpgroups overlap each other), within
-// the 96 registers a thread gets at launch; the producer is one warp.
-template <int NWG_, int BK_>
-struct Tile {
-  static constexpr int NWG = NWG_;
-  static constexpr int BK = BK_;
+// The global path's block: NWG = 2 consumer warpgroups of 64 queries each,
+// then the producer; BK = 128 keys per tile through a K / V ring of two
+// stages, each consumer overlapping a tile's softmax with the next tile's
+// Q K^T and the last tile's P V, which needs about 180 registers: the
+// producer is a whole warpgroup that hands its registers to the consumers
+// (setmaxnreg).
+struct LongTile {
+  static constexpr int NWG = 2;
+  static constexpr int BK = 128;
   static constexpr int BQ = 64 * NWG;
-  static constexpr int STAGES = BK == 64 ? 4 : 2;
-  static constexpr bool OVERLAP = BK == 128;
-  static constexpr bool REBALANCE = OVERLAP;  // producer warpgroup: 24 registers
+  static constexpr int STAGES = 2;
   static constexpr int CONSUMER_REGS = 240;
-  static constexpr int THREADS = NWG * 128 + (REBALANCE ? 128 : 32);
+  static constexpr int THREADS = NWG * 128 + 128;
   // setmaxnreg.inc waits for registers that setmaxnreg.dec freed in the same
   // block: the consumers may gain no more than the producer gives up
   static constexpr int ENTRY_REGS = 65536 / THREADS / 8 * 8;
-  static_assert(!REBALANCE || NWG * (CONSUMER_REGS - ENTRY_REGS) <= ENTRY_REGS - 24,
+  static_assert(NWG * (CONSUMER_REGS - ENTRY_REGS) <= ENTRY_REGS - 24,
                 "register rebalance exceeds what the producer frees");
   static constexpr int KVTILE = BK * D * 2;
   static constexpr int OFF_Q = 0;
@@ -87,8 +100,6 @@ struct Tile {
   static constexpr int OFF_BAR = OFF_RING + STAGES * 2 * KVTILE;  // q, full[], empty[]
   static constexpr int OFF_FACT = OFF_BAR + 128;                  // fp32 factor rows
 };
-using LongTile = Tile<2, 128>;
-using WindowTile = Tile<4, 64>;
 
 struct Args {
   const bf16* fh;
@@ -182,10 +193,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Args& a, int 
     rsp::wgmma_fence();
 #pragma unroll
     for (int k = 0; k < D / 16; ++k) {
-      if constexpr (BK == 128)
-        rsp::wgmma_m64n128k16_ss(sc, rsp::sw128_desc(qt + 32 * k), rsp::sw128_desc(kt + 32 * k));
-      else
-        rsp::wgmma_m64n64k16_ss(sc, rsp::sw128_desc(qt + 32 * k), rsp::sw128_desc(kt + 32 * k));
+      rsp::wgmma_m64n128k16_ss(sc, rsp::sw128_desc(qt + 32 * k), rsp::sw128_desc(kt + 32 * k));
     }
     rsp::wgmma_commit();
   };
@@ -317,41 +325,26 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Args& a, int 
   };
 
   float a0, a1;
-  if constexpr (!T::OVERLAP) {
-    for (int it = 0; it < ntiles; ++it) {
-      qk(it);
-      rsp::wgmma_wait<0>();
-      rsp::fence_regs(sc);
-      softmax(it, a0, a1);
-      rescale(a0, a1);
-      pack();
-      pv(it);
-      rsp::wgmma_wait<0>();
-      rsp::fence_regs(o);
-      rsp::mbar_arrive(&empty[it % STAGES]);
-    }
-  } else {
-    qk(0);
-    rsp::wgmma_wait<0>();
+  qk(0);
+  rsp::wgmma_wait<0>();
+  rsp::fence_regs(sc);
+  softmax(0, a0, a1);
+  pack();
+  for (int it = 1; it < ntiles; ++it) {
+    qk(it);      // the next tile's scores ...
+    pv(it - 1);  // ... and the last tile's P V in flight together
+    rsp::wgmma_wait<1>();
     rsp::fence_regs(sc);
-    softmax(0, a0, a1);
-    pack();
-    for (int it = 1; it < ntiles; ++it) {
-      qk(it);      // the next tile's scores ...
-      pv(it - 1);  // ... and the last tile's P V in flight together
-      rsp::wgmma_wait<1>();
-      rsp::fence_regs(sc);
-      softmax(it, a0, a1);  // overlaps P V
-      rsp::wgmma_wait<0>();
-      rsp::fence_regs(o);
-      rsp::mbar_arrive(&empty[(it - 1) % STAGES]);
-      rescale(a0, a1);
-      pack();
-    }
-    pv(ntiles - 1);
+    softmax(it, a0, a1);  // overlaps P V
     rsp::wgmma_wait<0>();
     rsp::fence_regs(o);
+    rsp::mbar_arrive(&empty[(it - 1) % STAGES]);
+    rescale(a0, a1);
+    pack();
   }
+  pv(ntiles - 1);
+  rsp::wgmma_wait<0>();
+  rsp::fence_regs(o);
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
@@ -410,7 +403,7 @@ __global__ void __launch_bounds__(T::THREADS, 1) relpos_attention_kernel(
 
   const int wg = threadIdx.x / 128;
   if (wg == T::NWG) {  // producer: one thread issues every TMA load
-    if constexpr (T::REBALANCE) rsp::setmaxnreg_dec<24>();
+    rsp::setmaxnreg_dec<24>();
     if (threadIdx.x == T::NWG * 128) {
       const int nh = args.nh;
       const int plane_q = blockIdx.z * 3 * nh + blockIdx.y;
@@ -429,7 +422,7 @@ __global__ void __launch_bounds__(T::THREADS, 1) relpos_attention_kernel(
       }
     }
   } else {
-    if constexpr (T::REBALANCE) rsp::setmaxnreg_inc<T::CONSUMER_REGS>();
+    rsp::setmaxnreg_inc<T::CONSUMER_REGS>();
     consume<WF, T>(smem, args, wg);
   }
 }
@@ -454,6 +447,368 @@ int launch(const void* qkv, const Args& args, int N, cudaStream_t stream) {
 }
 
 
+// ---------------------------------------------------------------- windows
+
+constexpr int SMEM_LIMIT = 232448;  // the most shared memory a block may use
+
+// The window path's block, one per SM, walks units (item, pair): item is a
+// (window, head), pair p its query tiles 2p and 2p + 1, which the two
+// consumer warpgroups take. One producer thread keeps the next unit in
+// flight while they compute: its K, V and Q tiles by TMA, and the raw
+// factor rows of each tile (rows x h of fh, rows x w of fw: contiguous
+// runs) by 1-D bulk copies of their 16-byte-aligned hulls. Every key of an
+// item is in one tile of BN (S rounded up to 64, 128 or 200, the score
+// products' N); BNP = BN rounded up to 16 is the P V product's depth.
+template <int BN_>
+struct Win {
+  static constexpr int BN = BN_;
+  static constexpr int BNP = (BN + 15) / 16 * 16;
+  static constexpr int NWG = 2;
+  static constexpr int THREADS = NWG * 128 + 128;
+  static constexpr int CONSUMER_REGS = 240, PRODUCER_REGS = 24;
+  static constexpr int ENTRY_REGS = 65536 / THREADS / 8 * 8;
+  static_assert(NWG * (CONSUMER_REGS - ENTRY_REGS) <= ENTRY_REGS - PRODUCER_REGS,
+                "register rebalance exceeds what the producer frees");
+  static constexpr int UST = 2;            // unit stages
+  static constexpr int KVT = BNP * D * 2;  // a K, V or E tile
+  // a stage: K, V, then per warpgroup its Q tile (later its output's
+  // staging) and its F tile, then per warpgroup its raw factor rows
+  static constexpr int OFF_K = 0, OFF_V = KVT, OFF_QF = 2 * KVT;
+  static constexpr int OFF_RAW = 2 * KVT + NWG * 2 * QTILE;
+  static constexpr int OFF_E = 0;  // the group matrix E, built once
+  static constexpr int OFF_RING = OFF_E + KVT;
+  // the ring's stage size and the block's shared memory at `raw` bytes of
+  // raw factor rows per warpgroup (stages stay 1024-byte aligned for TMA)
+  static constexpr int stage(int raw) { return (OFF_RAW + NWG * raw + 1023) / 1024 * 1024; }
+  static constexpr int smem(int raw) { return 1024 + OFF_RING + UST * stage(raw) + 128; }
+};
+
+struct WinArgs {
+  const bf16* fh;
+  const bf16* fw;
+  bf16* out;
+  float* lse;
+  int nh, S, h, w, units, rt, pairs;  // rt: 64-query tiles per item
+  int raw, stage;                     // bytes: raw rows per warpgroup, one stage
+  float c;                            // scale * log2 e
+  float inv_scale;                    // E's entries
+};
+
+// 2^x on the special-function unit, subnormal results flushed to zero (a p
+// that small adds nothing to a row sum of at least 1)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// S = Q K^T + F E^T over the whole key tile: D x N products, 4 k steps each
+template <int BN>
+__device__ __forceinline__ void scores(float (&sc)[BN / 2], const unsigned char* a,
+                                       const unsigned char* b) {
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    const uint64_t da = rsp::sw128_desc(a + 32 * k), db = rsp::sw128_desc(b + 32 * k);
+    if constexpr (BN == 200) rsp::wgmma_m64n200k16_ss(sc, da, db);
+    else if constexpr (BN == 128) rsp::wgmma_m64n128k16_ss(sc, da, db);
+    else rsp::wgmma_m64n64k16_ss(sc, da, db);
+  }
+}
+
+// The 16-byte-aligned hull of a run of `n` bf16 from `p`: its start and
+// bytes; the run begins (p - start) bytes in.
+struct Hull {
+  const unsigned char* start;
+  uint32_t bytes;
+};
+__device__ __forceinline__ Hull hull(const bf16* p, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t lo = a & ~uintptr_t(15), hi = (a + 2 * (uintptr_t)n + 15) & ~uintptr_t(15);
+  return {reinterpret_cast<const unsigned char*>(lo), static_cast<uint32_t>(hi - lo)};
+}
+
+// One consumer warpgroup: its query tile of every unit the block walks.
+template <int BN>
+__device__ __forceinline__ void window_consume(unsigned char* smem, const WinArgs& a, int wg) {
+  using W = Win<BN>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + W::OFF_RING + W::UST * a.stage);
+  uint64_t* empty = full + W::UST;
+  const int S = a.S, h = a.h, w = a.w;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int rl0 = 16 * warp + g;  // this thread's rows within the tile
+  const int rl1 = rl0 + 8;
+  const unsigned char* es = smem + W::OFF_E;
+
+  for (int n = 0;; ++n) {
+    const int unit = blockIdx.x + n * gridDim.x;
+    if (unit >= a.units) break;
+    const int item = unit / a.pairs;
+    const int rt = 2 * (unit % a.pairs) + wg;
+    const int s = n % W::UST;
+    unsigned char* st = smem + W::OFF_RING + s * a.stage;
+    rsp::mbar_wait(&full[s], (n / W::UST) & 1);
+    if (rt < a.rt) {
+      const int q0 = 64 * rt;
+      const int rows = min(64, S - q0);
+      unsigned char* qt = st + W::OFF_QF + 2 * wg * QTILE;  // Q, then the output's staging
+      unsigned char* fs = qt + QTILE;
+      // F = [fh | fw | 0] from the raw rows (two threads a row: fh, fw);
+      // the columns past h + w keep the zeros they started with
+      {
+        const size_t row0 = (size_t)item * S + q0;
+        const bf16* ph = a.fh + row0 * h;
+        const bf16* pw = a.fw + row0 * w;
+        const Hull hh = hull(ph, rows * h);
+        const unsigned char* raw = st + W::OFF_RAW + wg * a.raw;
+        const int r = tid / 2;
+        const bool is_w = tid % 2;
+        const int fac = is_w ? w : h;
+        const bf16* src = reinterpret_cast<const bf16*>(
+            is_w ? raw + hh.bytes + (reinterpret_cast<uintptr_t>(pw) & 15)
+                 : raw + (reinterpret_cast<uintptr_t>(ph) & 15)) + r * fac;
+        if (r < rows) {
+          for (int i = 0; i < fac; ++i) {
+            const int f = (is_w ? h : 0) + i;
+            *reinterpret_cast<bf16*>(fs + r * 128 + (((f >> 3) ^ (r & 7)) << 4) + (f & 7) * 2) =
+                src[i];
+          }
+        }
+        rsp::fence_async_shared();
+        rsp::named_sync(2 + wg, 128);
+      }
+      float sc[BN / 2];
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+      rsp::fence_regs(sc);
+      rsp::wgmma_fence();
+      scores<BN>(sc, qt, st + W::OFF_K);  // Q K^T
+      scores<BN>(sc, fs, es);             // + F E^T: the bias over the scale
+      rsp::wgmma_commit();
+      rsp::wgmma_wait<0>();
+      rsp::fence_regs(sc);
+
+      // exact softmax over the whole row in base 2; warps whose 16 rows are
+      // all past S skip it (their rows are not stored)
+      const bool live = q0 + 16 * warp < S;
+      uint32_t pa[W::BNP / 16][4];
+      float l0 = 1.f, l1 = 1.f, mc0 = 0.f, mc1 = 0.f;
+      if (live) {
+        float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+        for (int j8 = 0; j8 < BN / 8; ++j8) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (8 * j8 + 8 > S && 8 * j8 + 2 * t + e >= S) {
+              sc[4 * j8 + e] = -INFINITY;
+              sc[4 * j8 + 2 + e] = -INFINITY;
+            }
+            m0 = fmaxf(m0, sc[4 * j8 + e]);
+            m1 = fmaxf(m1, sc[4 * j8 + 2 + e]);
+          }
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+          m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+        }
+        mc0 = m0 * a.c;  // key 0 is always valid: finite
+        mc1 = m1 * a.c;
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < BN / 8; ++i) {
+          sc[4 * i] = exp2_ftz(fmaf(sc[4 * i], a.c, -mc0));
+          sc[4 * i + 1] = exp2_ftz(fmaf(sc[4 * i + 1], a.c, -mc0));
+          sc[4 * i + 2] = exp2_ftz(fmaf(sc[4 * i + 2], a.c, -mc1));
+          sc[4 * i + 3] = exp2_ftz(fmaf(sc[4 * i + 3], a.c, -mc1));
+          s0 += sc[4 * i] + sc[4 * i + 1];
+          s1 += sc[4 * i + 2] + sc[4 * i + 3];
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+        }
+        l0 = s0;
+        l1 = s1;
+      }
+      // p rounded to bf16, in the order of wgmma's register A operand; the
+      // columns from BN to BNP are zeros
+#pragma unroll
+      for (int i = 0; i < W::BNP / 8; ++i) {
+        const bool on = live && i < BN / 8;
+        const int k = i < BN / 8 ? i : 0;  // a constant once unrolled
+        pa[i / 2][(i % 2) * 2] = on ? rsp::pack_bf16(sc[4 * k], sc[4 * k + 1]) : 0u;
+        pa[i / 2][(i % 2) * 2 + 1] = on ? rsp::pack_bf16(sc[4 * k + 2], sc[4 * k + 3]) : 0u;
+      }
+
+      float o[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      rsp::fence_regs(o);
+      rsp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < W::BNP / 16; ++kk)
+        rsp::wgmma_m64n64k16_rs_nmajor(o, pa[kk], rsp::sw128_desc(st + W::OFF_V + kk * 2048));
+      rsp::wgmma_commit();
+      rsp::wgmma_wait<0>();
+      rsp::fence_regs(o);
+
+      const size_t plane = (size_t)item * S;
+      if (live) {
+        if (a.lse != nullptr && t == 0) {  // natural log, for the backward
+          if (q0 + rl0 < S) a.lse[plane + q0 + rl0] = (mc0 + log2f(l0)) * LN2;
+          if (q0 + rl1 < S) a.lse[plane + q0 + rl1] = (mc1 + log2f(l1)) * LN2;
+        }
+        // stage the normalised rows in the Q tile's place (16-byte chunks
+        // swizzled by row): wgmma has finished reading it
+        const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+        rsp::fence_async_shared();
+#pragma unroll
+        for (int j8 = 0; j8 < 8; ++j8) {
+          *reinterpret_cast<uint32_t*>(qt + rl0 * 128 + ((j8 ^ (rl0 & 7)) * 16) + 4 * t) =
+              rsp::pack_bf16(o[4 * j8] * inv0, o[4 * j8 + 1] * inv0);
+          *reinterpret_cast<uint32_t*>(qt + rl1 * 128 + ((j8 ^ (rl1 & 7)) * 16) + 4 * t) =
+              rsp::pack_bf16(o[4 * j8 + 2] * inv1, o[4 * j8 + 3] * inv1);
+        }
+      }
+      rsp::named_sync(2 + wg, 128);
+      bf16* ob = a.out + plane * D;
+      for (int i = tid; i < 64 * 8; i += 128) {
+        const int r = i / 8;
+        const int cc = i % 8;
+        if (q0 + r < S)
+          *reinterpret_cast<uint4*>(ob + (size_t)(q0 + r) * D + cc * 8) =
+              *reinterpret_cast<const uint4*>(qt + r * 128 + ((cc ^ (r & 7)) * 16));
+      }
+    }
+    rsp::fence_async_shared();  // the staging writes, before TMA refills the stage
+    rsp::mbar_arrive(&empty[s]);  // this thread is done with the stage
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(Win<BN>::THREADS, 1) window_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kvmap,
+    const WinArgs args) {
+  using W = Win<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (rsp::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + W::OFF_RING + W::UST * args.stage);
+  uint64_t* empty = full + W::UST;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W::UST; ++s) {
+      rsp::mbar_init(&full[s], 1);
+      rsp::mbar_init(&empty[s], W::NWG * 128);
+    }
+    rsp::mbar_fence_init();
+  }
+  // E (keys x 64) once per block: 1 / scale at f = key / w and f = h + key % w
+  // for the keys before S, zeros elsewhere; and the F tiles zeroed, so the
+  // columns past h + w never hold a stale NaN for E's zeros to multiply
+  const int S = args.S, h = args.h, w = args.w;
+  for (int i = threadIdx.x; i < BN * 8; i += W::THREADS) {
+    const int key = i / 8;
+    const int c = (i % 8) * 8;
+    const int fa = key < S ? key / w : -1;
+    const int fb = key < S ? h + key % w : -1;
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      v[u] = rsp::to_bf(c + u == fa || c + u == fb ? args.inv_scale : 0.f);
+    *reinterpret_cast<uint4*>(smem + W::OFF_E + key * 128 + (((c / 8) ^ (key & 7)) << 4)) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+  for (int s = 0; s < W::UST; ++s)
+    for (int j = 0; j < W::NWG; ++j) {
+      uint4* f = reinterpret_cast<uint4*>(smem + W::OFF_RING + s * args.stage + W::OFF_QF +
+                                          (2 * j + 1) * QTILE);
+      for (int i = threadIdx.x; i < QTILE / 16; i += W::THREADS) f[i] = make_uint4(0, 0, 0, 0);
+    }
+  rsp::fence_async_shared();
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg < W::NWG) {
+    rsp::setmaxnreg_inc<W::CONSUMER_REGS>();
+    window_consume<BN>(smem, args, wg);
+    return;
+  }
+  rsp::setmaxnreg_dec<W::PRODUCER_REGS>();
+  if (threadIdx.x != W::NWG * 128) return;
+  // the producer: one thread issues each unit's loads
+  const int nh = args.nh;
+  for (int n = 0;; ++n) {
+    const int unit = blockIdx.x + n * gridDim.x;
+    if (unit >= args.units) break;
+    const int item = unit / args.pairs;
+    const int pair = unit % args.pairs;
+    const int s = n % W::UST;
+    unsigned char* st = smem + W::OFF_RING + s * args.stage;
+    if (n >= W::UST) rsp::mbar_wait(&empty[s], ((n / W::UST) - 1) & 1);
+    const int plane_q = (item / nh) * 3 * nh + item % nh;
+    const int tiles = min(2, args.rt - 2 * pair);
+    Hull hh[2], hw[2];
+    uint32_t bytes = 2 * W::KVT + tiles * QTILE;
+    for (int j = 0; j < tiles; ++j) {
+      const int q0 = 64 * (2 * pair + j);
+      const int rows = min(64, S - q0);
+      const size_t row0 = (size_t)item * S + q0;
+      hh[j] = hull(args.fh + row0 * h, rows * h);
+      hw[j] = hull(args.fw + row0 * w, rows * w);
+      bytes += hh[j].bytes + hw[j].bytes;
+    }
+    rsp::mbar_expect_tx(&full[s], bytes);
+    rsp::tma_load_3d(st + W::OFF_K, &kvmap, &full[s], 0, 0, plane_q + nh);
+    rsp::tma_load_3d(st + W::OFF_V, &kvmap, &full[s], 0, 0, plane_q + 2 * nh);
+    for (int j = 0; j < tiles; ++j) {
+      rsp::tma_load_3d(st + W::OFF_QF + 2 * j * QTILE, &qmap, &full[s], 0,
+                       64 * (2 * pair + j), plane_q);
+      unsigned char* raw = st + W::OFF_RAW + j * args.raw;
+      rsp::bulk_load(raw, hh[j].start, hh[j].bytes, &full[s]);
+      rsp::bulk_load(raw + hh[j].bytes, hw[j].start, hw[j].bytes, &full[s]);
+    }
+  }
+}
+
+template <int BN>
+int launch_window(const void* qkv, WinArgs args, int N, cudaStream_t stream) {
+  using W = Win<BN>;
+  // raw rows per warpgroup: two hulls, each at most 2 * 64 * (h or w) + 30
+  // bytes, rounded to 16
+  args.raw = 128 * (args.h + args.w) + 64;
+  args.stage = W::stage(args.raw);
+  const int smem = W::smem(args.raw);
+  CUtensorMap qmap, kvmap;
+  const cuuint64_t dims[3] = {D, (cuuint64_t)args.S, (cuuint64_t)N * 3 * args.nh};
+  const cuuint64_t strides[2] = {D * 2, (cuuint64_t)args.S * D * 2};
+  const cuuint32_t qbox[3] = {D, 64, 1};
+  const cuuint32_t kvbox[3] = {D, W::BNP, 1};
+  if (!rsp::make_tensor_map(&qmap, qkv, 3, dims, strides, qbox) ||
+      !rsp::make_tensor_map(&kvmap, qkv, 3, dims, strides, kvbox))
+    return static_cast<int>(cudaErrorNotSupported);
+  // once per device: the shared-memory opt-in (the most any h + w needs)
+  // and the SM count (the grid)
+  static int sms[64] = {0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 64) return static_cast<int>(err ? err : cudaErrorInvalidValue);
+  if (sms[dev] == 0) {
+    if ((err = cudaFuncSetAttribute(window_kernel<BN>,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    SMEM_LIMIT)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) !=
+            cudaSuccess)
+      return static_cast<int>(err);
+  }
+  const int grid = args.units < sms[dev] ? args.units : sms[dev];
+  window_kernel<BN><<<grid, W::THREADS, smem, stream>>>(qmap, kvmap, args);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int rsp_relpos_attention(const void* qkv, const void* fh,
@@ -465,8 +820,20 @@ extern "C" int rsp_relpos_attention(const void* qkv, const void* fh,
                   static_cast<bf16*>(out), static_cast<float*>(lse), nh, S, h, w,
                   scale * LOG2E};
   auto st = static_cast<cudaStream_t>(stream);
-  // windows look their factors up in shared memory whatever w is
-  if (S <= WindowTile::BQ) return launch<0, WindowTile>(qkv, args, N, st);
+  // windows and small grids: the bias as the product F E^T, which needs E's
+  // entries 1 / scale exact in bf16 (a power of two; 8 at d = 64) and the
+  // shared memory that h + w asks for; larger S (up to 256) and the rest
+  // take the global path
+  int ex;
+  if (S <= 200 && h + w <= 64 && frexpf(1.f / scale, &ex) == 0.5f) {
+    const int rt = (S + 63) / 64, pairs = (rt + 1) / 2;
+    const WinArgs wa{args.fh, args.fw, args.out, args.lse, nh, S, h, w, N * nh * pairs,
+                     rt, pairs, 0, 0, scale * LOG2E, 1.f / scale};
+    const int raw = 128 * (h + w) + 64;
+    if (S <= 64) return launch_window<64>(qkv, wa, N, st);
+    if (S <= 128) return launch_window<128>(qkv, wa, N, st);
+    if (Win<200>::smem(raw) <= SMEM_LIMIT) return launch_window<200>(qkv, wa, N, st);
+  }
   if (w == 64) return launch<64, LongTile>(qkv, args, N, st);
   if (w == 32) return launch<32, LongTile>(qkv, args, N, st);
   return launch<0, LongTile>(qkv, args, N, st);

@@ -6,9 +6,11 @@ functional state; here the step is eager over the module's own parameters
 (updated in place) and BatchNorm statistics (updated by the forward in train
 mode), and the optimizer keeps its moments. ``build_trainer`` is the entry
 point: it builds the detector from a config on the card, unless the caller
-asks for the CPU, with seeded random weights (checkpoints come with the
-runner, not ported yet) and fp32 master parameters computing in bf16 where
-the config says ``bf16=True``.
+asks for the CPU, with seeded random weights, the SAM subtrees from the
+config's ``hf_sam_pretrain_ckpt_path`` where that file exists
+(``engine/checkpoint.py``; the runner's own checkpoints are not ported yet),
+and fp32 master parameters computing in bf16 where the config says
+``bf16=True``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from rsprompter_tpu_torch.apis.build import (
 )
 from rsprompter_tpu_torch.apis.inference import resolve_device
 from rsprompter_tpu_torch.core.config import Config
+from rsprompter_tpu_torch.engine.checkpoint import load_config_sam
 from rsprompter_tpu_torch.engine.optim import Optimizer, build_optimizer
 
 
@@ -79,7 +82,8 @@ class Trainer:
                 "(the query family's losses come with its train step)"
             )
         self.model = build_detector(model_cfg)
-        init_random_weights(self.model, seed)  # checkpoints come with the runner
+        init_random_weights(self.model, seed)
+        load_config_sam(self.model, model_cfg)  # where the config's file exists
         if model_cfg.get("bf16", False):
             set_compute_dtype(self.model, torch.bfloat16, cast_params=False)
         self.model.to(self.device).train()

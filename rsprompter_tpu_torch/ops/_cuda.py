@@ -81,15 +81,23 @@ class CudaKernel:
     def launch(self, *args, variant: str = "") -> None:
         """Launch on the current stream; raise if CUDA refused the launch.
         ``variant`` names the call site's shape family (e.g. 'window')."""
-        fn = self.load()
-        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-        err = fn(*args, stream)
+        fn = self._fn or self.load()
+        err = fn(*args, _current_stream())
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: error {err}")
         self.variant_launches[variant] = self.variant_launches.get(variant, 0) + 1
 
     def reset_counts(self) -> None:
         self.variant_launches = {}
+
+
+def _current_stream() -> int:
+    """The current CUDA stream's handle, without building a Stream object
+    where this PyTorch exposes the raw getter (a few microseconds a launch)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
 
 
 def build(kernels: Iterable[CudaKernel]) -> Dict[str, float]:
@@ -120,8 +128,9 @@ def build(kernels: Iterable[CudaKernel]) -> Dict[str, float]:
     return times
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """A tensor's device address, for a ``c_void_p`` argument."""
+    return t.data_ptr()
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
@@ -134,7 +143,7 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.data_ptr() % 32:
         raise ValueError(f"{name}: expected a 32-byte aligned tensor")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 

@@ -4,9 +4,13 @@ plain torch version.
 Kernel A, ``ln_mlp_residual`` (``csrc/ln_mlp_residual.cu``), replaces the TPU
 kernel ``rsprompter_tpu/ops/fused_mlp.py:_kernel`` (``fused_mlp_residual``):
 x + fc2(gelu_erf(fc1(LN(x)))), tensor-core bound on the H100 (77.3 GFLOP per
-ViT-B layer at batch 2); the kernel keeps the (T, 4C) hidden activation out of
-device memory (see the source note). Its backward A'
-(``csrc/ln_mlp_residual_bwd.cu``) replaces ``_mlp_bwd_kernel``.
+ViT-B layer at batch 2). It is three launches: kernel B's row pass
+``ln_rows`` for the LN (counted as ``LN_ROWS`` variant ``mlp``), then two
+wgmma GEMMs of one entry point, fc1 with its bias and GELU and fc2 with its
+bias and the residual (counted as ``LN_MLP_RESIDUAL`` variants ``fc1`` and
+``fc2``); the (T, 4C) hidden activation goes through device memory in bf16,
+at the rounding point JAX's kernel has (see the source note). Its backward
+A' (``csrc/ln_mlp_residual_bwd.cu``) replaces ``_mlp_bwd_kernel``.
 
 Kernel B, ``ln_qkv_headmajor`` (``csrc/ln_qkv_headmajor.cu``), replaces
 ``_ln_qkv_kernel`` (``fused_ln_qkv``, global layers) and
@@ -49,9 +53,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
+# kernel A's two products, counted apart by variant ('fc1', 'fc2')
 LN_MLP_RESIDUAL = CudaKernel(
-    "ln_mlp_residual", "ln_mlp_residual.cu", "rsp_ln_mlp_residual",
-    [_P] * 8 + [_I] * 3 + [_F, _P],
+    "ln_mlp_residual", "ln_mlp_residual.cu", "rsp_mlp_gemm", [_P] * 5 + [_I] * 4 + [_P],
 )
 LN_MLP_RESIDUAL_BWD = CudaKernel(
     "ln_mlp_residual_bwd", "ln_mlp_residual_bwd.cu", "rsp_ln_mlp_residual_bwd",
@@ -169,7 +173,7 @@ def _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2):
     check_cuda_tensor("b1", b1, bf, (m,))
     check_cuda_tensor("w2", w2, bf, (c, m))
     check_cuda_tensor("b2", b2, bf, (c,))
-    if c != 768 or m % 32:  # ViT-B's width; ViT-L/H come with their checks
+    if c != 768 or m % 64:  # ViT-B's width; ViT-L/H come with their checks
         raise ValueError(f"ln_mlp_residual: unsupported widths C={c}, M={m}")
     return t, c, m
 
@@ -178,11 +182,14 @@ def _ln_mlp_residual_fwd(x, ln_w, ln_b, w1, b1, w2, b2, eps):
     if x.device.type == "cpu":
         return ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
     t, c, m = _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2)
+    z = torch.empty_like(x)
+    LN_ROWS.launch(ptr(x), ptr(ln_w), ptr(ln_b), ptr(z), 1, 1, t, c, 0, eps, variant="mlp")
+    hid = torch.empty((t, m), dtype=torch.bfloat16, device=x.device)
+    LN_MLP_RESIDUAL.launch(ptr(z), ptr(w1), ptr(b1), _NULL, ptr(hid), t, m, c, 0,
+                           variant="fc1")
     out = torch.empty_like(x)
-    LN_MLP_RESIDUAL.launch(
-        ptr(x), ptr(ln_w), ptr(ln_b), ptr(w1), ptr(b1), ptr(w2), ptr(b2),
-        ptr(out), t, c, m, eps,
-    )
+    LN_MLP_RESIDUAL.launch(ptr(hid), ptr(w2), ptr(b2), ptr(x), ptr(out), t, c, m, 1,
+                           variant="fc2")
     return out
 
 
@@ -225,7 +232,10 @@ class _LnMlpResidual(torch.autograd.Function):
 def ln_mlp_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6):
     """Kernel A on CUDA tensors (bf16 x and weights, fp32 LN params), with
     A' as its backward; the plain versions on the CPU."""
-    return _LnMlpResidual.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, ln_w, ln_b, w1, b1, w2, b2)):
+        return _LnMlpResidual.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    return _ln_mlp_residual_fwd(x, ln_w, ln_b, w1, b1, w2, b2, eps)  # no graph to record
 
 
 # --------------------------------------------------------------------------

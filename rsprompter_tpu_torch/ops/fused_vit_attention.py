@@ -43,6 +43,7 @@ from rsprompter_tpu_torch.ops._cuda import CudaKernel, check_cuda_tensor, ptr
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_NULL = ctypes.c_void_p(None)
 
 RELPOS_ATTENTION = CudaKernel(
     "relpos_attention", "relpos_attention.cu", "rsp_relpos_attention",
@@ -123,9 +124,8 @@ def _relpos_attention_fwd(qkv, fh, fw, hw, with_lse: bool):
     out = torch.empty((nb, n, s, 64), dtype=torch.bfloat16, device=qkv.device)
     lse = torch.empty((nb, n, s), dtype=torch.float32, device=qkv.device) if with_lse else None
     RELPOS_ATTENTION.launch(
-        ptr(qkv), ptr(fh), ptr(fw), ptr(out),
-        ptr(lse) if with_lse else ctypes.c_void_p(None), nb, n, s, hw[0], hw[1],
-        64 ** -0.5, variant=_variant(s, n),
+        ptr(qkv), ptr(fh), ptr(fw), ptr(out), ptr(lse) if with_lse else _NULL,
+        nb, n, s, hw[0], hw[1], 64 ** -0.5, variant=_variant(s, n),
     )
     return out, lse
 
@@ -176,4 +176,6 @@ def relpos_attention(qkv: torch.Tensor, fh: torch.Tensor, fw: torch.Tensor,
                      hw: Tuple[int, int]) -> torch.Tensor:
     """Kernel C on CUDA tensors (bf16, head dim 64, h and w <= 64), with C'
     as its backward; the plain versions on the CPU."""
-    return _RelposAttention.apply(qkv, fh, fw, hw)
+    if torch.is_grad_enabled() and (qkv.requires_grad or fh.requires_grad or fw.requires_grad):
+        return _RelposAttention.apply(qkv, fh, fw, hw)
+    return _relpos_attention_fwd(qkv, fh, fw, hw, False)[0]  # no graph to record

@@ -1,6 +1,6 @@
-"""Time the port's kernel B, K12', kernel C and its backward C' from several
-source trees on one CUDA card, each tree the same way, so two designs
-compare in one run.
+"""Time the port's kernel A, kernel B, K12', kernel C and its backward C'
+from several source trees on one CUDA card, each tree the same way, so two
+designs compare in one run.
 
     python scripts/torch_kernel_ab.py [--generic-copy DST] ROOT [ROOT ...]
 
@@ -12,7 +12,7 @@ Inputs are those of ``chip_smoke.py``'s kernel phases (forward kernels at
 ViT-B 1024^2, batch 2; C' at the train step's 512^2, batch 4: global qkv
 (4, 36, 1024, 64), windows (36, 36, 196, 64); bf16, seed 0), and every
 output is first held against its fp32 plain version within 2e-2 of its
-largest magnitude (C': each of dqkv, dfh, dfw). Each kernel gets two
+largest magnitude (C': each of dqkv, dfh, dfw). Each kernel gets four
 readings:
 
 - ``alone``: CUDA events around one call, median of 15 after 3 warm-up
@@ -20,6 +20,10 @@ readings:
 - ``b2b``: CUDA events around 10 back-to-back calls, over 10, median of 15
   (``chip_smoke.py``'s ``cuda_time_ms``). The host's enqueue overlaps the
   device's work unless a call is shorter than it.
+- ``device``: the device's busy time per call in a ``torch.profiler``
+  trace of 20 back-to-back calls, host time left out.
+- ``host``: the host's time per call, 50 calls enqueued without waiting
+  for the device. Where it exceeds ``device``, ``b2b`` reads the host.
 
 ``--generic-copy DST`` first copies this tree's package to ``DST`` with
 kernel C's register-held fw path (w = 64 or 32) taken out of its dispatch,
@@ -83,6 +87,46 @@ def time_b2b(fn, warmup: int = 3, iters: int = 15, repeat: int = 10) -> float:
     return statistics.median(times)
 
 
+def time_device(fn, iters: int = 20) -> float:
+    """Device time per call: the union of the CUDA activity intervals in a
+    ``torch.profiler`` trace of ``iters`` back-to-back calls, over ``iters``
+    (the host's share of a call is left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3 / iters
+
+
+def time_host(fn, iters: int = 50) -> float:
+    """Host time per call: the wall clock over ``iters`` calls enqueued
+    without a synchronisation (the device runs behind)."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
+
+
 def worker(root: str) -> dict:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -94,7 +138,8 @@ def worker(root: str) -> dict:
 
     if not fm.__file__.startswith(root):
         raise RuntimeError(f"imported {fm.__file__}, not the package under {root}")
-    _cuda.build([fm.LN_QKV_HEADMAJOR, fa.RELPOS_ATTENTION, fa.RELPOS_ATTENTION_BWD])
+    _cuda.build([fm.LN_MLP_RESIDUAL, fm.LN_QKV_HEADMAJOR, fa.RELPOS_ATTENTION,
+                 fa.RELPOS_ATTENTION_BWD])
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -107,6 +152,13 @@ def worker(root: str) -> dict:
     xg = rnd(bsz, grid, grid, c)
     wq, bq = rnd(3 * c, c, scale=0.02), rnd(3 * c, scale=0.02)
     cases = {}  # name: (kernel call, plain call on fp32 inputs)
+    t, mlp = bsz * grid * grid, 4 * c
+    a = (rnd(t, c), ln_w, ln_b, rnd(mlp, c, scale=0.02), rnd(mlp, scale=0.02),
+         rnd(c, mlp, scale=0.02), rnd(c, scale=0.02), 1e-6)
+    cases["ln_mlp_residual"] = (
+        lambda a=a: fm.ln_mlp_residual(*a),
+        lambda a=a: fm.ln_mlp_residual_plain(
+            *[v.float() if torch.is_tensor(v) else v for v in a]))
     for variant, window in (("global", 0), ("window", win)):
         a = (xg, ln_w, ln_b, wq, bq, 3 * heads, window, 1e-6)
         cases[f"ln_qkv_headmajor/{variant}"] = (
@@ -158,6 +210,7 @@ def worker(root: str) -> dict:
             err = max(err, e)
         del got, ref, x, r
         out[name] = {"alone": time_alone(kernel), "b2b": time_b2b(kernel),
+                     "device": time_device(kernel), "host": time_host(kernel),
                      "max_abs_err": err}
     return out
 
@@ -204,6 +257,7 @@ def main() -> int:
         runs.append({"root": root, "ms": ms})
         for name, r in ms.items():
             print(f"{root:24s} {name:32s} alone {r['alone']:.4f} ms  b2b {r['b2b']:.4f} ms  "
+                  f"device {r['device']:.4f} ms  host {r['host']:.4f} ms  "
                   f"max_abs_err {r['max_abs_err']:.4g}", flush=True)
     print(json.dumps({"card": card, "runs": runs}), flush=True)
     return 0

@@ -43,16 +43,63 @@ def _f32(args):
     return [a.float() if torch.is_tensor(a) else a for a in args]
 
 
-@pytest.mark.parametrize("t", [100, 4096])
-def test_ln_mlp_residual_kernel(gen, t):
+def _mlp_args(gen, t):
     c, m = 768, 3072
-    args = (
+    return (
         _rnd(gen, t, c), 1 + _rnd(gen, c, scale=0.1, dtype=torch.float32),
         _rnd(gen, c, scale=0.1, dtype=torch.float32), _rnd(gen, m, c, scale=0.02),
         _rnd(gen, m, scale=0.02), _rnd(gen, c, m, scale=0.02), _rnd(gen, c, scale=0.02),
         1e-6,
     )
+
+
+@pytest.mark.parametrize("t", [100, 4096, 8193])
+def test_ln_mlp_residual_kernel(gen, t):
+    """Kernel A (row pass, fc1 + GELU, fc2 + residual) at row counts that
+    are and are not multiples of the GEMMs' 128-row tile."""
+    args = _mlp_args(gen, t)
     _close(fm.ln_mlp_residual(*args), fm.ln_mlp_residual_plain(*_f32(args)))
+
+
+def _window_inputs(gen, n_img, heads, hw):
+    s = hw[0] * hw[1]
+    return (_rnd(gen, n_img, 3 * heads, s, 64), _rnd(gen, n_img, heads, s, hw[0], scale=0.5),
+            _rnd(gen, n_img, heads, s, hw[1], scale=0.5), hw)
+
+
+@pytest.mark.parametrize("hw", [(14, 14), (9, 7), (16, 16), (1, 1)])
+@pytest.mark.parametrize("heads", [1, 3, 5, 12])
+def test_relpos_attention_window_path(gen, heads, hw):
+    """Kernel C at window-sized grids: (14, 14), (9, 7) and (1, 1) take the
+    window path (S <= 200: one key tile of 200 or 64 per (window, head),
+    units walked by a persistent grid), (16, 16) the global path. The
+    output and the row log-sum-exp the backward reads, against plain, at
+    head counts that leave the last SMs' units uneven and at ragged grids
+    whose factor rows are not 16-byte aligned."""
+    qkv, fh, fw, _ = _window_inputs(gen, 5, heads, hw)
+    out, lse = fa._relpos_attention_fwd(qkv, fh, fw, hw, True)
+    qf = qkv.float()
+    scores = fa._biased_scores(qf[:, :heads], qf[:, heads : 2 * heads], fh, fw)
+    _close(out, fa.relpos_attention_plain(qf, fh.float(), fw.float(), hw))
+    err = (lse - torch.logsumexp(scores, dim=-1)).abs().max().item()
+    assert err <= 1e-3 * scores.abs().max().item(), err
+
+
+@pytest.mark.parametrize("kernel", ["ln_mlp_residual", "relpos_attention"])
+def test_forward_kernels_are_deterministic(gen, kernel):
+    """Kernel A and kernel C's window path give the same bits twice: no
+    sum depends on the order blocks run in."""
+    if kernel == "ln_mlp_residual":
+        args = _mlp_args(gen, 4096)
+        run = lambda: fm.ln_mlp_residual(*args)  # noqa: E731
+    else:
+        args = _window_inputs(gen, 50, 12, (14, 14))
+        run = lambda: fa._relpos_attention_fwd(*args, True)  # noqa: E731
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for x, y in zip(first if isinstance(first, tuple) else (first,),
+                    second if isinstance(second, tuple) else (second,)):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("grid,window", [((10, 9), 0), ((10, 9), 4), ((64, 64), 14)])
@@ -228,7 +275,8 @@ def _bwd_inputs(gen, n_img, heads, hw):
 def test_relpos_attention_bwd_kernel(gen, hw):
     """S = 196, 63, 65, 1024, 4096: key tiles of 64 end ragged in the first
     three; (64, 64) is the 1024^2 global grid, whose h + w = 128 takes the
-    wider factor tiles."""
+    wider factor tiles. The first three read the log-sum-exp of kernel C's
+    window path, the last two that of its global path."""
     n_img, heads = (1, 2) if hw == (64, 64) else (3, 4)
     qkv, fh, fw, out, lse, dout, _ = a = _bwd_inputs(gen, n_img, heads, hw)
     _close_each(
