@@ -29,8 +29,8 @@ Phases (every failure raises; the script exits non-zero and prints no result):
 4. backward kernels: A', B' (global, window) and C' (global, window) against
    their fp32 plain backwards at the train step's shapes (ViT-B, 512^2,
    batch 4), each output within 2e-2 of its largest magnitude, with kernel,
-   plain, library and bound times; a second launch of C' on the same
-   inputs must give the same bits (its sums run in a fixed order); K12''s
+   plain, library and bound times; a second launch of A' and of C' on the
+   same inputs must give the same bits (their sums run in a fixed order); K12''s
    backward (torch products) through its Function against plain autograd;
 5. train step, the second main path: ``build_trainer`` on
    ``rsprompter_anchor-nwpu-scratch-512.py`` (encoder and decoder trainable,
@@ -568,7 +568,18 @@ def backward_kernel_phase(dev):
     got = fm.ln_mlp_residual_bwd(*args, 1e-6)
     torch.cuda.synchronize()
     err = compare_each("ln_mlp_residual_bwd", got, fm.ln_mlp_residual_bwd_plain(*f32(args), 1e-6))
+    again = fm.ln_mlp_residual_bwd(*args, 1e-6)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dx", "dgamma", "dbeta", "dW1", "db1", "dW2", "db2"), got, again):
+        if not torch.equal(x, y):
+            raise AssertionError(
+                f"ln_mlp_residual_bwd: a second launch changed {name} "
+                f"(max |diff| {(x.float() - y.float()).abs().max().item():.4g})")
+    log("ln_mlp_residual_bwd: a second launch gives the same bits in all seven outputs")
+    del got, again
     flops = 5 * 2.0 * t * c * mlp  # fc1 recompute, dO W2, dW2, dW1, dh W1
+    # read x, dO, W1, W2, b1, b2, LN params; write dx, dW1 / dW2 / db1 / db2
+    # as A' writes them (bf16), dgamma, dbeta (fp32)
     nbytes = (3 * t * c * 2 + 2 * c * mlp * 2 + (mlp + c) * 2 + 2 * c * 4
               + 2 * c * mlp * 2 + (mlp + c) * 2 + 2 * c * 4)
     b_ms, b_by = bound_ms(flops, nbytes)

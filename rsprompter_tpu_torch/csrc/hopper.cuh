@@ -8,9 +8,11 @@
 // c ^ (r % 8). Every such tile starts on a 1024-byte boundary. A wgmma
 // descriptor then points at the tile (K-major: rows run along M or N, K is
 // contiguous) with stride 1024 bytes between 8-row groups; the k-th 16-wide
-// K slice of a K-major tile starts 32 * k bytes in. For an N-major operand
-// (V in P.V: rows run along K, N contiguous) the slice starts 16 rows
-// (2048 bytes) further per k step.
+// K slice of a K-major tile starts 32 * k bytes in. For an MN-major operand
+// (V in P.V, a weight stored (in, out), token-major activations in a weight
+// gradient: rows run along K, M or N contiguous) the slice starts 16 rows
+// (2048 bytes) further per k step, and a tile wider than 64 is stored as
+// 64-wide chunks (sw128_desc_mn).
 //
 // Tensor maps are encoded on the host by libcuda's cuTensorMapEncodeTiled,
 // found through dlopen("libcuda.so.1"), so the libraries link against
@@ -152,6 +154,19 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          | (uint64_t(1) << 62);         // 128-byte swizzle
 }
 
+// Descriptor of an MN-major 128-byte-swizzled bf16 tile at `p`: rows run
+// along K, each holding 64 values along M or N, and a tile wider than 64 is
+// stored as 64-wide chunks `chunk_bytes` apart (each loaded by TMA as its own
+// box). The leading byte offset steps from one chunk to the next along M / N,
+// the stride byte offset from one 8-row K group to the next.
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* p, uint32_t chunk_bytes) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4)
+         | (uint64_t(chunk_bytes >> 4) << 16)  // leading byte offset: the next chunk
+         | (uint64_t(1024 >> 4) << 32)          // stride byte offset: the next 8 K rows
+         | (uint64_t(1) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -169,8 +184,10 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D (64 x 256, fp32 registers) += A (64 x 16, smem) * B (256 x 16, smem), both
-// K-major; `a` and `b` are shared-memory matrix descriptors.
+// D (64 x 256, fp32 registers) += A (64 x 16, smem) * B (256 x 16, smem); `a`
+// and `b` are shared-memory matrix descriptors. TA / TB = 0: the operand is
+// K-major (sw128_desc), 1: MN-major (sw128_desc_mn).
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t a,
                                                   uint64_t b) {
   asm volatile(
@@ -184,7 +201,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t a,
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -202,7 +219,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t a,
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
 // D (64 x 200, fp32 registers) += A (64 x 16, smem) * B (200 x 16, smem), both
@@ -238,8 +255,9 @@ __device__ __forceinline__ void wgmma_m64n200k16_ss(float (&d)[100], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
-// D (64 x 128, fp32 registers) += A (64 x 16, smem) * B (128 x 16, smem), both
-// K-major; `a` and `b` are shared-memory matrix descriptors.
+// D (64 x 128, fp32 registers) += A (64 x 16, smem) * B (128 x 16, smem); TA
+// / TB as for wgmma_m64n256k16_ss.
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a,
                                                   uint64_t b) {
   asm volatile(
@@ -249,7 +267,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -259,7 +277,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
 // D (64 x 64, fp32 registers) += A (64 x 16, smem) * B (64 x 16, smem), both

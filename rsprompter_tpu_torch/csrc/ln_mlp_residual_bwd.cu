@@ -12,163 +12,581 @@
 // Bound on the H100 at ViT-B, 512^2, batch 4 (T = 4096, C = 768, M = 3072):
 // five products of 2*T*C*M = 19.3 GFLOP each (the recomputed fc1, dO W2,
 // the two weight gradients and dh W1), 96.6 GFLOP, about 98 us at 989
-// TFLOP/s bf16; the bytes it must move (x, dO, dx, 9.4 MB of weights and
-// 18.9 MB of fp32 weight gradients) take about 11 us: operations bound it.
+// TFLOP/s bf16; the bytes it must move (x, dO, dx, 9.4 MB of weights in and
+// 9.4 MB of bf16 weight gradients out) take about 8 us: operations bound it.
 //
 // Design: the TPU kernel sweeps token blocks in order and accumulates the
 // weight gradients in resident VMEM; on the card blocks run in no order, so
-// the work is split into passes, each a plain tiled product (bwd_common.cuh)
-// whose output tiles each belong to one block: a per-row LN pass writes z and
-// the row statistics; the fc1 product writes h (bf16) in its epilogue; the
-// dO W2 product turns h into g and dh in its epilogue; the two weight
-// gradients are products over the token axis read straight from the
-// token-major buffers; dh W1 gives dz; a per-row pass applies the LN
-// backward and the residual; column sums in two fixed-order passes give the
-// bias and LN-parameter gradients. The (T, M) activations make one round
-// trip through device memory (2 x 25 MB at this shape) in exchange for no
-// atomics: every result is the same from run to run.
-#include "bwd_common.cuh"
+// the work is six launches on the stream, every sum in a fixed order (no
+// atomics, no split K: the results are the same bits from run to run). All
+// five products run on the warp-specialised TMA + wgmma mainloop of
+// wgmma_gemm.cuh, kernel A's, each operand read as it is stored (K-major or
+// MN-major), so no transposed copy is made:
+//  1. ln_stats: z = bf16(LN(x)) and the row statistics (mu, rstd).
+//  2. h = z W1^T (A, B K-major), 128 x 256 tiles; epilogue h = bf16(bf16 +
+//     b1) into the (T, M) buffer.
+//  3. dO W2 (W2 stored (C, M): B MN-major), 128 x 256 tiles behind a
+//     3-stage ring, the block's h tile fetched by TMA meanwhile; the fp32
+//     tile is staged in shared memory, the epilogue writes dh = bf16(acc *
+//     gelu'(h)) and g = bf16(gelu(h)) over h and sums the tile's 128 rows of
+//     dh per column (db1's partials).
+//  4. grads: dW2 = dO^T g and dW1 = dh^T z (A and B MN-major: K is the token
+//     axis), 128 x 256 tiles, written in bf16; and dz = dh W1 (B MN-major),
+//     128 x 128 tiles, fp32; one launch. At this shape the 144 weight tiles
+//     (K = 4096) take one round of the 132 SMs and 12 of a second, and the
+//     192 dz tiles (K = 3072, a third of the work each) queue behind them
+//     and fill the SMs the second round leaves idle.
+//  5. ln_bwd_rows: dx = bf16(dO + LN-vjp(dz)), one warp per row, and per
+//     16-row block the partial column sums of dz * xhat, dz and dO.
+//  6. bias_sums: db1, dgamma, dbeta, db2 from the partials, in block order.
+// The (T, M) activations make one round trip through device memory (2 x 25
+// MB at this shape).
+// The previous design ran the products as 64 x 64 mma.sync tiles with
+// synchronous loads (bwd_common.cuh's gemm_bf16) in 15 launches plus four
+// casts in the wrapper: 1.59 ms at this shape on an H100 80GB HBM3 at 700 W.
+#include "wgmma_gemm.cuh"
 
 using rsp::bf16;
 
 namespace {
 
-constexpr int ROW_WARPS = 8;
+constexpr int BM = rsp::GEMM_TILE_M;
+constexpr int BK = rsp::GEMM_TILE_K;
+constexpr int THREADS = rsp::GEMM_THREADS_WS;
+constexpr int ROW_WARPS = 8;       // ln_stats: one warp per row
+constexpr int LNB_WARPS = 4;       // ln_bwd_rows: warps per block
+constexpr int LNB_ROWS = 16;       // ... and rows per block (partial sums)
+constexpr int BS_COLS = 32;       // bias_sums: columns per block
+constexpr int BS_GROUPS = 8;      // ... and row groups
 
-// z = bf16(LN(x)) and the row statistics (mu, rstd), one warp per row.
-__global__ void __launch_bounds__(ROW_WARPS * 32) ln_rows_kernel(
+__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const bf16* b = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int u = 0; u < 8; ++u) v[u] = rsp::to_f(b[u]);
+}
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
+  uint4 raw;
+  raw.x = rsp::pack_bf16(v[0], v[1]);
+  raw.y = rsp::pack_bf16(v[2], v[3]);
+  raw.z = rsp::pack_bf16(v[4], v[5]);
+  raw.w = rsp::pack_bf16(v[6], v[7]);
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// 1. z = bf16(LN(x)) and (mu, rstd), one warp per row of C = 256 V: lane l
+// holds columns 256 v + 8 l .. + 7.
+template <int V>
+__global__ void __launch_bounds__(ROW_WARPS * 32) ln_stats_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
-    const float* __restrict__ beta, bf16* __restrict__ z,
-    float* __restrict__ mu_out, float* __restrict__ rstd_out, int T, int C,
-    float eps) {
+    const float* __restrict__ beta, bf16* __restrict__ z, float* __restrict__ mu_out,
+    float* __restrict__ rstd_out, int T, float eps) {
+  constexpr int C = 256 * V;
   const int row = blockIdx.x * ROW_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= T) return;
-  const bf16* xr = x + (size_t)row * C;
-  float mu, rstd;
-  rsp::warp_ln_stats(xr, C, eps, lane, mu, rstd);
-  for (int c = lane; c < C; c += 32)
-    z[(size_t)row * C + c] = rsp::to_bf((rsp::to_f(xr[c]) - mu) * rstd * gamma[c] + beta[c]);
+  float v[V][8];
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    load8(x + (size_t)row * C + 256 * i + 8 * lane, v[i]);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) s += v[i][u];
+  }
+  const float mu = rsp::warp_sum(s) / C;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+#pragma unroll
+    for (int u = 0; u < 8; ++u) q += (v[i][u] - mu) * (v[i][u] - mu);
+  const float rstd = rsqrtf(rsp::warp_sum(q) / C + eps);
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = 256 * i + 8 * lane;
+    float ga[8], be[8], y[8];
+    load8(gamma + c, ga);
+    load8(beta + c, be);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) y[u] = (v[i][u] - mu) * rstd * ga[u] + be[u];
+    store8(z + (size_t)row * C + c, y);
+  }
   if (lane == 0) {
     mu_out[row] = mu;
     rstd_out[row] = rstd;
   }
 }
 
-// fc1 epilogue: h = bf16(bf16(acc) + b1).
-struct EpiH {
-  bf16* h;
-  const bf16* b1;
-  int M;
-  __device__ __forceinline__ void operator()(int t, int m, float v) const {
-    h[(size_t)t * M + m] = rsp::to_bf(rsp::round_bf(v) + rsp::to_f(b1[m]));
-  }
+// Fragment coordinates of a consumer thread (see wgmma_gemm.cuh).
+struct Frag {
+  int wg, tid, warp, g, t;
+  __device__ __forceinline__ Frag()
+      : wg(threadIdx.x / 128), tid(threadIdx.x % 128), warp(tid / 32), g(tid % 32 / 4),
+        t(tid % 4) {}
+  __device__ __forceinline__ int row(int half) const { return 64 * wg + 16 * warp + g + 8 * half; }
+  __device__ __forceinline__ int col(int j) const { return 8 * j + 2 * t; }
 };
 
-// dO W2 epilogue: dh = bf16(acc * gelu'(h)); h is replaced by g = gelu(h).
-struct EpiDh {
-  bf16* hg;
-  bf16* dh;
-  int M;
-  __device__ __forceinline__ void operator()(int t, int m, float v) const {
-    const size_t i = (size_t)t * M + m;
-    const float h = rsp::to_f(hg[i]);
-    dh[i] = rsp::to_bf(v * rsp::erf_gelu_grad(h));
-    hg[i] = rsp::to_bf(rsp::erf_gelu(h));
+// The tile's fp32 sums, rounded to bf16 into shared memory (the ring, no
+// longer read), handed out as 16-byte chunks: chunk(r, c, v) gets tile row
+// r, columns c .. c + 7, for the rows of the calling consumer warpgroup.
+template <int BN, class Chunk>
+__device__ __forceinline__ void staged_bf16_epilogue(unsigned char* smem,
+                                                     const float (&acc)[BN / 2], Chunk chunk) {
+  constexpr int OS = BN + 8;  // bf16 staging row stride
+  rsp::gemm_epilogue_begin();
+  const Frag f;
+  bf16* stg = reinterpret_cast<bf16*>(smem);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<uint32_t*>(stg + f.row(half) * OS + f.col(j)) =
+          rsp::pack_bf16(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+  rsp::named_sync(2 + f.wg, 128);
+  constexpr int CH = BN / 8;  // 16-byte chunks per row
+  for (int i = f.tid; i < 64 * CH; i += 128) {
+    const int r = 64 * f.wg + i / CH;
+    float v[8];
+    load8(stg + r * OS + (i % CH) * 8, v);
+    chunk(r, (i % CH) * 8, v);
   }
-};
-
-// dx = dO + LN-vjp(dz), one warp per row.
-__global__ void __launch_bounds__(ROW_WARPS * 32) ln_bwd_rows_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ dz,
-    const float* __restrict__ gamma, const bf16* __restrict__ dout,
-    const float* __restrict__ mu, const float* __restrict__ rstd,
-    bf16* __restrict__ dx, int T, int C) {
-  const int row = blockIdx.x * ROW_WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= T) return;
-  const size_t o = (size_t)row * C;
-  rsp::warp_ln_bwd_row(x + o, dz + o, gamma, dout + o, dx + o, C, mu[row],
-                       rstd[row], lane);
 }
 
-// dgamma summand: dz * xhat.
-struct GetDzXhat {
-  const bf16* x;
-  const float* dz;
-  const float* mu;
-  const float* rstd;
-  int C;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    const size_t i = (size_t)r * C + c;
-    return dz[i] * ((rsp::to_f(x[i]) - mu[r]) * rstd[r]);
+// The tile's fp32 sums stored as they are, rows < rows and columns < cols
+// of out (row-major, cols wide).
+template <int BN>
+__device__ __forceinline__ void store_f32(const float (&acc)[BN / 2], float* out, int rows,
+                                          int cols, int m0, int n0) {
+  const Frag f;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + f.row(half);
+    if (m >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + f.col(j);
+      if (n < cols)
+        *reinterpret_cast<float2*>(out + (size_t)m * cols + n) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
   }
+}
+
+// 2. h (T, M) = bf16(bf16(z W1^T) + b1).
+__global__ void __launch_bounds__(THREADS, 1) hidden_kernel(
+    const __grid_constant__ CUtensorMap zmap, const __grid_constant__ CUtensorMap w1map,
+    const bf16* __restrict__ b1, bf16* __restrict__ h, int T, int M, int C) {
+  constexpr int BN = 256;
+  static_assert(BM * (BN + 8) * 2 <= rsp::GemmTile<false, false, BN>::RING,
+                "staging fits the ring");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = rsp::gemm_smem(smem_raw);
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  float acc[BN / 2];
+  if (!rsp::gemm_mainloop<false, false, BN>(smem, &zmap, &w1map, m0, n0, 0, C / BK, acc))
+    return;
+  staged_bf16_epilogue<BN>(smem, acc, [&](int r, int c, float (&v)[8]) {
+    if (m0 + r >= T) return;
+    float b[8];
+    load8(b1 + n0 + c, b);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] += b[u];
+    store8(h + (size_t)(m0 + r) * M + n0 + c, v);
+  });
+}
+
+// 3. dgl = dO W2 (fp32, staged in shared memory); dh = bf16(dgl * gelu'(h))
+// and g = bf16(gelu(h)) over h (one erf for both); db1_part[row tile][m] =
+// the tile's 128 rows of dh summed per column in a fixed order. The block's
+// h tile comes by TMA while the products run (4 boxes of 128 rows x 64,
+// 128-byte swizzle, after a 3-stage ring).
+struct DhTile {
+  static constexpr int BN = 256;    // 32 chunks a row: a thread keeps its 8 columns
+  static constexpr int STAGES = 3;
+  using G = rsp::GemmTile<false, true, BN, STAGES>;
+  static constexpr int FS = BN + 8;             // fp32 staging row stride
+  static constexpr int SUMS = BM * FS;          // 8 partial column sums after it
+  static constexpr int H_OFF = G::RING + 1024;  // after the ring's barriers
+  static constexpr int H_BYTES = BM * BN * 2;
+  static constexpr int SMEM = 1024 + H_OFF + H_BYTES;
+  static_assert((SUMS + 8 * BN) * 4 <= G::RING, "staging fits the ring");
+  static_assert(2 * STAGES * 8 + 8 <= 1024, "barriers fit before the h tile");
 };
+
+__global__ void __launch_bounds__(THREADS, 1) dh_kernel(
+    const __grid_constant__ CUtensorMap dmap, const __grid_constant__ CUtensorMap w2map,
+    const __grid_constant__ CUtensorMap hmap, bf16* __restrict__ hg, bf16* __restrict__ dh,
+    float* __restrict__ db1_part, int T, int M, int C) {
+  using D = DhTile;
+  constexpr int BN = D::BN;
+  constexpr int FS = D::FS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = rsp::gemm_smem(smem_raw);
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const unsigned char* htile = smem + D::H_OFF;
+  uint64_t* hbar = reinterpret_cast<uint64_t*>(smem + D::G::RING + 2 * D::STAGES * 8);
+  if (threadIdx.x == 0) {
+    rsp::mbar_init(hbar, 1);
+    rsp::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 256) {
+    rsp::mbar_expect_tx(hbar, D::H_BYTES);
+#pragma unroll
+    for (int q = 0; q < BN / 64; ++q)
+      rsp::tma_load_2d(smem + D::H_OFF + q * BM * 128, &hmap, hbar, n0 + 64 * q, m0);
+  }
+  float acc[BN / 2];
+  if (!rsp::gemm_mainloop<false, true, BN, D::STAGES>(smem, &dmap, &w2map, m0, n0, 0,
+                                                      C / BK, acc))
+    return;
+  rsp::gemm_epilogue_begin();
+  const Frag f;
+  float* stg = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<float2*>(stg + f.row(half) * FS + f.col(j)) =
+          make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+  rsp::named_sync(2 + f.wg, 128);
+  rsp::mbar_wait(hbar, 0);
+  // thread tid takes chunk ch = tid % 32 of rows 64 wg + tid / 32 + 4 k
+  constexpr int CH = BN / 8;
+  const int ch = f.tid % CH;
+  float cs[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) cs[u] = 0.f;
+  for (int r = 64 * f.wg + f.tid / CH; r < 64 * (f.wg + 1); r += 128 / CH) {
+    const int m = m0 + r;
+    if (m >= T) break;
+    // 16-byte unit ch % 8 of row r in box ch / 8, swizzled as TMA wrote it
+    float hv[8], d[8], gv[8];
+    load8(reinterpret_cast<const bf16*>(htile + (ch / 8) * BM * 128 + r * 128 +
+                                        (((ch % 8) ^ (r % 8)) << 4)), hv);
+    load8(stg + r * FS + ch * 8, d);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      // gelu = h Phi(h), gelu' = Phi(h) + h phi(h), Phi from one erf
+      const float cdf = 0.5f * (1.f + erff(hv[u] * 0.70710678118654752f));
+      const float pdf = 0.3989422804014327f * expf(-0.5f * hv[u] * hv[u]);
+      d[u] = rsp::round_bf(d[u] * (cdf + hv[u] * pdf));
+      gv[u] = hv[u] * cdf;
+      cs[u] += d[u];
+    }
+    const size_t idx = (size_t)m * M + n0 + ch * 8;
+    store8(dh + idx, d);
+    store8(hg + idx, gv);
+  }
+  // the 8 row groups' sums (warpgroup, then tid / 32), then in group order
+  float* sums = stg + D::SUMS;
+  const int grp = 4 * f.wg + f.tid / CH;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) sums[grp * BN + ch * 8 + u] = cs[u];
+  rsp::named_sync(1, 256);
+  float s = 0.f;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) s += sums[q * BN + threadIdx.x];
+  db1_part[(size_t)blockIdx.y * M + n0 + threadIdx.x] = s;
+}
+
+// 4. The products over dh, one launch: the first blocks dW2 = dO^T g (C x
+// M), then dW1 = dh^T z (M x C), each a 128 x 256 tile over K = T (A and B
+// MN-major) written in bf16; the rest dz = dh W1 (T x C), 128 x 128 tiles
+// over K = M (B MN-major), fp32.
+__global__ void __launch_bounds__(THREADS, 1) grads_kernel(
+    const __grid_constant__ CUtensorMap do_mn, const __grid_constant__ CUtensorMap g_mn,
+    const __grid_constant__ CUtensorMap dh_mn, const __grid_constant__ CUtensorMap z_mn,
+    const __grid_constant__ CUtensorMap dh_k, const __grid_constant__ CUtensorMap w1_mn,
+    bf16* __restrict__ dw2, bf16* __restrict__ dw1, float* __restrict__ dz, int T, int C,
+    int M) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = rsp::gemm_smem(smem_raw);
+  const int w2_tiles = (C / BM) * (M / 256);
+  const int w_tiles = w2_tiles + (M / BM) * (C / 256);
+  int u = blockIdx.x;
+  if (u < w_tiles) {
+    const bool second = u >= w2_tiles;  // dW1
+    if (second) u -= w2_tiles;
+    const int cols = second ? C : M;
+    const int m0 = (u / (cols / 256)) * BM;
+    const int n0 = (u % (cols / 256)) * 256;
+    float acc[128];
+    if (!rsp::gemm_mainloop<true, true, 256>(smem, second ? &dh_mn : &do_mn,
+                                             second ? &z_mn : &g_mn, m0, n0, 0,
+                                             (T + BK - 1) / BK, acc))
+      return;
+    bf16* out = second ? dw1 : dw2;
+    staged_bf16_epilogue<256>(smem, acc, [&](int r, int c, float (&v)[8]) {
+      store8(out + (size_t)(m0 + r) * cols + n0 + c, v);
+    });
+    return;
+  }
+  u -= w_tiles;
+  const int m0 = (u / (C / 128)) * BM;
+  const int n0 = (u % (C / 128)) * 128;
+  float acc[64];
+  if (!rsp::gemm_mainloop<false, true, 128>(smem, &dh_k, &w1_mn, m0, n0, 0, M / BK, acc))
+    return;
+  store_f32<128>(acc, dz, T, C, m0, n0);
+}
+
+// 5. dx = bf16(dO + rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat))),
+// dxhat = dz gamma, one warp per row (lane l holds columns 256 v + 8 l ..);
+// part[block] = the block's 16 rows of dz * xhat, dz and dO summed in row
+// order per column.
+template <int V>
+__global__ void __launch_bounds__(LNB_WARPS * 32) ln_bwd_rows_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ dz,
+    const float* __restrict__ gamma, const bf16* __restrict__ dout,
+    const float* __restrict__ mu, const float* __restrict__ rstd, bf16* __restrict__ dx,
+    float* __restrict__ part, int T) {
+  constexpr int C = 256 * V;
+  constexpr int PER_WARP = LNB_ROWS / LNB_WARPS;
+  __shared__ __align__(16) float red[LNB_WARPS][3 * C];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float pg[V][8], pb[V][8], pd[V][8];
+#pragma unroll
+  for (int i = 0; i < V; ++i)
+#pragma unroll
+    for (int u = 0; u < 8; ++u) pg[i][u] = pb[i][u] = pd[i][u] = 0.f;
+  for (int k = 0; k < PER_WARP; ++k) {
+    const int row = blockIdx.x * LNB_ROWS + warp * PER_WARP + k;
+    if (row >= T) break;
+    const float m = mu[row];
+    const float rs = rstd[row];
+    float xh[V][8], dxh[V][8];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = 256 * i + 8 * lane;
+      float dzv[8], ga[8];
+      load8(x + (size_t)row * C + c, xh[i]);
+      load8(dz + (size_t)row * C + c, dzv);
+      load8(gamma + c, ga);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        xh[i][u] = (xh[i][u] - m) * rs;
+        dxh[i][u] = dzv[u] * ga[u];
+        s1 += dxh[i][u];
+        s2 += dxh[i][u] * xh[i][u];
+        pg[i][u] += dzv[u] * xh[i][u];
+        pb[i][u] += dzv[u];
+      }
+    }
+    const float m1 = rsp::warp_sum(s1) / C;
+    const float m2 = rsp::warp_sum(s2) / C;
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = 256 * i + 8 * lane;
+      float dov[8], y[8];
+      load8(dout + (size_t)row * C + c, dov);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        y[u] = rs * (dxh[i][u] - m1 - xh[i][u] * m2) + dov[u];
+        pd[i][u] += dov[u];
+      }
+      store8(dx + (size_t)row * C + c, y);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int c = 256 * i + 8 * lane;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      red[warp][c + u] = pg[i][u];
+      red[warp][C + c + u] = pb[i][u];
+      red[warp][2 * C + c + u] = pd[i][u];
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 3 * C; e += LNB_WARPS * 32) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < LNB_WARPS; ++w) s += red[w][e];
+    part[(size_t)blockIdx.x * 3 * C + e] = s;
+  }
+}
+
+// 6. db1 = the column sums of dh_kernel's partials (p1 rows of M), and
+// dgamma, dbeta, db2 those of ln_bwd_rows' (p2 rows of 3 C): a block takes
+// 32 columns in 8 row groups, each group's rows summed in order, then the
+// groups in order.
+__global__ void __launch_bounds__(BS_COLS * BS_GROUPS) bias_sums_kernel(
+    const float* __restrict__ db1_part, int p1, int M, bf16* __restrict__ db1,
+    const float* __restrict__ row_part, int p2, int C, float* __restrict__ dgamma,
+    float* __restrict__ dbeta, bf16* __restrict__ db2) {
+  __shared__ float red[BS_GROUPS][BS_COLS];
+  const int lane = threadIdx.x % BS_COLS;
+  const int grp = threadIdx.x / BS_COLS;
+  const int c = blockIdx.x * BS_COLS + lane;
+  const bool bias1 = c < M;  // M is a multiple of BS_COLS: blocks do not straddle
+  const int rows = bias1 ? p1 : p2;
+  const int ld = bias1 ? M : 3 * C;
+  float s = 0.f;
+  if (c < M + 3 * C) {
+    const float* src = bias1 ? db1_part + c : row_part + (c - M);
+    const int r1 = (grp + 1) * rows / BS_GROUPS;
+#pragma unroll 4
+    for (int r = grp * rows / BS_GROUPS; r < r1; ++r) s += src[(size_t)r * ld];
+  }
+  red[grp][lane] = s;
+  __syncthreads();
+  if (grp != 0 || c >= M + 3 * C) return;
+  s = 0.f;
+#pragma unroll
+  for (int q = 0; q < BS_GROUPS; ++q) s += red[q][lane];
+  const int e = c - M;
+  if (bias1) db1[c] = rsp::to_bf(s);
+  else if (e < C) dgamma[e] = s;
+  else if (e < 2 * C) dbeta[e - C] = s;
+  else db2[e - 2 * C] = rsp::to_bf(s);
+}
+
+// The layout tests' harness: out (rows, cols) fp32 = A . B^T on the
+// mainloop form (AMN, BMN, BN).
+template <bool AMN, bool BMN, int BN>
+__global__ void __launch_bounds__(THREADS, 1) f32_gemm_kernel(
+    const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
+    float* __restrict__ out, int rows, int cols, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = rsp::gemm_smem(smem_raw);
+  const int tiles_n = (cols + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM;
+  const int n0 = (blockIdx.x % tiles_n) * BN;
+  float acc[BN / 2];
+  if (!rsp::gemm_mainloop<AMN, BMN, BN>(smem, &amap, &bmap, m0, n0, 0, (K + BK - 1) / BK,
+                                        acc))
+    return;
+  store_f32<BN>(acc, out, rows, cols, m0, n0);
+}
+
+template <class Kernel>
+cudaError_t prepare(Kernel kernel, int smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+template <bool AMN, bool BMN, int BN>
+cudaError_t launch_f32(const void* a, const void* b, float* out, int rows, int cols, int K,
+                       cudaStream_t s) {
+  using G = rsp::GemmTile<AMN, BMN, BN>;
+  CUtensorMap maps[2];
+  // A stored (rows, K) or (K, rows); B stored (cols, K) or (K, cols)
+  if (!(AMN ? G::A::make_map(&maps[0], a, K, rows) : G::A::make_map(&maps[0], a, rows, K)) ||
+      !(BMN ? G::B::make_map(&maps[1], b, K, cols) : G::B::make_map(&maps[1], b, cols, K)))
+    return cudaErrorNotSupported;
+  cudaError_t err = prepare(f32_gemm_kernel<AMN, BMN, BN>, G::SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((rows + BM - 1) / BM) * ((cols + BN - 1) / BN);
+  f32_gemm_kernel<AMN, BMN, BN><<<tiles, THREADS, G::SMEM, s>>>(maps[0], maps[1], out, rows,
+                                                                cols, K);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
+// Kernel A'. Inputs: x (T, C), dout (T, C), w1 (M, C), b1 (M), w2 (C, M)
+// bf16; gamma, beta (C) fp32. Outputs: dx (T, C), dw1 (M, C), db1 (M), dw2
+// (C, M), db2 (C) bf16; dgamma, dbeta (C) fp32. Scratch: z_ws (T, C) bf16,
+// stats_ws (2, T) fp32, hg_ws and dh_ws (T, M) bf16, dz_ws (T, C) fp32,
+// part_ws (ceil(T / 128) * M + ceil(T / 16) * 3 C) fp32. C = 768; M a
+// multiple of 256.
 extern "C" int rsp_ln_mlp_residual_bwd(
-    const void* x, const void* gamma, const void* beta, const void* w1,
-    const void* b1, const void* w2, const void* dout, void* dx, void* dgamma,
-    void* dbeta, void* dw1, void* db1, void* dw2, void* db2, void* z_ws,
-    void* stats_ws, void* h_ws, void* dh_ws, void* dz_ws, void* partial_ws,
-    int T, int C, int M, float eps, void* stream) {
-  if (C % 8 != 0 || M % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  using rsp::RowMajor;
+    const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
+    const void* w2, const void* dout, void* dx, void* dgamma, void* dbeta, void* dw1,
+    void* db1, void* dw2, void* db2, void* z_ws, void* stats_ws, void* hg_ws, void* dh_ws,
+    void* dz_ws, void* part_ws, int T, int C, int M, float eps, void* stream) {
+  constexpr int V = 3;
+  if (C != 256 * V || M % 256 != 0 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
-  const float* ga = static_cast<const float*>(gamma);
-  const bf16* w1b = static_cast<const bf16*>(w1);
-  const bf16* w2b = static_cast<const bf16*>(w2);
   const bf16* dob = static_cast<const bf16*>(dout);
+  const float* ga = static_cast<const float*>(gamma);
   bf16* z = static_cast<bf16*>(z_ws);
   float* mu = static_cast<float*>(stats_ws);
   float* rstd = mu + T;
-  bf16* hg = static_cast<bf16*>(h_ws);
+  bf16* hg = static_cast<bf16*>(hg_ws);
   bf16* dh = static_cast<bf16*>(dh_ws);
   float* dz = static_cast<float*>(dz_ws);
-  float* part = static_cast<float*>(partial_ws);
+  const int p1 = (T + BM - 1) / BM;
+  const int p2 = (T + LNB_ROWS - 1) / LNB_ROWS;
+  float* db1_part = static_cast<float*>(part_ws);
+  float* row_part = db1_part + (size_t)p1 * M;
+
+  // operand maps, each read as stored: K-major (K) or MN-major (MN)
+  using KA = rsp::GemmOperand<false, BM>;
+  using MNA = rsp::GemmOperand<true, BM>;
+  using K256 = rsp::GemmOperand<false, 256>;
+  using MNB = rsp::GemmOperand<true, 256>;  // MN-major maps do not depend on the width
+  CUtensorMap h_maps[2], dh_maps[3], g_maps[6];
+  if (!KA::make_map(&h_maps[0], z, T, C) || !K256::make_map(&h_maps[1], w1, M, C) ||
+      !KA::make_map(&dh_maps[0], dob, T, C) || !MNB::make_map(&dh_maps[1], w2, C, M) ||
+      !KA::make_map(&dh_maps[2], hg, T, M) ||  // dh_kernel's h tile: boxes of 128 x 64
+      !MNA::make_map(&g_maps[0], dob, T, C) || !MNB::make_map(&g_maps[1], hg, T, M) ||
+      !MNA::make_map(&g_maps[2], dh, T, M) || !MNB::make_map(&g_maps[3], z, T, C) ||
+      !KA::make_map(&g_maps[4], dh, T, M) || !MNB::make_map(&g_maps[5], w1, M, C))
+    return static_cast<int>(cudaErrorNotSupported);
   cudaError_t err;
 
-  const int row_blocks = (T + ROW_WARPS - 1) / ROW_WARPS;
-  ln_rows_kernel<<<row_blocks, ROW_WARPS * 32, 0, s>>>(
-      xb, ga, static_cast<const float*>(beta), z, mu, rstd, T, C, eps);
+  ln_stats_kernel<V><<<(T + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, s>>>(
+      xb, ga, static_cast<const float*>(beta), z, mu, rstd, T, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  // h = bf16(z W1^T + b1): (T x M), K = C
-  err = rsp::gemm_bf16<false, false>(RowMajor{z, C}, RowMajor{w1b, C},
-                                     EpiH{hg, static_cast<const bf16*>(b1), M},
-                                     T, M, C, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // dh, g from dO W2: (T x M), K = C; W2 is stored (C x M)
-  err = rsp::gemm_bf16<false, true>(RowMajor{dob, C}, RowMajor{w2b, M},
-                                    EpiDh{hg, dh, M}, T, M, C, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // dW2 = dO^T g: (C x M), K = T
-  err = rsp::gemm_bf16<true, true>(RowMajor{dob, C}, RowMajor{hg, M},
-                                   rsp::StoreF32{static_cast<float*>(dw2), M},
-                                   C, M, T, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // dW1 = dh^T z: (M x C), K = T
-  err = rsp::gemm_bf16<true, true>(RowMajor{dh, M}, RowMajor{z, C},
-                                   rsp::StoreF32{static_cast<float*>(dw1), C},
-                                   M, C, T, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // dz = dh W1: (T x C), K = M; W1 is stored (M x C)
-  err = rsp::gemm_bf16<false, true>(RowMajor{dh, M}, RowMajor{w1b, C},
-                                    rsp::StoreF32{dz, C}, T, C, M, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ln_bwd_rows_kernel<<<row_blocks, ROW_WARPS * 32, 0, s>>>(
-      xb, dz, ga, dob, mu, rstd, static_cast<bf16*>(dx), T, C);
+
+  constexpr int h_smem = rsp::GemmTile<false, false, 256>::SMEM;
+  if ((err = prepare(hidden_kernel, h_smem)) != cudaSuccess) return static_cast<int>(err);
+  hidden_kernel<<<dim3(M / 256, p1), THREADS, h_smem, s>>>(
+      h_maps[0], h_maps[1], static_cast<const bf16*>(b1), hg, T, M, C);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  err = rsp::colsum(GetDzXhat{xb, dz, mu, rstd, C}, part,
-                    static_cast<float*>(dgamma), T, C, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = rsp::colsum(rsp::GetF32{dz, C}, part, static_cast<float*>(dbeta), T, C, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = rsp::colsum(rsp::GetBf16<RowMajor>{RowMajor{dh, M}}, part,
-                    static_cast<float*>(db1), T, M, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = rsp::colsum(rsp::GetBf16<RowMajor>{RowMajor{dob, C}}, part,
-                    static_cast<float*>(db2), T, C, s);
+
+  if ((err = prepare(dh_kernel, DhTile::SMEM)) != cudaSuccess) return static_cast<int>(err);
+  dh_kernel<<<dim3(M / DhTile::BN, p1), THREADS, DhTile::SMEM, s>>>(
+      dh_maps[0], dh_maps[1], dh_maps[2], hg, dh, db1_part, T, M, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+  constexpr int g_smem = rsp::GemmTile<true, true, 256>::SMEM;
+  static_assert(rsp::GemmTile<false, true, 128>::SMEM <= g_smem, "the dz tiles fit");
+  const int g_blocks = (C / BM) * (M / 256) + (M / BM) * (C / 256) + p1 * (C / 128);
+  if ((err = prepare(grads_kernel, g_smem)) != cudaSuccess) return static_cast<int>(err);
+  grads_kernel<<<g_blocks, THREADS, g_smem, s>>>(
+      g_maps[0], g_maps[1], g_maps[2], g_maps[3], g_maps[4], g_maps[5],
+      static_cast<bf16*>(dw2), static_cast<bf16*>(dw1), dz, T, C, M);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+  ln_bwd_rows_kernel<V><<<p2, LNB_WARPS * 32, 0, s>>>(xb, dz, ga, dob, mu, rstd,
+                                                      static_cast<bf16*>(dx), row_part, T);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+
+  bias_sums_kernel<<<(M + 3 * C + BS_COLS - 1) / BS_COLS, BS_COLS * BS_GROUPS, 0, s>>>(
+      db1_part, p1, M, static_cast<bf16*>(db1), row_part, p2, C,
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta), static_cast<bf16*>(db2));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A' 's mainloop alone, for the tests of its operand layouts: out (rows,
+// cols) fp32 = A . B^T, A stored (rows, K) (a_mn = 0) or (K, rows) (a_mn =
+// 1), B stored (cols, K) or (K, cols); (a_mn, b_mn, bn) one of the forms A'
+// runs: (0, 0, 256), (0, 1, 256), (0, 1, 128), (1, 1, 256). bf16 inputs;
+// each stored row a multiple of 8 values (16 bytes), cols even.
+extern "C" int rsp_wgmma_gemm_f32(const void* a, const void* b, void* out, int rows,
+                                  int cols, int K, int a_mn, int b_mn, int bn,
+                                  void* stream) {
+  if ((a_mn ? rows : K) % 8 || (b_mn ? cols : K) % 8 || cols % 2 || rows < 1 || cols < 1 ||
+      K < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (!a_mn && !b_mn && bn == 256) err = launch_f32<false, false, 256>(a, b, o, rows, cols, K, s);
+  if (!a_mn && b_mn && bn == 256) err = launch_f32<false, true, 256>(a, b, o, rows, cols, K, s);
+  if (!a_mn && b_mn && bn == 128) err = launch_f32<false, true, 128>(a, b, o, rows, cols, K, s);
+  if (a_mn && b_mn && bn == 256) err = launch_f32<true, true, 256>(a, b, o, rows, cols, K, s);
   return static_cast<int>(err);
 }

@@ -10,7 +10,11 @@ wgmma GEMMs of one entry point, fc1 with its bias and GELU and fc2 with its
 bias and the residual (counted as ``LN_MLP_RESIDUAL`` variants ``fc1`` and
 ``fc2``); the (T, 4C) hidden activation goes through device memory in bf16,
 at the rounding point JAX's kernel has (see the source note). Its backward
-A' (``csrc/ln_mlp_residual_bwd.cu``) replaces ``_mlp_bwd_kernel``.
+A' (``csrc/ln_mlp_residual_bwd.cu``) replaces ``_mlp_bwd_kernel``: one
+entry point, counted once per call as ``LN_MLP_RESIDUAL_BWD``, that makes
+six device launches, its five products on kernel A's TMA + wgmma mainloop
+(``csrc/wgmma_gemm.cuh``) with each operand read as stored, K-major or
+MN-major; ``wgmma_gemm_f32`` runs that mainloop alone for the card tests.
 
 Kernel B, ``ln_qkv_headmajor`` (``csrc/ln_qkv_headmajor.cu``), replaces
 ``_ln_qkv_kernel`` (``fused_ln_qkv``, global layers) and
@@ -57,10 +61,17 @@ _F = ctypes.c_float
 LN_MLP_RESIDUAL = CudaKernel(
     "ln_mlp_residual", "ln_mlp_residual.cu", "rsp_mlp_gemm", [_P] * 5 + [_I] * 4 + [_P],
 )
+# A': one count per call (six device launches inside, see its source)
 LN_MLP_RESIDUAL_BWD = CudaKernel(
     "ln_mlp_residual_bwd", "ln_mlp_residual_bwd.cu", "rsp_ln_mlp_residual_bwd",
     [_P] * 20 + [_I] * 3 + [_F, _P],
 )
+# A''s GEMM mainloop alone, launched only by the card tests of its layouts
+WGMMA_GEMM = CudaKernel(
+    "wgmma_gemm", "ln_mlp_residual_bwd.cu", "rsp_wgmma_gemm_f32", [_P] * 3 + [_I] * 6 + [_P],
+)
+WGMMA_GEMM_FORMS = ((False, False, 256), (False, True, 256), (False, True, 128),
+                    (True, True, 256))
 LN_ROWS = CudaKernel(
     "ln_rows", "ln_qkv_headmajor.cu", "rsp_ln_rows", [_P] * 4 + [_I] * 5 + [_F, _P],
 )
@@ -201,19 +212,46 @@ def ln_mlp_residual_bwd(x, ln_w, ln_b, w1, b1, w2, b2, dout, eps: float = 1e-6):
     t, c, m = _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2)
     check_cuda_tensor("dout", dout, torch.bfloat16, (t, c))
     f32, bf = torch.float32, torch.bfloat16
-    chunks = -(-t // _COLSUM_ROWS)
+    parts = -(-t // 128) * m + -(-t // 16) * 3 * c  # db1's, then dgamma/dbeta/db2's
     dx, dg, dbb, dw1, db1, dw2, db2, z, stats, hg, dh, dz, part = _bwd_scratch(
-        x.device, ((t, c), bf), ((c,), f32), ((c,), f32), ((m, c), f32),
-        ((m,), f32), ((c, m), f32), ((c,), f32), ((t, c), bf), ((2, t), f32),
-        ((t, m), bf), ((t, m), bf), ((t, c), f32), ((chunks, m), f32),
+        x.device, ((t, c), bf), ((c,), f32), ((c,), f32), ((m, c), bf), ((m,), bf),
+        ((c, m), bf), ((c,), bf), ((t, c), bf), ((2, t), f32), ((t, m), bf), ((t, m), bf),
+        ((t, c), f32), ((parts,), f32),
     )
     LN_MLP_RESIDUAL_BWD.launch(
         ptr(x), ptr(ln_w), ptr(ln_b), ptr(w1), ptr(b1), ptr(w2), ptr(dout),
         ptr(dx), ptr(dg), ptr(dbb), ptr(dw1), ptr(db1), ptr(dw2), ptr(db2),
         ptr(z), ptr(stats), ptr(hg), ptr(dh), ptr(dz), ptr(part), t, c, m, eps,
     )
-    return (dx, dg, dbb, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
-            db2.to(b2.dtype))
+    return dx, dg, dbb, dw1, db1, dw2, db2
+
+
+def wgmma_gemm_f32_plain(a, b, a_mn: bool, b_mn: bool) -> torch.Tensor:
+    """A . B^T in fp32, A = ``a`` (rows, K) or, with ``a_mn``, ``a.t()`` of
+    ``a`` stored (K, rows); B = ``b`` (cols, K) or ``b.t()`` of (K, cols)."""
+    a = a.float().t() if a_mn else a.float()
+    b = b.float().t() if b_mn else b.float()
+    return a @ b.t()
+
+
+def wgmma_gemm_f32(a, b, a_mn: bool, b_mn: bool, bn: int = 256) -> torch.Tensor:
+    """Kernel A''s GEMM mainloop alone, on its operand layouts (the tests'
+    surface; the plain version on the CPU): see :func:`wgmma_gemm_f32_plain`.
+    ``(a_mn, b_mn, bn)`` is one of the forms A' runs: (False, False, 256),
+    (False, True, 256), (False, True, 128), (True, True, 256)."""
+    if (a_mn, b_mn, bn) not in WGMMA_GEMM_FORMS:
+        raise ValueError(f"wgmma_gemm_f32: no form {(a_mn, b_mn, bn)}")
+    if a.device.type == "cpu":
+        return wgmma_gemm_f32_plain(a, b, a_mn, b_mn)
+    check_cuda_tensor("a", a, torch.bfloat16)
+    check_cuda_tensor("b", b, torch.bfloat16)
+    rows, k = (a.shape[1], a.shape[0]) if a_mn else tuple(a.shape)
+    cols, kb = (b.shape[1], b.shape[0]) if b_mn else tuple(b.shape)
+    if kb != k:
+        raise ValueError(f"wgmma_gemm_f32: K of a ({k}) and b ({kb}) differ")
+    out = torch.empty((rows, cols), dtype=torch.float32, device=a.device)
+    WGMMA_GEMM.launch(ptr(a), ptr(b), ptr(out), rows, cols, k, int(a_mn), int(b_mn), bn)
+    return out
 
 
 class _LnMlpResidual(torch.autograd.Function):

@@ -1,6 +1,6 @@
-"""Time the port's kernel A, kernel B, K12', kernel C and its backward C'
-from several source trees on one CUDA card, each tree the same way, so two
-designs compare in one run.
+"""Time the port's kernel A, kernel B, K12', kernel C and the backwards C'
+and A' from several source trees on one CUDA card, each tree the same way,
+so two designs compare in one run.
 
     python scripts/torch_kernel_ab.py [--generic-copy DST] ROOT [ROOT ...]
 
@@ -9,11 +9,11 @@ repository's root, or an unpacked ``git archive`` of another commit); each
 is timed in a subprocess of its own, in the order given (parent, change,
 change, parent), its kernels built from its own sources into ``ROOT/build``.
 Inputs are those of ``chip_smoke.py``'s kernel phases (forward kernels at
-ViT-B 1024^2, batch 2; C' at the train step's 512^2, batch 4: global qkv
-(4, 36, 1024, 64), windows (36, 36, 196, 64); bf16, seed 0), and every
-output is first held against its fp32 plain version within 2e-2 of its
-largest magnitude (C': each of dqkv, dfh, dfw). Each kernel gets four
-readings:
+ViT-B 1024^2, batch 2; C' and A' at the train step's 512^2, batch 4: global
+qkv (4, 36, 1024, 64), windows (36, 36, 196, 64), A' x and dO (4096, 768);
+bf16, seed 0), and every output is first held against its fp32 plain
+version within 2e-2 of its largest magnitude (the backwards: each output on
+its own). Each kernel gets four readings:
 
 - ``alone``: CUDA events around one call, median of 15 after 3 warm-up
   calls. The device also waits for the host's enqueue of that call.
@@ -21,7 +21,8 @@ readings:
   (``chip_smoke.py``'s ``cuda_time_ms``). The host's enqueue overlaps the
   device's work unless a call is shorter than it.
 - ``device``: the device's busy time per call in a ``torch.profiler``
-  trace of 20 back-to-back calls, host time left out.
+  trace of 20 back-to-back calls, host time left out; for a kernel of
+  several launches (A, A'), also each launch's own time per call.
 - ``host``: the host's time per call, 50 calls enqueued without waiting
   for the device. Where it exceeds ``device``, ``b2b`` reads the host.
 
@@ -87,10 +88,17 @@ def time_b2b(fn, warmup: int = 3, iters: int = 15, repeat: int = 10) -> float:
     return statistics.median(times)
 
 
-def time_device(fn, iters: int = 20) -> float:
+def kernel_name(name: str) -> str:
+    """A profiler kernel name without its namespaces and parameter list."""
+    name = name.replace("(anonymous namespace)::", "").replace("rsp::", "")
+    return name.removeprefix("void ").split("(")[0].strip()
+
+
+def time_device(fn, iters: int = 20):
     """Device time per call: the union of the CUDA activity intervals in a
     ``torch.profiler`` trace of ``iters`` back-to-back calls, over ``iters``
-    (the host's share of a call is left out)."""
+    (the host's share of a call is left out); and each kernel's own time per
+    call, by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -100,14 +108,18 @@ def time_device(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_kernel = {}
+    for e in events:
+        key = kernel_name(e.name)
+        by_kernel[key] = by_kernel.get(key, 0.0) + (e.time_range.end - e.time_range.start)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    return busy / 1e3 / iters
+    return busy / 1e3 / iters, {k: v / 1e3 / iters for k, v in by_kernel.items()}
 
 
 def time_host(fn, iters: int = 50) -> float:
@@ -139,7 +151,7 @@ def worker(root: str) -> dict:
     if not fm.__file__.startswith(root):
         raise RuntimeError(f"imported {fm.__file__}, not the package under {root}")
     _cuda.build([fm.LN_MLP_RESIDUAL, fm.LN_QKV_HEADMAJOR, fa.RELPOS_ATTENTION,
-                 fa.RELPOS_ATTENTION_BWD])
+                 fa.RELPOS_ATTENTION_BWD, fm.LN_MLP_RESIDUAL_BWD])
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -195,6 +207,14 @@ def worker(root: str) -> dict:
             lambda a=(qkv, fh, fw, o, lse, dout, hw): fa.relpos_attention_bwd(*a),
             lambda a=(qkv, fh, fw, dout, hw): fa.relpos_attention_bwd_plain(
                 a[0].float(), a[1].float(), a[2].float(), a[3].float(), a[4]))
+    # A' at the train step's shape (ViT-B 512^2, batch 4: T = 4096)
+    t = 4096
+    a = (rnd(t, c), ln_w, ln_b, rnd(mlp, c, scale=0.02), rnd(mlp, scale=0.02),
+         rnd(c, mlp, scale=0.02), rnd(c, scale=0.02), rnd(t, c), 1e-6)
+    cases["ln_mlp_residual_bwd"] = (
+        lambda a=a: fm.ln_mlp_residual_bwd(*a),
+        lambda a=a: fm.ln_mlp_residual_bwd_plain(
+            *[v.float() if torch.is_tensor(v) else v for v in a]))
     out = {}
     for name, (kernel, plain) in cases.items():
         got = kernel()
@@ -209,9 +229,10 @@ def worker(root: str) -> dict:
                 raise AssertionError(f"{root}: {name} disagrees with plain (max |diff| {e:.4g})")
             err = max(err, e)
         del got, ref, x, r
+        device, by_kernel = time_device(kernel)
         out[name] = {"alone": time_alone(kernel), "b2b": time_b2b(kernel),
-                     "device": time_device(kernel), "host": time_host(kernel),
-                     "max_abs_err": err}
+                     "device": device, "device_by_kernel": by_kernel,
+                     "host": time_host(kernel), "max_abs_err": err}
     return out
 
 
@@ -259,6 +280,10 @@ def main() -> int:
             print(f"{root:24s} {name:32s} alone {r['alone']:.4f} ms  b2b {r['b2b']:.4f} ms  "
                   f"device {r['device']:.4f} ms  host {r['host']:.4f} ms  "
                   f"max_abs_err {r['max_abs_err']:.4g}", flush=True)
+            if len(r["device_by_kernel"]) > 1:  # a kernel of several launches
+                print(" " * 26 + "device by kernel: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in sorted(r["device_by_kernel"].items(),
+                                                      key=lambda kv: -kv[1])), flush=True)
     print(json.dumps({"card": card, "runs": runs}), flush=True)
     return 0
 

@@ -69,6 +69,19 @@ def test_ln_mlp_residual_bwd_plain_matches_pallas():
         _close(o.T if name in ("dw1", "dw2") else o, r, name)
 
 
+@pytest.mark.parametrize("a_mn,b_mn,bn", fm.WGMMA_GEMM_FORMS)
+def test_wgmma_gemm_layouts_plain(a_mn, b_mn, bn):
+    """A''s GEMM mainloop surface on the CPU (its plain version): each
+    operand read as stored, (rows, K) or, MN-major, (K, rows), gives A . B^T.
+    The card tests hold the kernel to the same surface."""
+    rng = np.random.default_rng(3)
+    rows, cols, k = 40, 24, 56
+    a = rng.standard_normal((rows, k)).astype(np.float32)
+    b = rng.standard_normal((cols, k)).astype(np.float32)
+    got = fm.wgmma_gemm_f32(_t(a.T if a_mn else a), _t(b.T if b_mn else b), a_mn, b_mn, bn)
+    _close(got.numpy(), a @ b.T)
+
+
 def test_ln_qkv_headmajor_bwd_plain_matches_pallas_global():
     rng = np.random.default_rng(1)
     bsz, h, w, c, heads = 2, 16, 16, 128, 2

@@ -245,6 +245,42 @@ def test_ln_mlp_residual_bwd_kernel(gen, t):
                 fm.ln_mlp_residual_bwd_plain(*_f32(args), 1e-6))
 
 
+@pytest.mark.parametrize("t", [100, 4096])
+def test_ln_mlp_residual_bwd_is_deterministic(gen, t):
+    """Two launches of A' on the same inputs give the same bits in all seven
+    outputs: every sum runs in a fixed order, with no atomics and no split
+    of K."""
+    args = (*_mlp_args(gen, t)[:7], _rnd(gen, t, 768))
+    first = fm.ln_mlp_residual_bwd(*args, 1e-6)
+    second = fm.ln_mlp_residual_bwd(*args, 1e-6)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+# A''s five products by operand layout: (a stored, b stored, a_mn, b_mn, bn)
+# for t tokens, C = 768, M = 3072
+_AP_PRODUCTS = {
+    "h = z W1^T": (("t", 768), (3072, 768), False, False, 256),
+    "dO W2": (("t", 768), (768, 3072), False, True, 256),
+    "dz = dh W1": (("t", 3072), (3072, 768), False, True, 128),
+    "dW2 = dO^T g": (("t", 768), ("t", 3072), True, True, 256),
+    "dW1 = dh^T z": (("t", 3072), ("t", 768), True, True, 256),
+}
+
+
+@pytest.mark.parametrize("t", [100, 200, 4096])
+@pytest.mark.parametrize("product", list(_AP_PRODUCTS))
+def test_wgmma_gemm_operand_layouts(gen, product, t):
+    """A''s mainloop alone on each operand layout it runs, K-major or
+    MN-major (the transposed wgmma forms), at ragged token counts: against
+    an fp32 reference product within 2e-2 of the output's largest value."""
+    a_shape, b_shape, a_mn, b_mn, bn = _AP_PRODUCTS[product]
+    a = _rnd(gen, *[t if d == "t" else d for d in a_shape])
+    b = _rnd(gen, *[t if d == "t" else d for d in b_shape])
+    _close(fm.wgmma_gemm_f32(a, b, a_mn, b_mn, bn), fm.wgmma_gemm_f32_plain(a, b, a_mn, b_mn))
+
+
 @pytest.mark.parametrize("grid,window,ln", [
     ((10, 9), 0, True), ((10, 9), 4, True), ((32, 32), 14, True), ((10, 9), 4, False),
 ])
