@@ -29,8 +29,10 @@ Phases (every failure raises; the script exits non-zero and prints no result):
 4. backward kernels: A', B' (global, window) and C' (global, window) against
    their fp32 plain backwards at the train step's shapes (ViT-B, 512^2,
    batch 4), each output within 2e-2 of its largest magnitude, with kernel,
-   plain, library and bound times; a second launch of A' and of C' on the
-   same inputs must give the same bits (their sums run in a fixed order); K12''s
+   plain, library and bound times (A' and B''s library time: autograd
+   through their forwards composed of PyTorch calls); a second launch of A',
+   B' and C' on the same inputs must give the same bits (their sums run in a
+   fixed order); K12''s
    backward (torch products) through its Function against plain autograd;
 5. train step, the second main path: ``build_trainer`` on
    ``rsprompter_anchor-nwpu-scratch-512.py`` (encoder and decoder trainable,
@@ -542,8 +544,21 @@ def sdpa_backward_ms(q, k, v, bias, dout):
         return None
 
 
+def composed_backward_ms(forward, inputs, cotangent):
+    """``torch.autograd.grad`` with respect to every input through a forward
+    composed of PyTorch calls, all in bf16, the forward run once outside the
+    time: the library yardstick of a backward kernel that no single call
+    computes. Timed only."""
+    import torch
+
+    leaves = [t.detach().to(torch.bfloat16).requires_grad_(True) for t in inputs]
+    out = forward(*leaves)
+    return cuda_time_ms(lambda: torch.autograd.grad(out, leaves, cotangent, retain_graph=True))
+
+
 def backward_kernel_phase(dev):
     import torch
+    import torch.nn.functional as F
 
     from rsprompter_tpu_torch.ops import fused_mlp as fm
     from rsprompter_tpu_torch.ops import fused_vit_attention as fa
@@ -583,6 +598,10 @@ def backward_kernel_phase(dev):
     nbytes = (3 * t * c * 2 + 2 * c * mlp * 2 + (mlp + c) * 2 + 2 * c * 4
               + 2 * c * mlp * 2 + (mlp + c) * 2 + 2 * c * 4)
     b_ms, b_by = bound_ms(flops, nbytes)
+    library_ms = composed_backward_ms(  # LN -> fc1 -> exact GELU -> fc2 + residual
+        lambda x, lw, lb, w1, b1, w2, b2: x + F.linear(F.gelu(F.linear(
+            F.layer_norm(x, (c,), lw, lb, 1e-6), w1, b1), approximate="none"), w2, b2),
+        args[:7], args[7])
     rows.append(dict(
         name="ln_mlp_residual_bwd", kernel=fm.LN_MLP_RESIDUAL_BWD, variant="",
         route="cuda", source="rsprompter_tpu_torch/csrc/ln_mlp_residual_bwd.cu",
@@ -590,7 +609,7 @@ def backward_kernel_phase(dev):
         shape=f"x, dO ({t}, {c}) bf16, W1 {mlp}x{c}, W2 {c}x{mlp}", max_abs_err=err,
         ms=cuda_time_ms(lambda: fm.ln_mlp_residual_bwd(*args, 1e-6)),
         plain_ms=cuda_time_ms(lambda: fm.ln_mlp_residual_bwd_plain(*args, 1e-6)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
     ))
 
     # --- B': ln_qkv_headmajor_bwd, global and window ---------------------------
@@ -607,6 +626,21 @@ def backward_kernel_phase(dev):
         torch.cuda.synchronize()
         err = compare_each(f"ln_qkv_headmajor_bwd/{variant}", got,
                            fm.ln_qkv_headmajor_bwd_plain(*f32(a)))
+        again = fm.ln_qkv_headmajor_bwd(*a)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("dx", "dgamma", "dbeta", "dW", "db"), got, again):
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    f"ln_qkv_headmajor_bwd/{variant}: a second launch changed {name} "
+                    f"(max |diff| {(x.float() - y.float()).abs().max().item():.4g})")
+        log(f"ln_qkv_headmajor_bwd/{variant}: a second launch gives the same bits in all "
+            "five outputs")
+        del got, again
+        library_ms = composed_backward_ms(  # LN -> window partition -> qkv -> head-major
+            lambda x, lw, lb, w, b, window=window, n_img=n_img, s=s: F.linear(
+                fm.window_partition(F.layer_norm(x, (c,), lw, lb, 1e-6), window), w, b
+            ).reshape(n_img, s, 3 * heads, 64).permute(0, 2, 1, 3),
+            (xg, ln_w, ln_b, wq, bq), dy)
         # dW and dz over the t real tokens: window pad rows have z = 0 and feed
         # no token; only db reads their dy, a sum counted in the bytes
         flops = 2 * 2.0 * t * c * 3 * c
@@ -620,7 +654,7 @@ def backward_kernel_phase(dev):
             shape=f"x ({bsz}, {grid}, {grid}, {c}), dy {tuple(dy.shape)} bf16",
             max_abs_err=err, ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor_bwd(*a)),
             plain_ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor_bwd_plain(*a)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
         ))
 
     # --- C': relpos_attention_bwd, global and window ---------------------------

@@ -13,64 +13,9 @@ namespace rsp {
 
 using bf16 = __nv_bfloat16;
 
-// D += A (16x16, row) * B (16x8, col), bf16 in, fp32 accumulate. Fragment
-// layout (g = lane / 4, t = lane % 4): a[0] rows g, cols 2t..2t+1; a[1] row
-// g+8; a[2] row g, cols 2t+8..; a[3] row g+8, cols 2t+8..; b0 k = 2t..2t+1,
-// n = g; b1 k + 8; c[0..1] row g, cols 2t..2t+1; c[2..3] row g+8.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment of rows r0..r0+15, cols k..k+15 of a row-major bf16 tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int stride, int r0, int k, int lane) {
-  const bf16* p = tile + (r0 + lane / 4) * stride + k + (lane % 4) * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * stride);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * stride + 8);
-}
-
-// 16-byte asynchronous global -> shared copy (sm_80+).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Copy rows [0, rows) x cols [k0, k0 + cols) of a row-major (ld = `ld`)
-// bf16 matrix into a shared tile with row stride `stride`, 16 bytes per
-// thread and step (cols a multiple of 8).
-__device__ __forceinline__ void cp_async_tile(bf16* dst, int stride,
-                                              const bf16* src, int ld,
-                                              int rows, int k0, int cols,
-                                              int tid, int nthreads) {
-  const int chunks = cols / 8;
-  for (int i = tid; i < rows * chunks; i += nthreads) {
-    const int r = i / chunks;
-    const int c = (i % chunks) * 8;
-    cp_async16(dst + r * stride + c, src + (size_t)r * ld + k0 + c);
-  }
 }
 
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -82,25 +27,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// LayerNorm of one C-wide bf16 row by one warp, fp32 statistics, written to
-// `z` as bf16 (the rounding point of SamLayerNorm's output).
-__device__ __forceinline__ void warp_layer_norm_row(
-    const bf16* __restrict__ xr, const float* __restrict__ gamma,
-    const float* __restrict__ beta, bf16* __restrict__ z, int C, float eps,
-    int lane) {
-  float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += to_f(xr[c]);
-  const float mu = warp_sum(s) / C;
-  float v = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float d = to_f(xr[c]) - mu;
-    v += d * d;
-  }
-  const float rs = rsqrtf(warp_sum(v) / C + eps);
-  for (int c = lane; c < C; c += 32)
-    z[c] = to_bf((to_f(xr[c]) - mu) * rs * gamma[c] + beta[c]);
 }
 
 }  // namespace rsp

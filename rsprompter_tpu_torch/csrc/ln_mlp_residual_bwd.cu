@@ -39,12 +39,12 @@
 //  5. ln_bwd_rows: dx = bf16(dO + LN-vjp(dz)), one warp per row, and per
 //     16-row block the partial column sums of dz * xhat, dz and dO.
 //  6. bias_sums: db1, dgamma, dbeta, db2 from the partials, in block order.
+// Launches 1, 5 and 6 are ln_rows_bwd.cuh's, which B' runs too.
 // The (T, M) activations make one round trip through device memory (2 x 25
 // MB at this shape).
 // The previous design ran the products as 64 x 64 mma.sync tiles with
-// synchronous loads (bwd_common.cuh's gemm_bf16) in 15 launches plus four
-// casts in the wrapper: 1.59 ms at this shape on an H100 80GB HBM3 at 700 W.
-#include "wgmma_gemm.cuh"
+// synchronous loads in 15 launches plus four casts in the wrapper: 1.59 ms at this shape on an H100 80GB HBM3 at 700 W.
+#include "ln_rows_bwd.cuh"
 
 using rsp::bf16;
 
@@ -53,129 +53,11 @@ namespace {
 constexpr int BM = rsp::GEMM_TILE_M;
 constexpr int BK = rsp::GEMM_TILE_K;
 constexpr int THREADS = rsp::GEMM_THREADS_WS;
-constexpr int ROW_WARPS = 8;       // ln_stats: one warp per row
-constexpr int LNB_WARPS = 4;       // ln_bwd_rows: warps per block
-constexpr int LNB_ROWS = 16;       // ... and rows per block (partial sums)
-constexpr int BS_COLS = 32;       // bias_sums: columns per block
-constexpr int BS_GROUPS = 8;      // ... and row groups
-
-__device__ __forceinline__ void load8(const bf16* p, float (&v)[8]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const bf16* b = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-  for (int u = 0; u < 8; ++u) v[u] = rsp::to_f(b[u]);
-}
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
-  uint4 raw;
-  raw.x = rsp::pack_bf16(v[0], v[1]);
-  raw.y = rsp::pack_bf16(v[2], v[3]);
-  raw.z = rsp::pack_bf16(v[4], v[5]);
-  raw.w = rsp::pack_bf16(v[6], v[7]);
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-// 1. z = bf16(LN(x)) and (mu, rstd), one warp per row of C = 256 V: lane l
-// holds columns 256 v + 8 l .. + 7.
-template <int V>
-__global__ void __launch_bounds__(ROW_WARPS * 32) ln_stats_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ gamma,
-    const float* __restrict__ beta, bf16* __restrict__ z, float* __restrict__ mu_out,
-    float* __restrict__ rstd_out, int T, float eps) {
-  constexpr int C = 256 * V;
-  const int row = blockIdx.x * ROW_WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= T) return;
-  float v[V][8];
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    load8(x + (size_t)row * C + 256 * i + 8 * lane, v[i]);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) s += v[i][u];
-  }
-  const float mu = rsp::warp_sum(s) / C;
-  float q = 0.f;
-#pragma unroll
-  for (int i = 0; i < V; ++i)
-#pragma unroll
-    for (int u = 0; u < 8; ++u) q += (v[i][u] - mu) * (v[i][u] - mu);
-  const float rstd = rsqrtf(rsp::warp_sum(q) / C + eps);
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = 256 * i + 8 * lane;
-    float ga[8], be[8], y[8];
-    load8(gamma + c, ga);
-    load8(beta + c, be);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) y[u] = (v[i][u] - mu) * rstd * ga[u] + be[u];
-    store8(z + (size_t)row * C + c, y);
-  }
-  if (lane == 0) {
-    mu_out[row] = mu;
-    rstd_out[row] = rstd;
-  }
-}
-
-// Fragment coordinates of a consumer thread (see wgmma_gemm.cuh).
-struct Frag {
-  int wg, tid, warp, g, t;
-  __device__ __forceinline__ Frag()
-      : wg(threadIdx.x / 128), tid(threadIdx.x % 128), warp(tid / 32), g(tid % 32 / 4),
-        t(tid % 4) {}
-  __device__ __forceinline__ int row(int half) const { return 64 * wg + 16 * warp + g + 8 * half; }
-  __device__ __forceinline__ int col(int j) const { return 8 * j + 2 * t; }
-};
-
-// The tile's fp32 sums, rounded to bf16 into shared memory (the ring, no
-// longer read), handed out as 16-byte chunks: chunk(r, c, v) gets tile row
-// r, columns c .. c + 7, for the rows of the calling consumer warpgroup.
-template <int BN, class Chunk>
-__device__ __forceinline__ void staged_bf16_epilogue(unsigned char* smem,
-                                                     const float (&acc)[BN / 2], Chunk chunk) {
-  constexpr int OS = BN + 8;  // bf16 staging row stride
-  rsp::gemm_epilogue_begin();
-  const Frag f;
-  bf16* stg = reinterpret_cast<bf16*>(smem);
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-      *reinterpret_cast<uint32_t*>(stg + f.row(half) * OS + f.col(j)) =
-          rsp::pack_bf16(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-  rsp::named_sync(2 + f.wg, 128);
-  constexpr int CH = BN / 8;  // 16-byte chunks per row
-  for (int i = f.tid; i < 64 * CH; i += 128) {
-    const int r = 64 * f.wg + i / CH;
-    float v[8];
-    load8(stg + r * OS + (i % CH) * 8, v);
-    chunk(r, (i % CH) * 8, v);
-  }
-}
-
-// The tile's fp32 sums stored as they are, rows < rows and columns < cols
-// of out (row-major, cols wide).
-template <int BN>
-__device__ __forceinline__ void store_f32(const float (&acc)[BN / 2], float* out, int rows,
-                                          int cols, int m0, int n0) {
-  const Frag f;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int m = m0 + f.row(half);
-    if (m >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int n = n0 + f.col(j);
-      if (n < cols)
-        *reinterpret_cast<float2*>(out + (size_t)m * cols + n) =
-            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-    }
-  }
-}
+using rsp::Frag;
+using rsp::load8;
+using rsp::staged_bf16_epilogue;
+using rsp::store8;
+using rsp::store_f32;
 
 // 2. h (T, M) = bf16(bf16(z W1^T) + b1).
 __global__ void __launch_bounds__(THREADS, 1) hidden_kernel(
@@ -338,119 +220,6 @@ __global__ void __launch_bounds__(THREADS, 1) grads_kernel(
   store_f32<128>(acc, dz, T, C, m0, n0);
 }
 
-// 5. dx = bf16(dO + rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat))),
-// dxhat = dz gamma, one warp per row (lane l holds columns 256 v + 8 l ..);
-// part[block] = the block's 16 rows of dz * xhat, dz and dO summed in row
-// order per column.
-template <int V>
-__global__ void __launch_bounds__(LNB_WARPS * 32) ln_bwd_rows_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ dz,
-    const float* __restrict__ gamma, const bf16* __restrict__ dout,
-    const float* __restrict__ mu, const float* __restrict__ rstd, bf16* __restrict__ dx,
-    float* __restrict__ part, int T) {
-  constexpr int C = 256 * V;
-  constexpr int PER_WARP = LNB_ROWS / LNB_WARPS;
-  __shared__ __align__(16) float red[LNB_WARPS][3 * C];
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float pg[V][8], pb[V][8], pd[V][8];
-#pragma unroll
-  for (int i = 0; i < V; ++i)
-#pragma unroll
-    for (int u = 0; u < 8; ++u) pg[i][u] = pb[i][u] = pd[i][u] = 0.f;
-  for (int k = 0; k < PER_WARP; ++k) {
-    const int row = blockIdx.x * LNB_ROWS + warp * PER_WARP + k;
-    if (row >= T) break;
-    const float m = mu[row];
-    const float rs = rstd[row];
-    float xh[V][8], dxh[V][8];
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = 256 * i + 8 * lane;
-      float dzv[8], ga[8];
-      load8(x + (size_t)row * C + c, xh[i]);
-      load8(dz + (size_t)row * C + c, dzv);
-      load8(gamma + c, ga);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        xh[i][u] = (xh[i][u] - m) * rs;
-        dxh[i][u] = dzv[u] * ga[u];
-        s1 += dxh[i][u];
-        s2 += dxh[i][u] * xh[i][u];
-        pg[i][u] += dzv[u] * xh[i][u];
-        pb[i][u] += dzv[u];
-      }
-    }
-    const float m1 = rsp::warp_sum(s1) / C;
-    const float m2 = rsp::warp_sum(s2) / C;
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      const int c = 256 * i + 8 * lane;
-      float dov[8], y[8];
-      load8(dout + (size_t)row * C + c, dov);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        y[u] = rs * (dxh[i][u] - m1 - xh[i][u] * m2) + dov[u];
-        pd[i][u] += dov[u];
-      }
-      store8(dx + (size_t)row * C + c, y);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = 256 * i + 8 * lane;
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      red[warp][c + u] = pg[i][u];
-      red[warp][C + c + u] = pb[i][u];
-      red[warp][2 * C + c + u] = pd[i][u];
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < 3 * C; e += LNB_WARPS * 32) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < LNB_WARPS; ++w) s += red[w][e];
-    part[(size_t)blockIdx.x * 3 * C + e] = s;
-  }
-}
-
-// 6. db1 = the column sums of dh_kernel's partials (p1 rows of M), and
-// dgamma, dbeta, db2 those of ln_bwd_rows' (p2 rows of 3 C): a block takes
-// 32 columns in 8 row groups, each group's rows summed in order, then the
-// groups in order.
-__global__ void __launch_bounds__(BS_COLS * BS_GROUPS) bias_sums_kernel(
-    const float* __restrict__ db1_part, int p1, int M, bf16* __restrict__ db1,
-    const float* __restrict__ row_part, int p2, int C, float* __restrict__ dgamma,
-    float* __restrict__ dbeta, bf16* __restrict__ db2) {
-  __shared__ float red[BS_GROUPS][BS_COLS];
-  const int lane = threadIdx.x % BS_COLS;
-  const int grp = threadIdx.x / BS_COLS;
-  const int c = blockIdx.x * BS_COLS + lane;
-  const bool bias1 = c < M;  // M is a multiple of BS_COLS: blocks do not straddle
-  const int rows = bias1 ? p1 : p2;
-  const int ld = bias1 ? M : 3 * C;
-  float s = 0.f;
-  if (c < M + 3 * C) {
-    const float* src = bias1 ? db1_part + c : row_part + (c - M);
-    const int r1 = (grp + 1) * rows / BS_GROUPS;
-#pragma unroll 4
-    for (int r = grp * rows / BS_GROUPS; r < r1; ++r) s += src[(size_t)r * ld];
-  }
-  red[grp][lane] = s;
-  __syncthreads();
-  if (grp != 0 || c >= M + 3 * C) return;
-  s = 0.f;
-#pragma unroll
-  for (int q = 0; q < BS_GROUPS; ++q) s += red[q][lane];
-  const int e = c - M;
-  if (bias1) db1[c] = rsp::to_bf(s);
-  else if (e < C) dgamma[e] = s;
-  else if (e < 2 * C) dbeta[e - C] = s;
-  else db2[e - 2 * C] = rsp::to_bf(s);
-}
-
 // The layout tests' harness: out (rows, cols) fp32 = A . B^T on the
 // mainloop form (AMN, BMN, BN).
 template <bool AMN, bool BMN, int BN>
@@ -517,7 +286,7 @@ extern "C" int rsp_ln_mlp_residual_bwd(
   bf16* dh = static_cast<bf16*>(dh_ws);
   float* dz = static_cast<float*>(dz_ws);
   const int p1 = (T + BM - 1) / BM;
-  const int p2 = (T + LNB_ROWS - 1) / LNB_ROWS;
+  const int p2 = (T + rsp::LNB_ROWS - 1) / rsp::LNB_ROWS;
   float* db1_part = static_cast<float*>(part_ws);
   float* row_part = db1_part + (size_t)p1 * M;
 
@@ -536,7 +305,8 @@ extern "C" int rsp_ln_mlp_residual_bwd(
     return static_cast<int>(cudaErrorNotSupported);
   cudaError_t err;
 
-  ln_stats_kernel<V><<<(T + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, s>>>(
+  using rsp::ROW_WARPS;
+  rsp::ln_stats_kernel<V><<<(T + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, s>>>(
       xb, ga, static_cast<const float*>(beta), z, mu, rstd, T, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
@@ -560,12 +330,13 @@ extern "C" int rsp_ln_mlp_residual_bwd(
       static_cast<bf16*>(dw2), static_cast<bf16*>(dw1), dz, T, C, M);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-  ln_bwd_rows_kernel<V><<<p2, LNB_WARPS * 32, 0, s>>>(xb, dz, ga, dob, mu, rstd,
-                                                      static_cast<bf16*>(dx), row_part, T);
+  rsp::ln_bwd_rows_kernel<V, true><<<p2, rsp::LNB_WARPS * 32, 0, s>>>(
+      xb, dz, ga, dob, mu, rstd, static_cast<bf16*>(dx), row_part, T);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
 
-  bias_sums_kernel<<<(M + 3 * C + BS_COLS - 1) / BS_COLS, BS_COLS * BS_GROUPS, 0, s>>>(
-      db1_part, p1, M, static_cast<bf16*>(db1), row_part, p2, C,
+  using rsp::BS_COLS;
+  rsp::bias_sums_kernel<<<(M + 3 * C + BS_COLS - 1) / BS_COLS, BS_COLS * rsp::BS_GROUPS, 0, s>>>(
+      db1_part, p1, M, static_cast<bf16*>(db1), row_part, p2, C, 3,
       static_cast<float*>(dgamma), static_cast<float*>(dbeta), static_cast<bf16*>(db2));
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,7 +24,10 @@ row pass ``ln_rows`` (LN, window partition and zero pad into z, counted as
 ``LN_ROWS``) and the wgmma GEMM that K12' is too (counted as
 ``LN_QKV_HEADMAJOR`` when kernel B launches it). Tensor-core bound (29 GFLOP
 per layer). Its backward B' (``csrc/ln_qkv_headmajor_bwd.cu``) replaces
-``_ln_qkv_bwd_kernel`` and ``_strip_qkv_bwd_kernel``.
+``_ln_qkv_bwd_kernel`` and ``_strip_qkv_bwd_kernel``: one entry point,
+counted once per call as ``LN_QKV_HEADMAJOR_BWD``, that makes five device
+launches (a copy of dy to token-major rows, then A''s row kernels around one
+launch of both products on the same mainloop) and takes C a multiple of 256.
 
 Kernel K12', ``qkv_headmajor`` (the same GEMM), replaces
 ``_qkv_pair_kernel`` (``fused_qkv_pair``): flat tokens (N*S, C) -> x.W + b
@@ -84,12 +87,14 @@ QKV_HEADMAJOR = CudaKernel(
     "qkv_headmajor", "ln_qkv_headmajor.cu", "rsp_qkv_headmajor",
     [_P] * 4 + [_I] * 4 + [_P],
 )
+# B': one count per call (five device launches inside, three without LN)
 LN_QKV_HEADMAJOR_BWD = CudaKernel(
     "ln_qkv_headmajor_bwd", "ln_qkv_headmajor_bwd.cu", "rsp_ln_qkv_headmajor_bwd",
-    [_P] * 14 + [_I] * 6 + [_F, _P],
+    [_P] * 15 + [_I] * 6 + [_F, _P],
 )
 _NULL = ctypes.c_void_p(None)
-_COLSUM_ROWS = 64  # rows per partial of the kernels' column sums
+_DY_PART_ROWS = 64  # B''s dy pass: rows per partial column sum of db
+_LN_PART_ROWS = 16  # the LN backward's rows per partial column sum
 
 
 def layer_norm(x: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:
@@ -423,25 +428,27 @@ def ln_qkv_headmajor_bwd(x, ln_w, ln_b, w, b, dy, heads3: int, window: int = 0,
     _check_qkv_args(x, ln_w, ln_b, w, b, heads3)
     bsz, hh, ww, c = x.shape
     n, s = _qkv_rows(x, heads3, window)
+    if c % 256 or c > 1280:  # the row kernels' widths, up to ViT-H
+        raise ValueError(f"ln_qkv_headmajor_bwd: C={c} is not a multiple of 256 up to 1280")
     check_cuda_tensor("dy", dy, torch.bfloat16, (n, heads3, s, 64))
     t, k = bsz * hh * ww, heads3 * 64
-    f32 = torch.float32
-    chunks = -(-(n * s) // _COLSUM_ROWS)  # db sums every output row, pad rows too
-    dx, dg, dbb, dw, db, z, stats, dz, part = _bwd_scratch(
-        x.device, (x.shape, torch.bfloat16), ((c,), f32), ((c,), f32),
-        ((k, c), f32), ((k,), f32), ((t, c), torch.bfloat16), ((2, t), f32),
-        ((t, c), f32), ((chunks, k), f32),
+    f32, bf = torch.float32, torch.bfloat16
+    # db's partials (every output row, pad rows too), then dgamma / dbeta's
+    parts = -(-(n * s) // _DY_PART_ROWS) * k + -(-t // _LN_PART_ROWS) * 2 * c
+    dx, dg, dbb, dw, db, dyt, z, stats, dz, part = _bwd_scratch(
+        x.device, (x.shape, bf), ((c,), f32), ((c,), f32), ((k, c), bf), ((k,), bf),
+        ((t, k), bf), ((t, c), bf), ((2, t), f32), ((t, c), f32), ((parts,), f32),
     )
     with_ln = ln_w is not None
     LN_QKV_HEADMAJOR_BWD.launch(
         ptr(x), ptr(ln_w) if with_ln else _NULL, ptr(ln_b) if with_ln else _NULL,
-        ptr(w), ptr(dy), ptr(dx), ptr(dg), ptr(dbb), ptr(dw), ptr(db), ptr(z),
+        ptr(w), ptr(dy), ptr(dx), ptr(dg), ptr(dbb), ptr(dw), ptr(db), ptr(dyt), ptr(z),
         ptr(stats), ptr(dz), ptr(part), bsz, hh, ww, c, heads3, window,
         eps, variant="window" if window else "global",
     )
     if not with_ln:
         dg = dbb = None
-    return dx, dg, dbb, dw.to(w.dtype), db.to(b.dtype)
+    return dx, dg, dbb, dw, db
 
 
 class _LnQkvHeadmajor(torch.autograd.Function):

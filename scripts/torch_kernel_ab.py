@@ -1,5 +1,5 @@
-"""Time the port's kernel A, kernel B, K12', kernel C and the backwards C'
-and A' from several source trees on one CUDA card, each tree the same way,
+"""Time the port's kernel A, kernel B, K12', kernel C and the backwards C',
+A' and B' from several source trees on one CUDA card, each tree the same way,
 so two designs compare in one run.
 
     python scripts/torch_kernel_ab.py [--generic-copy DST] ROOT [ROOT ...]
@@ -9,8 +9,9 @@ repository's root, or an unpacked ``git archive`` of another commit); each
 is timed in a subprocess of its own, in the order given (parent, change,
 change, parent), its kernels built from its own sources into ``ROOT/build``.
 Inputs are those of ``chip_smoke.py``'s kernel phases (forward kernels at
-ViT-B 1024^2, batch 2; C' and A' at the train step's 512^2, batch 4: global
-qkv (4, 36, 1024, 64), windows (36, 36, 196, 64), A' x and dO (4096, 768);
+ViT-B 1024^2, batch 2; C', A' and B' at the train step's 512^2, batch 4:
+global qkv (4, 36, 1024, 64), windows (36, 36, 196, 64), A' x and dO (4096,
+768), B' x (4, 32, 32, 768) with dy global and windowed;
 bf16, seed 0), and every output is first held against its fp32 plain
 version within 2e-2 of its largest magnitude (the backwards: each output on
 its own). Each kernel gets four readings:
@@ -22,7 +23,7 @@ its own). Each kernel gets four readings:
   device's work unless a call is shorter than it.
 - ``device``: the device's busy time per call in a ``torch.profiler``
   trace of 20 back-to-back calls, host time left out; for a kernel of
-  several launches (A, A'), also each launch's own time per call.
+  several launches (A, A', B'), also each launch's own time per call.
 - ``host``: the host's time per call, 50 calls enqueued without waiting
   for the device. Where it exceeds ``device``, ``b2b`` reads the host.
 
@@ -151,7 +152,7 @@ def worker(root: str) -> dict:
     if not fm.__file__.startswith(root):
         raise RuntimeError(f"imported {fm.__file__}, not the package under {root}")
     _cuda.build([fm.LN_MLP_RESIDUAL, fm.LN_QKV_HEADMAJOR, fa.RELPOS_ATTENTION,
-                 fa.RELPOS_ATTENTION_BWD, fm.LN_MLP_RESIDUAL_BWD])
+                 fa.RELPOS_ATTENTION_BWD, fm.LN_MLP_RESIDUAL_BWD, fm.LN_QKV_HEADMAJOR_BWD])
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
 
@@ -215,6 +216,15 @@ def worker(root: str) -> dict:
         lambda a=a: fm.ln_mlp_residual_bwd(*a),
         lambda a=a: fm.ln_mlp_residual_bwd_plain(
             *[v.float() if torch.is_tensor(v) else v for v in a]))
+    # B' at the same shape, global and window 14 (dy (4, 36, 1024, 64) and
+    # (36, 36, 196, 64))
+    xt = rnd(4, 32, 32, c)
+    for name, window, n_img, s in (("global", 0, 4, 1024), ("window", win, 36, win * win)):
+        a = (xt, ln_w, ln_b, wq, bq, rnd(n_img, 3 * heads, s, 64), 3 * heads, window, 1e-6)
+        cases[f"ln_qkv_headmajor_bwd/{name}"] = (
+            lambda a=a: fm.ln_qkv_headmajor_bwd(*a),
+            lambda a=a: fm.ln_qkv_headmajor_bwd_plain(
+                *[v.float() if torch.is_tensor(v) else v for v in a]))
     out = {}
     for name, (kernel, plain) in cases.items():
         got = kernel()

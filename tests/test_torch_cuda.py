@@ -213,6 +213,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         fm.ln_qkv_headmajor(x, None, None, w, b, 3)
     with pytest.raises(ValueError, match="multiple of 64"):
         fm.qkv_headmajor(x.reshape(16, 96), w, b, 3, 1)
+    x = _rnd(gen, 1, 4, 4, 192)  # B' takes C a multiple of 256
+    w, b = _rnd(gen, 9 * 64, 192), _rnd(gen, 9 * 64)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        fm.ln_qkv_headmajor_bwd(x, None, None, w, b, _rnd(gen, 1, 9, 16, 64), 9)
     hw = (65, 1)  # h > 64
     qkv = _rnd(gen, 1, 3, 65, 64)
     with pytest.raises(ValueError, match="exceeds 64x64"):
@@ -281,20 +285,42 @@ def test_wgmma_gemm_operand_layouts(gen, product, t):
     _close(fm.wgmma_gemm_f32(a, b, a_mn, b_mn, bn), fm.wgmma_gemm_f32_plain(a, b, a_mn, b_mn))
 
 
-@pytest.mark.parametrize("grid,window,ln", [
-    ((10, 9), 0, True), ((10, 9), 4, True), ((32, 32), 14, True), ((10, 9), 4, False),
-])
-def test_ln_qkv_headmajor_bwd_kernel(gen, grid, window, ln):
-    """Window grids that need padding; pad rows carry a non-zero dy."""
-    c, heads = 256, 4
-    x = _rnd(gen, 2, *grid, c)
+def _qkv_bwd_args(gen, bsz, grid, c, heads, window, ln):
+    """B''s inputs; dy is drawn for every output row, window pad rows too."""
+    x = _rnd(gen, bsz, *grid, c)
     lw = 1 + _rnd(gen, c, scale=0.1, dtype=torch.float32) if ln else None
     lb = _rnd(gen, c, scale=0.1, dtype=torch.float32) if ln else None
     w, b = _rnd(gen, 3 * c, c, scale=0.05), _rnd(gen, 3 * c, scale=0.05)
-    dy = torch.randn_like(fm.ln_qkv_headmajor_plain(x, lw, lb, w, b, 3 * heads, window))
-    args = (x, lw, lb, w, b, dy)
-    _close_each(fm.ln_qkv_headmajor_bwd(*args, 3 * heads, window),
-                fm.ln_qkv_headmajor_bwd_plain(*_f32(args), 3 * heads, window))
+    n, s = fm._qkv_rows(x, 3 * heads, window)
+    return (x, lw, lb, w, b, _rnd(gen, n, 3 * heads, s, 64), 3 * heads, window)
+
+
+@pytest.mark.parametrize("bsz,grid,c,heads,window,ln", [
+    (2, (10, 9), 256, 4, 0, True), (2, (10, 9), 256, 4, 4, True),
+    (2, (32, 32), 256, 4, 14, True), (2, (10, 9), 256, 4, 4, False),
+    (4, (32, 32), 768, 12, 0, True), (4, (32, 32), 768, 12, 14, True),
+    (1, (15, 20), 1024, 16, 14, True), (1, (15, 20), 1280, 20, 0, True),
+])
+def test_ln_qkv_headmajor_bwd_kernel(gen, bsz, grid, c, heads, window, ln):
+    """Window grids that need padding, pad rows with a non-zero dy, no LN,
+    the ViT-B train step's shapes (x (4, 32, 32, 768), 12 heads, global and
+    window 14), and ViT-L / ViT-H widths (C = 1024, 1280: the row kernels'
+    other instances)."""
+    args = _qkv_bwd_args(gen, bsz, grid, c, heads, window, ln)
+    _close_each(fm.ln_qkv_headmajor_bwd(*args), fm.ln_qkv_headmajor_bwd_plain(*_f32(args)))
+
+
+@pytest.mark.parametrize("window", [0, 14])
+def test_ln_qkv_headmajor_bwd_is_deterministic(gen, window):
+    """Two launches of B' on the same inputs give the same bits in all five
+    outputs: every sum runs in a fixed order, with no atomics and no split
+    of K."""
+    args = _qkv_bwd_args(gen, 4, (32, 32), 768, 12, window, True)
+    first = fm.ln_qkv_headmajor_bwd(*args)
+    second = fm.ln_qkv_headmajor_bwd(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def _bwd_inputs(gen, n_img, heads, hw):
