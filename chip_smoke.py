@@ -54,7 +54,18 @@ Phases (every failure raises; the script exits non-zero and prints no result):
 8. the SAM checkpoint: a seeded HF-named ViT-B SAM state_dict written to a
    temporary directory, the anchor detector built through ``init_detector``
    with a config whose ``hf_sam_pretrain_ckpt_path`` names it; every SAM
-   tensor on the card must equal the file's after the dtype cast.
+   tensor on the card must equal the file's after the dtype cast;
+9. the evaluation path: ``python -m rsprompter_tpu_torch.tools.test``'s
+   main on ``rsprompter_anchor-nwpu.py`` (ViT-B 1024^2, batch 2, bf16) over
+   a synthetic NWPU-named COCO set (seven PNGs of 700 x 900 to 1000 x 1000
+   written with zlib, polygon, RLE and crowd GT, one image without GT) in a
+   temporary directory, with a seeded reference-named (mmengine) checkpoint
+   of the whole detector; the detector's tensors must equal the file's, each
+   forward must launch A, B and C as phase 3 counts, every metric key of
+   JAX's tool must be finite, the GT fed as detections must read mAP 1.0,
+   and the RLE library must equal its plain versions on the loop's masks;
+   prints the loop's images/s and its split (decode, predict, process,
+   compute).
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -187,6 +198,14 @@ def kernel_phase(dev):
     log("kernel A's launches alone (ms): " + ", ".join(
         f"{k} {cuda_time_ms(f):.4f}" for k, f in parts.items()))
     del z, hid, out
+    ln_wb, ln_bb = ln_w.to(x.dtype), ln_b.to(x.dtype)
+    F = torch.nn.functional
+
+    def library_a():  # composed of bf16 PyTorch calls: LN -> fc1 -> exact GELU -> fc2 + residual
+        z = F.layer_norm(x, (c,), ln_wb, ln_bb, 1e-6)
+        return x + F.linear(F.gelu(F.linear(z, w1, b1), approximate="none"), w2, b2)
+
+    torch.testing.assert_close(library_a().float(), ref, atol=TOL * ref.abs().max().item(), rtol=0)
     rows.append(dict(
         name="ln_mlp_residual", kernel=fm.LN_MLP_RESIDUAL, variant="fc1",
         route="cuda", source="rsprompter_tpu_torch/csrc/ln_mlp_residual.cu",
@@ -195,7 +214,7 @@ def kernel_phase(dev):
         max_abs_err=err,
         ms=cuda_time_ms(lambda: fm.ln_mlp_residual(*args)),
         plain_ms=cuda_time_ms(lambda: fm.ln_mlp_residual_plain(*plain_args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(library_a),
     ))
 
     # --- kernel B: ln_qkv_headmajor (row pass + GEMM), global and window ---
@@ -226,17 +245,25 @@ def kernel_phase(dev):
             plain_ms=cuda_time_ms(lambda window=window: fm.ln_rows_plain(
                 xg, ln_w, ln_b, window, 1e-6)),
             bound_ms=b_ms, bound_by=b_by,
-            # one call computes the global pass (LN alone); the window pass
-            # also partitions and pads
-            library_ms=None if window else cuda_time_ms(
-                lambda: torch.nn.functional.layer_norm(
-                    xg, (c,), ln_w.to(xg.dtype), ln_b.to(xg.dtype), 1e-6)),
+            # global: one call (LN); window: LN, then the partition and pad
+            library_ms=cuda_time_ms(lambda window=window: fm.window_partition(
+                F.layer_norm(xg, (c,), ln_wb, ln_bb, 1e-6), window).contiguous()),
         ))
         a = (xg, ln_w, ln_b, wq, bq, 3 * heads, window, 1e-6)
         got = fm.ln_qkv_headmajor(*a)
         torch.cuda.synchronize()
         ref = fm.ln_qkv_headmajor_plain(*[v.float() if torch.is_tensor(v) else v for v in a])
         err = compare(f"ln_qkv_headmajor/{variant}", got, ref)
+
+        def library_b(window=window, shape=got.shape):
+            # composed of bf16 PyTorch calls: LN -> window partition and zero
+            # pad (window layers) -> qkv -> head-major copy
+            z = fm.window_partition(F.layer_norm(xg, (c,), ln_wb, ln_bb, 1e-6), window)
+            return F.linear(z, wq, bq).reshape(shape[0], shape[2], shape[1], 64).permute(
+                0, 2, 1, 3).contiguous()
+
+        torch.testing.assert_close(library_b().float(), ref, atol=TOL * ref.abs().max().item(),
+                                   rtol=0)
         flops = 2.0 * t * c * 3 * c
         nbytes = t * c * 2 + 3 * c * c * 2 + 3 * c * 2 + 2 * c * 4 + got.numel() * 2
         b_ms, b_by = bound_ms(flops, nbytes)
@@ -249,7 +276,7 @@ def kernel_phase(dev):
             max_abs_err=err,
             ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor(*a)),
             plain_ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor_plain(*a)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(library_b),
         ))
 
     # --- kernel C: relpos_attention, global and window ----------------------
@@ -1265,6 +1292,227 @@ def sam_checkpoint_phase(config: str = CONFIG, device: str = "cuda") -> int:
     return len(names)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the evaluation path, ``rsprompter_tpu_torch.tools.test``
+# ---------------------------------------------------------------------------
+
+EVAL_SIZES = ((700, 900), (820, 960), (1000, 1000), (760, 930), (900, 1000), (980, 910),
+              (850, 980))  # seven images: the last batch of two has a padded slot
+NWPU_CLASSES = ("airplane", "ship", "storage_tank", "baseball_diamond", "tennis_court",
+                "basketball_court", "ground_track_field", "harbor", "bridge", "vehicle")
+# the port's names -> the reference's (mmengine) names of the anchor detector
+TO_REFERENCE = (
+    (r"^backbone\.", "backbone.vision_encoder."),
+    (r"^shared_image_embedding\.", "shared_image_embedding.shared_image_embedding."),
+    (r"^neck_feature_aggregator\.", "neck.feature_aggregator."),
+    (r"^neck_feature_spliter\.", "neck.feature_spliter."),
+    (r"\.mask_decoder\.", ".mask_decoder.mask_decoder."),
+)
+JAX_TOOL_KEYS = tuple(f"coco/{m}_mAP{s}" for m in ("bbox", "segm")
+                      for s in ("", "_50", "_75", "_s", "_m", "_l"))
+
+
+def write_png(path: str, img) -> None:
+    """HWC uint8 BGR -> an 8-bit RGB PNG, rows filtered None, Sub, Up,
+    Average and Paeth in turn, with zlib and struct (the card's machine has
+    no image encoder)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    rows = np.ascontiguousarray(img[:, :, ::-1]).reshape(img.shape[0], -1).astype(np.int16)
+    a, b = np.zeros_like(rows), np.zeros_like(rows)  # left, up
+    a[:, 3:], b[1:] = rows[:, :-3], rows[:-1]
+    c = np.zeros_like(rows)  # up-left
+    c[1:, 3:] = rows[:-1, :-3]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    kind = np.arange(len(rows)) % 5
+    pred = np.stack([np.zeros_like(rows), a, b, (a + b) >> 1, paeth])[kind, np.arange(len(rows))]
+    body = (rows - pred) & 0xFF
+    raw = np.concatenate([kind[:, None], body], 1).astype(np.uint8).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    header = struct.pack(">IIBBBBB", img.shape[1], img.shape[0], 8, 2, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
+                + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def reference_state_dict(model_cfg, seed: int):
+    """A seeded state_dict of the whole detector under the reference's
+    names, as mmengine saves it, and its values under the port's names:
+    ``init_random_weights`` at ``seed``, BN statistics drawn too."""
+    import re
+
+    import torch
+
+    from rsprompter_tpu_torch.apis.build import build_detector, init_random_weights
+
+    model = build_detector(model_cfg)
+    init_random_weights(model, seed)
+    g = torch.Generator().manual_seed(seed)
+    values = {}
+    for name, t in model.state_dict().items():
+        if name.endswith("running_mean"):
+            t = 0.1 * torch.randn(t.shape, generator=g)
+        elif name.endswith("running_var"):
+            t = 0.5 + torch.rand(t.shape, generator=g)
+        elif name.endswith("num_batches_tracked"):
+            t = torch.tensor(12)
+        values[name] = t.detach().clone()
+    ref = {}
+    for name, t in values.items():
+        for pattern, repl in TO_REFERENCE:
+            name = re.sub(pattern, repl, name, count=1)
+        ref[name] = t
+    return values, {"meta": {"epoch": 12, "seed": seed}, "state_dict": ref}
+
+
+def eval_phase(kernels, config: str = CONFIG, device: str = "cuda") -> dict:
+    """The evaluation path at full width: a synthetic NWPU-named COCO set of
+    PNGs in a temporary directory and a reference-named checkpoint of the
+    anchor detector (ViT-B 1024^2), through ``tools.test``'s main at batch
+    2, bf16, on the card. Gates: the detector's tensors equal the file's
+    after the cast; each forward's launches of A, B and C are phase 3's;
+    every metric key of JAX's tool present and finite; the dataset's own GT
+    fed as detections reads mAP 1.0; the RLE library equals its plain
+    versions on the loop's masks. Returns the loop's timing."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rsprompter_tpu_torch.core.config import Config
+    from rsprompter_tpu_torch.data.coco import NWPUInsSegDataset
+    from rsprompter_tpu_torch.data.io import imread
+    from rsprompter_tpu_torch.evaluation import rle
+    from rsprompter_tpu_torch.evaluation.coco_metric import CocoMetric, gt_from_raw_sample
+    from rsprompter_tpu_torch.models.roi_heads.bbox_head import DetResult
+    from rsprompter_tpu_torch.tools import test as tool
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_coco
+
+    t0 = time.time()
+    lib = rle.build_library()  # a build failure fails the run
+    log(f"RLE library {lib.name} ready in {time.time() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic_coco(tmp, NWPU_CLASSES, EVAL_SIZES, write_png, seed=0)
+        values, ckpt = reference_state_dict(Config.fromfile(config)["model"], seed=1)
+        ckpt_path = os.path.join(tmp, "epoch_12.pth")
+        torch.save(ckpt, ckpt_path)
+        out_path = os.path.join(tmp, "results.json")
+        dataset = NWPUInsSegDataset(ann_file="ann.json", data_root=tmp,
+                                    data_prefix=dict(img="imgs"), test_mode=True)
+        first = imread(dataset.data_list[0]["img_path"])
+        log(f"evaluation set: {len(dataset)} PNGs of {EVAL_SIZES[0]}..{EVAL_SIZES[-1]} "
+            f"(first decoded {first.shape}), "
+            f"{sum(len(d['anns']) for d in dataset.data_list)} annotations, written in "
+            f"{time.time() - t0:.2f} s with the checkpoint")
+
+        for k in kernels:
+            k.reset_counts()
+        report = tool.main([
+            config, ckpt_path, "--device", device, "--out", out_path, "--cfg-options",
+            f"test_dataloader.dataset.data_root={tmp}",
+            "test_dataloader.dataset.ann_file=ann.json",
+            "test_dataloader.dataset.data_prefix.img=imgs",
+        ])
+        counts = {k.name: dict(k.variant_launches) for k in kernels}
+        det = report["inferencer"].model
+        timing, metrics = report["timing"], report["metrics"]
+        n_batches = -(-len(dataset) // report["inferencer"].batch_size)
+
+        # the checkpoint on the card
+        own = det.state_dict()
+        wrong = [n for n, v in values.items()
+                 if not torch.equal(own[n].cpu(), v.to(own[n].dtype))]
+        if wrong or own.keys() != values.keys():
+            raise AssertionError(f"reference checkpoint: {len(wrong)} of {len(values)} "
+                                 f"tensors differ from the file (first: {wrong[:3]})")
+        log(f"reference checkpoint: {len(values)} tensors under mmengine names, loaded by "
+            f"tools.test with no missing or unused key; each equals the file's after the "
+            f"cast to {'/'.join(sorted({str(t.dtype) for t in own.values()}))}")
+
+        # launches: each forward of the loop as phase 3 counts one
+        depth = det.backbone.config.num_hidden_layers
+        n_global = len(det.backbone.config.global_attn_indexes)
+        per_kind = {"global": n_global * n_batches, "window": (depth - n_global) * n_batches}
+        expect = {"ln_mlp_residual": mlp_launches(depth * n_batches),
+                  "ln_rows": dict(per_kind, mlp=depth * n_batches),
+                  "ln_qkv_headmajor": per_kind, "relpos_attention": per_kind}
+        for name, want in expect.items():
+            if counts[name] != (want if device == "cuda" else {}):
+                raise AssertionError(f"evaluation: {name} launches {counts[name]}, "
+                                     f"expected {want} over {n_batches} forwards")
+        log(f"evaluation launches over {n_batches} forwards: "
+            f"{ {n: c for n, c in counts.items() if c} }")
+
+        # the metric keys of JAX's tool, present and finite
+        bad = [k for k in JAX_TOOL_KEYS if not np.isfinite(metrics.get(k, float("nan")))]
+        if bad:
+            raise AssertionError(f"evaluation: metric keys missing or not finite: {bad}")
+
+        # the dataset's own GT as detections reads mAP 1.0
+        gt_metric = CocoMetric(num_classes=len(NWPU_CLASSES))
+        for i in range(len(dataset)):
+            raw = dataset.load_raw(i)
+            gt = gt_from_raw_sample(raw)
+            keep = ~gt["iscrowd"]
+            n, (h, w) = int(keep.sum()), raw["ori_shape"]
+            dets = DetResult(boxes=gt["bboxes"][keep][None], scores=np.ones((1, n), np.float32),
+                             labels=gt["labels"][keep][None], valid=np.ones((1, n), bool))
+            meta = dict(img_id=raw["img_id"], ori_shape=(h, w), scale_factor=(1.0, 1.0),
+                        batch_input_shape=(h, w))
+            gt_metric.process([meta], dets, (gt["masks"][keep] * 255)[None], [gt])
+        self_ap = gt_metric.compute()
+        if self_ap["coco/bbox_mAP"] != 1.0 or self_ap["coco/segm_mAP"] != 1.0:
+            raise AssertionError(f"evaluation: the GT as detections reads {self_ap}")
+
+        # the RLE library against its plain versions on the loop's masks
+        t1 = time.time()
+        with open(out_path) as f:
+            dump = json.load(f)
+        n_masks = n_pairs = 0
+        for rec in dump["images"]:
+            dets = [rle.RLE.from_coco(r) for r in rec["det"]["masks"]]
+            gts = [rle.RLE.from_coco(r) for r in rec["gt"]["masks"]]
+            if not dets:
+                continue
+            masks = np.stack([rle.decode_mask(r) for r in dets])
+            for r, m in zip(dets, masks):
+                if not np.array_equal(m, rle.decode_mask_plain(r)):
+                    raise AssertionError("evaluation: decode_mask differs from its plain version")
+            for a, b, c in zip(rle.encode_masks(masks), rle.encode_masks_plain(masks), dets):
+                if not (np.array_equal(a.counts, b.counts) and np.array_equal(a.counts, c.counts)):
+                    raise AssertionError("evaluation: encode_masks differs from its plain version")
+            crowd = np.asarray(rec["gt"]["iscrowd"], bool)
+            if gts and not np.array_equal(rle.iou_matrix(dets, gts, crowd),
+                                          rle.iou_matrix_plain(dets, gts, crowd)):
+                raise AssertionError("evaluation: iou_matrix differs from its plain version")
+            n_masks += len(dets)
+            n_pairs += len(dets) * len(gts)
+    wall = timing["wall_s"]
+    log(f"evaluation: RLE library equals plain on the loop's {n_masks} predicted masks "
+        f"(decode, encode) and {n_pairs} det x GT IoUs, checked in {time.time() - t1:.2f} s; "
+        f"the GT as detections reads bbox / segm mAP {self_ap['coco/bbox_mAP']} / "
+        f"{self_ap['coco/segm_mAP']}")
+    log(f"evaluation loop: RSPrompter-anchor, ViT-B 1024^2, batch 2, bf16, {timing['images']} "
+        f"images in {wall:.3f} s, {timing['images'] / wall:.3f} images/s; decode + GT "
+        f"{timing['load_s']:.3f} s (waiting on the loader, one batch decoded ahead), predict "
+        f"{timing['predict_s']:.3f} s (to the host copy), metric.process "
+        f"{timing['process_s']:.3f} s, compute {timing['compute_s']:.3f} s; device spans of "
+        f"the {n_batches} predicts {timing['device_ms']:.2f} ms, device idle at least "
+        f"{1 - timing['device_ms'] / 1e3 / wall:.4f} of the loop")
+    log("evaluation metrics (random weights): " + json.dumps(metrics))
+    del det, report
+    return timing
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10,
@@ -1304,6 +1552,7 @@ def main() -> int:
     query = query_phase(kernels, args.iters, args.profile_dir)
     paths["query_fused"], paths["query_flash"] = query["fused"], query["flash"]
     sam_checkpoint_phase()
+    eval_phase(kernels)
     out = []
     for r in rows:
         name, variant = r["kernel"].name, r["variant"]

@@ -81,14 +81,18 @@ class DetInferencer:
             set_compute_dtype(self.model, torch.bfloat16)
         self.model.to(self.device).eval()
 
-    def make_batch(self, imgs: Sequence[np.ndarray]):
-        """HWC BGR images -> (batch dict on the device, per-image metas)."""
+    def make_batch(self, imgs: Sequence[np.ndarray], metas: Optional[Sequence[Dict]] = None):
+        """HWC BGR images -> (batch dict on the device, per-slot metas).
+
+        ``metas`` (the loader's, one per slot, padded slots marked
+        ``img_id=-1``) are merged into the geometry metas; a padded slot
+        takes the last image's geometry, as JAX's ``collate_batch`` does."""
         th, tw = self.crop_size
         n = self.batch_size
         images = torch.empty((n, th, tw, 3), dtype=torch.uint8, device=self.device)
         images[...] = torch.tensor(np.round(PAD_VALUE_BGR), dtype=torch.uint8)
         img_shape = torch.zeros((n, 2), dtype=torch.int32)
-        metas = []
+        out = []
         for i, img in enumerate(imgs):
             h, w = img.shape[:2]
             nh, nw = _target_size(h, w, self.crop_size)
@@ -96,22 +100,31 @@ class DetInferencer:
             x = resize_bilinear_cv2(x, (nh, nw))
             images[i, :nh, :nw] = x.round().clamp(0, 255).to(torch.uint8)
             img_shape[i] = torch.tensor([nh, nw])
-            metas.append(dict(ori_shape=(h, w), img_shape=(nh, nw),
-                              scale_factor=(nw / w, nh / h), batch_input_shape=(th, tw)))
-        return dict(images=images, img_shape=img_shape.to(self.device)), metas
+            out.append(dict(ori_shape=(h, w), img_shape=(nh, nw),
+                            scale_factor=(nw / w, nh / h), batch_input_shape=(th, tw)))
+        if metas is not None:
+            out += [dict(out[-1]) for _ in range(len(metas) - len(out))]
+            out = [dict(m, **given) for m, given in zip(out, metas)]
+        return dict(images=images, img_shape=img_shape.to(self.device)), out
+
+    def predict_batch(self, imgs: Sequence[np.ndarray], metas: Optional[Sequence[Dict]] = None):
+        """Up to ``batch_size`` images -> the padded ``(dets, probs_u8,
+        metas)`` on the device: every slot's detections (``dets.valid`` marks
+        the kept ones) and its uint8 mask probabilities at the decoder's
+        resolution, as JAX's ``tools/test.py`` hands them to ``CocoMetric``."""
+        for item in imgs:
+            if not isinstance(item, np.ndarray):
+                raise TypeError("inference_detector takes HWC uint8 BGR numpy arrays")
+        batch, metas = self.make_batch(imgs, metas)
+        dets, probs = self.model.predict(batch)
+        return dets, quantize_probs_u8(probs), metas
 
     def __call__(self, inputs, return_masks: bool = True, score_thr: float = 0.0):
         if isinstance(inputs, np.ndarray) and inputs.ndim == 3:
             inputs = [inputs]
         predictions: List[Dict[str, Any]] = []
         for start in range(0, len(inputs), self.batch_size):
-            chunk = inputs[start : start + self.batch_size]
-            for item in chunk:
-                if not isinstance(item, np.ndarray):
-                    raise TypeError("inference_detector takes HWC uint8 BGR numpy arrays")
-            batch, metas = self.make_batch(chunk)
-            dets, probs = self.model.predict(batch)
-            probs_u8 = quantize_probs_u8(probs)
+            dets, probs_u8, metas = self.predict_batch(inputs[start : start + self.batch_size])
             for i, meta in enumerate(metas):
                 keep = dets.valid[i] & (dets.scores[i] > score_thr)
                 ws, hs = meta["scale_factor"]

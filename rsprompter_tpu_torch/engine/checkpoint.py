@@ -23,13 +23,26 @@ the seeded init and before the bf16 cast: when the config's
 ``hf_sam_pretrain_ckpt_path`` (or ``sam_checkpoint``) names a file that
 exists, its SAM tensors replace the random ones; when it does not, nothing
 changes, as in JAX.
+
+A reference-trained mmengine ``.pth`` (the paper's weights) loads through
+:func:`load_reference_checkpoint`, the counterpart of JAX's
+(``engine/checkpoint.py`` ``REFERENCE_PTH_REVISE_KEYS`` :126,
+``_split_packed_mha`` :147, ``load_reference_checkpoint`` :170): the
+reference wraps its HF modules one level deep and packs mmdet's
+``MultiheadAttention`` qkv as ``attn.in_proj_*``; the port's modules take
+the reference's names otherwise (the query head's mmdet names included), so
+the map is the prefix revisions and the split. JAX's reordering of the
+linears fed by a flattened conv map (``REFERENCE_FLATTEN_LINEARS`` :141,
+NCHW -> NHWC) is the identity here: the port flattens NCHW, as the
+reference does.
 """
 
 from __future__ import annotations
 
 import os
+import re
 import warnings
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping, Tuple
 
 import torch
 import torch.nn as nn
@@ -158,3 +171,65 @@ def load_config_sam(model: nn.Module, model_cfg: Mapping[str, Any]):
     report = load_sam_pretrained(model, load_torch_checkpoint(path), model_cfg["type"])
     print(f"loaded SAM pretrain from {path}: {report}")
     return report
+
+
+# reference-trained mmengine .pth -> the port's names (JAX's revisions but
+# those that turn mmdet's names into flax's: the port keeps mmdet's)
+REFERENCE_PTH_REVISE_KEYS = (
+    (r"^module\.", ""),
+    (r"^backbone\.vision_encoder\.", "backbone."),
+    (r"^shared_image_embedding\.shared_image_embedding\.", "shared_image_embedding."),
+    (r"^neck\.feature_aggregator\.", "neck_feature_aggregator."),
+    (r"^neck\.feature_spliter\.", "neck_feature_spliter."),
+    (r"\.mask_decoder\.mask_decoder\.", ".mask_decoder."),
+)
+
+
+def revise_keys(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    out = {}
+    for k, v in state_dict.items():
+        for pattern, repl in REFERENCE_PTH_REVISE_KEYS:
+            k = re.sub(pattern, repl, k)
+        out[k] = v
+    return out
+
+
+def split_packed_mha(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """torch ``nn.MultiheadAttention``'s packed qkv (``attn.in_proj_*``) ->
+    separate ``q_proj`` / ``k_proj`` / ``v_proj``; ``attn.out_proj`` ->
+    ``out_proj``."""
+    out = {}
+    for k, v in state_dict.items():
+        m = re.match(r"^(.*)\.attn\.in_proj_(weight|bias)$", k)
+        if m:
+            c = v.shape[0] // 3
+            for i, name in enumerate(("q_proj", "k_proj", "v_proj")):
+                out[f"{m.group(1)}.{name}.{m.group(2)}"] = v[i * c:(i + 1) * c]
+        else:
+            out[k.replace(".attn.out_proj.", ".out_proj.")] = v
+    return out
+
+
+def load_reference_checkpoint(model: nn.Module, state_dict: Mapping[str, Any],
+                              strict: bool = True, verbose: bool = True
+                              ) -> Tuple[List[str], List[str]]:
+    """Load a reference-trained mmengine state_dict into ``model`` in place,
+    each tensor cast to its parameter's dtype (and resized where the SAM
+    loader resizes). Returns (missing, unused): the model's names the file
+    does not fill, the file's names the model does not have; with
+    ``strict`` either raises, as ``load_state_dict(strict=True)`` does."""
+    sd = split_packed_mha(revise_keys(state_dict))
+    own = model.state_dict(keep_vars=True)
+    missing = [k for k in own if k not in sd]
+    unused = [k for k in sd if k not in own]
+    if strict and (missing or unused):
+        raise KeyError(f"reference checkpoint: {len(missing)} missing (first: {missing[:5]}), "
+                       f"{len(unused)} unused (first: {unused[:5]})")
+    with torch.no_grad():
+        for name, dst in own.items():
+            if name in sd:
+                dst.copy_(_fit(name, torch.as_tensor(sd[name]), dst.shape).to(dst.dtype))
+    if verbose:
+        print(f"[load_reference_checkpoint] loaded {len(own) - len(missing)} tensors, "
+              f"{len(missing)} missing, {len(unused)} unused")
+    return missing, unused

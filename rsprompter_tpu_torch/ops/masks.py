@@ -38,8 +38,17 @@ def upsample_masks(masks: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return resize(masks, masks.shape[:-2] + tuple(size), "bilinear")
 
 
+# masks per step of _np_bilinear_resize: a few 1024^2 fp32 masks stay in cache
+_RESIZE_CHUNK = 4
+
+
 def _np_bilinear_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """align_corners=False bilinear resize for (N, H, W) numpy stacks."""
+    """align_corners=False bilinear resize for (N, H, W) numpy stacks.
+
+    The JAX package's arithmetic, term by term in the same order and in
+    fp32 (so the same bits), with the gathers done one axis at a time and
+    the stack taken ``_RESIZE_CHUNK`` masks at a time to stay in cache:
+    several times faster at 100 masks of 1024^2."""
     n, h, w = img.shape
     ys = (np.arange(out_h) + 0.5) * h / out_h - 0.5
     xs = (np.arange(out_w) + 0.5) * w / out_w - 0.5
@@ -49,16 +58,21 @@ def _np_bilinear_resize(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     x1 = np.clip(x0 + 1, 0, w - 1)
     wy = np.clip(ys - y0, 0, 1).astype(np.float32)[None, :, None]
     wx = np.clip(xs - x0, 0, 1).astype(np.float32)[None, None, :]
-    p00 = img[:, y0[:, None], x0[None, :]]
-    p01 = img[:, y0[:, None], x1[None, :]]
-    p10 = img[:, y1[:, None], x0[None, :]]
-    p11 = img[:, y1[:, None], x1[None, :]]
-    return (
-        p00 * (1 - wy) * (1 - wx)
-        + p01 * (1 - wy) * wx
-        + p10 * wy * (1 - wx)
-        + p11 * wy * wx
-    )
+    vy, vx = 1 - wy, 1 - wx
+    out = np.empty((n, out_h, out_w), np.result_type(img.dtype, np.float32))
+    for s in range(0, n, _RESIZE_CHUNK):
+        part = img[s:s + _RESIZE_CHUNK]
+        r0, r1 = part.take(y0, axis=1), part.take(y1, axis=1)
+        acc = out[s:s + _RESIZE_CHUNK]
+        # p00 (1-wy)(1-wx) + p01 (1-wy) wx + p10 wy (1-wx) + p11 wy wx
+        np.multiply(r0.take(x0, axis=2), vy, out=acc)
+        acc *= vx
+        for rows, cols, a, b in ((r0, x1, vy, wx), (r1, x0, wy, vx), (r1, x1, wy, wx)):
+            t = rows.take(cols, axis=2)
+            t *= a
+            t *= b
+            acc += t
+    return out
 
 
 def finalize_masks_np(

@@ -1,15 +1,18 @@
-"""Seeded synthetic training batches (numpy), for the train step's checks.
+"""Seeded synthetic data (numpy): training batches and a COCO test set.
 
 The NWPU images and the SAM weights are not in the repository, so the train
 step is driven on images made from a seed: smooth random fields plus noise
 (uint8 BGR, as the data pipeline ships them), a few ground-truth boxes per
 image, each with an elliptical mask inside its box, padded to ``max_gt`` with
-``gt_valid`` false.
+``gt_valid`` false. :func:`synthetic_coco` writes a small COCO set (images
+and annotations) for the evaluation path.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import json
+import os
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 
@@ -45,3 +48,64 @@ def synthetic_batch(batch_size: int, image_size: Tuple[int, int], num_classes: i
         "gt_valid": gt_valid,
         "gt_masks": gt_masks,
     }
+
+
+SIZE_RADII = ((5.0, 14.0), (30.0, 55.0), (70.0, 200.0))  # pixels
+
+
+def synthetic_coco(root: str, classes: Sequence[str], sizes: Sequence[Tuple[int, int]],
+                   write_image: Callable[[str, np.ndarray], object], seed: int = 0) -> str:
+    """Write a seeded COCO instance-segmentation set under ``root``: one
+    uint8 BGR image a size in ``imgs/`` (``write_image(path, img)`` writes
+    it as PNG), and ``ann.json`` with categories 1..C named ``classes``. Each image has
+    two to five objects: star-shaped polygons with sub-pixel vertices, every
+    third one an uncompressed RLE of an ellipse instead; the middle image
+    has none, and the first one also holds a crowd region (RLE). Object
+    radii cycle through ``SIZE_RADII`` (capped at 0.3 of the image's short
+    side), so large images hold GT in all three COCO area ranges. Returns
+    ``root``."""
+    from rsprompter_tpu_torch.evaluation.rle import encode_masks_plain
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "imgs"), exist_ok=True)
+    images, anns = [], []
+    for i, (h, w) in enumerate(sizes):
+        cell = max(min(h, w) // 16, 1)
+        coarse = rng.uniform(0, 255, (h // cell + 1, w // cell + 1, 3))
+        field = np.kron(coarse, np.ones((cell, cell, 1)))[:h, :w]
+        img = np.clip(field + rng.normal(0, 12, field.shape), 0, 255).astype(np.uint8)
+        name = f"{i:03d}.png"
+        write_image(os.path.join(root, "imgs", name), img)
+        images.append(dict(id=i + 1, file_name=name, height=h, width=w))
+        n_obj = 0 if i == len(sizes) // 2 else int(rng.integers(2, 6))
+        for k in range(n_obj + (i == 0)):
+            crowd = i == 0 and k == n_obj
+            # small, medium and large objects in turn (COCO's area ranges)
+            r = min(rng.uniform(*SIZE_RADII[k % 3]), 0.3 * min(h, w))
+            cx, cy = rng.uniform(r, w - r), rng.uniform(r, h - r)
+            ann = dict(id=len(anns) + 1, image_id=i + 1, iscrowd=int(crowd),
+                       category_id=int(rng.integers(len(classes))) + 1)
+            if crowd or k % 3 == 2:
+                yy, xx = np.mgrid[0:h, 0:w]
+                m = ((xx - cx) / r) ** 2 + ((yy - cy) / (0.6 * r)) ** 2 <= 1.0
+                ys, xs = np.nonzero(m)
+                ann.update(segmentation=dict(size=[h, w], counts=encode_masks_plain(
+                    m[None])[0].counts.tolist()), area=float(m.sum()),
+                    bbox=[float(xs.min()), float(ys.min()), float(xs.max() - xs.min() + 1),
+                          float(ys.max() - ys.min() + 1)])
+            else:
+                n = int(rng.integers(5, 9))
+                ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+                rad = r * rng.uniform(0.5, 1.0, n)
+                px = np.clip(cx + rad * np.cos(ang), 0, w - 1)
+                py = np.clip(cy + rad * np.sin(ang), 0, h - 1)
+                area = 0.5 * abs(np.dot(px, np.roll(py, 1)) - np.dot(py, np.roll(px, 1)))
+                ann.update(segmentation=[np.stack([px, py], 1).reshape(-1).round(2).tolist()],
+                           area=float(area), bbox=[float(px.min()), float(py.min()),
+                                                   float(px.max() - px.min()),
+                                                   float(py.max() - py.min())])
+            anns.append(ann)
+    cats = [dict(id=c + 1, name=n) for c, n in enumerate(classes)]
+    with open(os.path.join(root, "ann.json"), "w") as f:
+        json.dump(dict(images=images, annotations=anns, categories=cats), f)
+    return root

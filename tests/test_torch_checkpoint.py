@@ -13,7 +13,15 @@ model) within 1e-6. Both families; the HF tie of
 ``prompt_encoder.shared_embedding``; every SAM parameter filled; the config
 key honoured by ``init_detector`` and ``build_trainer`` on the CPU; an
 absent file leaving the seeded init as it was.
+
+A reference-trained mmengine file (``{"meta", "state_dict"}`` under the
+reference's module names, qkv of mmdet's attentions packed) is made from
+the port's seeded state_dict by an inverse map written here, and loaded by
+both packages' ``load_reference_checkpoint``: equal through
+``utils/convert.py`` exactly, nothing left unfilled in the port.
 """
+
+import re
 
 import jax
 import numpy as np
@@ -221,3 +229,132 @@ def test_absent_file_keeps_the_seeded_init(tmp_path):
     with pytest.warns(UserWarning, match="not found"):
         named = init_detector(cfg, device="cpu", seed=0).model.state_dict()
     assert all(torch.equal(plain[k], named[k]) for k in plain)
+
+
+# --- a reference-trained mmengine checkpoint --------------------------------
+
+# the port's names -> the reference's: HF modules wrapped one level deep
+TO_REFERENCE = (
+    (r"^backbone\.", "backbone.vision_encoder."),
+    (r"^shared_image_embedding\.", "shared_image_embedding.shared_image_embedding."),
+    (r"^neck_feature_aggregator\.", "neck.feature_aggregator."),
+    (r"^neck_feature_spliter\.", "neck.feature_spliter."),
+    (r"\.mask_decoder\.", ".mask_decoder.mask_decoder."),
+)
+# mmdet's MultiheadAttention: the query head's decoder attentions
+MMDET_MHA = re.compile(r"^(panoptic_head\.transformer_decoder\.layers\.\d+\.(?:self|cross)_attn)"
+                       r"\.(q|k|v|out)_proj\.(weight|bias)$")
+# what JAX's loader leaves at its init: the BN statistics (it loads
+# ``params`` only, not ``batch_stats``), and in the query head the pixel
+# decoder's convs (flax names them input_convs_0_conv, which no mmdet name
+# maps to) and level encodings (one level_encoding_i vector a level where
+# mmdet has one nn.Embedding)
+JAX_GAPS = re.compile(r"(\.(running_mean|running_var|num_batches_tracked)$)|"
+                      r"(^panoptic_head\.pixel_decoder\.((input|lateral|output)_convs\.\d+\.conv\."
+                      r"|level_encoding\.))")
+
+
+def _reference_state_dict(port_sd, seed=3):
+    """Seeded values under the port's names, and the same values under the
+    reference's names (qkv of mmdet's attentions packed into
+    ``attn.in_proj_*``), as mmengine saves them."""
+    rng = np.random.default_rng(seed)
+    values = {k: (torch.from_numpy(rng.standard_normal(tuple(v.shape)).astype(np.float32))
+                  if v.is_floating_point() else v.clone()) for k, v in port_sd.items()}
+    ref, packed = {}, {}
+    for name, v in values.items():
+        m = MMDET_MHA.match(name)
+        if m:
+            base, proj, leaf = m.groups()
+            if proj == "out":
+                ref[f"{base}.attn.out_proj.{leaf}"] = v
+            else:
+                packed.setdefault((base, leaf), {})[proj] = v
+            continue
+        for pattern, repl in TO_REFERENCE:
+            name = re.sub(pattern, repl, name, count=1)
+        ref[name] = v
+    for (base, leaf), qkv in packed.items():
+        ref[f"{base}.attn.in_proj_{leaf}"] = torch.cat([qkv["q"], qkv["k"], qkv["v"]])
+    return values, ref
+
+
+def test_reference_checkpoint_matches_jax(family, tmp_path, monkeypatch):
+    """A reference-named mmengine file loads into the port with no missing
+    or unused key; through utils/convert.py the result equals JAX's
+    load_reference_checkpoint exactly, on every tensor JAX fills (the
+    linears fed by a flattened map included: JAX reorders NCHW -> NHWC, the
+    port takes them as they are)."""
+    from rsprompter_tpu.engine import checkpoint as jax_ck
+
+    mtype = family["type"]
+    values, ref_sd = _reference_state_dict(family["port"].state_dict())
+    if mtype == "RSPrompterAnchor":
+        assert any(k.endswith("mask_decoder.mask_decoder.iou_token.weight") for k in ref_sd)
+        assert jax_ck.REFERENCE_FLATTEN_LINEARS["shared_fcs_0"][0] * 49 == \
+            values["roi_head.bbox_head.shared_fcs.0.weight"].shape[1]
+    else:  # JAX's map also names the query head's point_emb_4, which takes no map
+        n_layers = len({k.split(".")[3] for k in values if MMDET_MHA.match(k)})
+        assert sum(".attn.in_proj_weight" in k for k in ref_sd) == 2 * n_layers > 0
+        monkeypatch.setattr(jax_ck, "REFERENCE_FLATTEN_LINEARS", {})
+    path = tmp_path / "epoch_12.pth"
+    torch.save({"meta": {"epoch": 12}, "state_dict": ref_sd}, path)
+
+    params, jax_missing = jax_ck.load_reference_checkpoint(
+        family["variables"]["params"], jax_load_torch_checkpoint(str(path)), verbose=False)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    want = jax_to_state_dict({**family["variables"], "params": params})
+
+    port = build_detector(dict(TINY[mtype]))
+    port.load_state_dict(family["port"].state_dict(), strict=True)
+    missing, unused = ck.load_reference_checkpoint(port, ck.load_torch_checkpoint(str(path)),
+                                                   verbose=False)
+    assert missing == [] and unused == []
+    got = port.state_dict()
+    assert got.keys() == want.keys() == values.keys()
+    before = family["port"].state_dict()
+    gaps = [k for k in got if JAX_GAPS.search(k)]
+    for name, t in got.items():
+        assert torch.equal(t, values[name]), name  # every tensor is the file's
+        if name in gaps:  # JAX left these at their init
+            assert torch.equal(want[name], before[name]), name
+        else:
+            assert torch.equal(t, want[name]), name
+    n_bn = sum(k.endswith("running_mean") for k in got)
+    pixel_gaps = len(gaps) - 3 * n_bn
+    if mtype == "RSPrompterQuery":  # three level_encoding_i in one embedding
+        assert n_bn > 0 and pixel_gaps == 11 and len(jax_missing) == 13
+    else:
+        assert n_bn > 0 and pixel_gaps == 0 and jax_missing == []
+
+
+def test_reference_checkpoint_strict_and_tool_detection(tmp_path):
+    """A key the model lacks or misses raises under strict; the test tool
+    tells the port's own state_dict from a reference file by its keys, and
+    a port file with a key too many or too few fails as a port file."""
+    from rsprompter_tpu_torch.tools.test import load_checkpoint
+
+    mtype = "RSPrompterAnchor"
+    port = build_detector(dict(TINY[mtype]))
+    values, ref_sd = _reference_state_dict(port.state_dict(), seed=4)
+    extra = dict(ref_sd, **{"data_preprocessor.mean": torch.zeros(3)})
+    with pytest.raises(KeyError, match="1 unused"):
+        ck.load_reference_checkpoint(port, extra, verbose=False)
+    short = {k: v for k, v in ref_sd.items() if "fusion_conv" not in k}
+    with pytest.raises(KeyError, match="missing"):
+        ck.load_reference_checkpoint(port, short, verbose=False)
+    assert ck.load_reference_checkpoint(port, extra, strict=False, verbose=False)[1] == [
+        "data_preprocessor.mean"]
+
+    torch.save({"state_dict": ref_sd}, tmp_path / "ref.pth")
+    torch.save(values, tmp_path / "own.pth")
+    for name, kind in (("ref.pth", "reference"), ("own.pth", "port")):
+        model = build_detector(dict(TINY[mtype]))
+        assert load_checkpoint(model, str(tmp_path / name)) == kind
+        assert all(torch.equal(t, values[k]) for k, t in model.state_dict().items())
+    torch.save(dict(values, extra=torch.zeros(1)), tmp_path / "own_extra.pth")
+    torch.save({k: v for k, v in values.items() if "fusion_conv" not in k},
+               tmp_path / "own_short.pth")
+    for name, what in (("own_extra.pth", "Unexpected key"), ("own_short.pth", "Missing key")):
+        with pytest.raises(RuntimeError, match=what):
+            load_checkpoint(build_detector(dict(TINY[mtype])), str(tmp_path / name))
