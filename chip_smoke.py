@@ -65,7 +65,23 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    JAX's tool must be finite, the GT fed as detections must read mAP 1.0,
    and the RLE library must equal its plain versions on the loop's masks;
    prints the loop's images/s and its split (decode, predict, process,
-   compute).
+   compute);
+10. the query train step: ``build_trainer`` on ``rsprompter_query-nwpu.py``
+   (ViT-B 1024^2, batch 2, 70 queries, 12544 points, encoder frozen, bf16
+   compute on fp32 master weights), seeded random weights and a synthetic
+   batch with up to 7 GT an image; one warm-up step and 10 timed steps;
+   all 35 loss terms and the gradient norm finite, every trained parameter
+   the loss reaches has a finite gradient and moves, the encoder is
+   unchanged and gets no gradient, A / B / C launch as the frozen forward
+   counts and no backward kernel launches, each step's matches are
+   one-to-one with -1 exactly at invalid GT; a gradient check on phase 6's
+   rule (kernels, plain, and plain with the encoder in fp32, the matches,
+   selected points and cross-attention masks held to the kernels' run's);
+   prints s/step, images/s,
+   peak memory, the Hungarian call's host time, and from one profiled step
+   the device's busy time and idle share, launches and host syncs, and the
+   ``grid_sample`` backward's device time; with ``--profile-dir`` the
+   profile's table and the stream time by stage.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -771,6 +787,7 @@ FLOOR_FACTOR = 2.0
 # the loss never reaches the IoU head (RSPrompter trains no IoU target); JAX
 # gives it zero gradients, the port none
 UNREACHED = "roi_head.mask_head.mask_decoder.iou_prediction_head."
+UNREACHED_QUERY = "panoptic_head.mask_decoder.iou_prediction_head."
 
 
 def device_busy_ms(prof) -> float:
@@ -915,7 +932,8 @@ def check_grads(what: str, rel, tol: Optional[float]) -> None:
     tables = [v for n, v in rel.items() if n.endswith(("rel_pos_h", "rel_pos_w"))]
     log(f"gradient check, {what}, per parameter tensor: worst {rel[worst]:.4g} at "
         f"{worst} (tol {tol}); median {statistics.median(rel.values()):.4g} over "
-        f"{len(rel)} tensors; rel-pos tables worst {max(tables):.4g}; next worst: "
+        f"{len(rel)} tensors; rel-pos tables worst "
+        f"{f'{max(tables):.4g}' if tables else 'none (frozen)'}; next worst: "
         + ", ".join(f"{n} {rel[n]:.4g}"
                     for n in sorted(rel, key=rel.get, reverse=True)[1:6]))
     if tol is not None and rel[worst] > tol:
@@ -1023,25 +1041,46 @@ QUERY_LOGIT_TOL = 0.15
 
 def stage_ms(stages, run, iters: int = 5):
     """Stream time of each stage in one call of ``run``: CUDA events recorded
-    when each of the stage's modules is entered and left, the intervals
-    summed over the call (a module may run several times); the median over
+    when each of the stage's modules (their forwards) or ``(owner, name)``
+    callables (wrapped for the duration) is entered and left, the intervals
+    summed over the call (one may run several times); the median over
     ``iters`` calls. It counts the stream's gaps inside a stage (host launch
-    time) too, so it is the stage's share of the forward, not its busy time."""
+    time) too, so it is the stage's share of the call, not its busy time."""
     import torch
 
     events = {name: [] for name in stages}
-    hooks = []
-    for name, mods in stages.items():
-        for mod in mods:
-            def pre(_m, _a, name=name):
-                events[name].append([torch.cuda.Event(enable_timing=True)])
-                events[name][-1][0].record()
+    depth = dict.fromkeys(stages, 0)  # a stage's callables may call each other
 
-            def post(_m, _a, _o, name=name):
-                events[name][-1].append(torch.cuda.Event(enable_timing=True))
-                events[name][-1][1].record()
+    def enter(name):
+        depth[name] += 1
+        if depth[name] == 1:
+            events[name].append([torch.cuda.Event(enable_timing=True)])
+            events[name][-1][0].record()
 
-            hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    def leave(name):
+        depth[name] -= 1
+        if depth[name] == 0:
+            events[name][-1].append(torch.cuda.Event(enable_timing=True))
+            events[name][-1][1].record()
+
+    hooks, wrapped = [], []
+    for name, targets in stages.items():
+        for t in targets:
+            if isinstance(t, tuple):
+                owner, attr = t
+                fn = getattr(owner, attr)
+
+                def call(*a, _fn=fn, _name=name, **kw):
+                    enter(_name)
+                    out = _fn(*a, **kw)
+                    leave(_name)
+                    return out
+
+                wrapped.append((owner, attr, fn, attr in vars(owner)))
+                setattr(owner, attr, call)
+            else:
+                hooks += [t.register_forward_pre_hook(lambda _m, _a, n=name: enter(n)),
+                          t.register_forward_hook(lambda _m, _a, _o, n=name: leave(n))]
     per_call = {name: [] for name in stages}
     try:
         for _ in range(iters):
@@ -1054,6 +1093,11 @@ def stage_ms(stages, run, iters: int = 5):
     finally:
         for h in hooks:
             h.remove()
+        for owner, attr, fn, own in wrapped:
+            if own:
+                setattr(owner, attr, fn)
+            else:
+                delattr(owner, attr)
     return {name: statistics.median(v) for name, v in per_call.items()}
 
 
@@ -1513,15 +1557,316 @@ def eval_phase(kernels, config: str = CONFIG, device: str = "cuda") -> dict:
     return timing
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the RSPrompter-query train step
+# ---------------------------------------------------------------------------
+
+QUERY_TRAIN_STEPS_PER_EPOCH = 260  # NWPU's 520 training images at batch 2
+QUERY_LOSS_TERMS = 35  # 5 terms for each of 7 head calls
+
+
+def device_ms(row) -> float:
+    """A profiler row's device time (inclusive), ms, in old and new torch."""
+    t = getattr(row, "device_time_total", None)
+    return (row.cuda_time_total if t is None else t) / 1e3
+
+
+def host_counts(prof) -> dict:
+    """Counts of the host's CUDA API calls (launches, copies, waits) in a profile."""
+    keys = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cudaStreamSynchronize",
+            "cudaDeviceSynchronize", "cudaMemcpyAsync", "cudaEventSynchronize")
+    return {e.key: e.count for e in prof.key_averages() if e.key in keys}
+
+
+def query_train_phase(kernels, iters: int, profile_dir: str = ""):
+    """Phase 10. Returns the kernels' launch counts over the timed steps."""
+    import torch
+
+    from rsprompter_tpu_torch.engine.train_state import build_trainer
+    from rsprompter_tpu_torch.models.dense_heads import mask2former_head as head_mod
+    from rsprompter_tpu_torch.models.task_modules import hungarian
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_batch
+
+    trainer = build_trainer(QUERY_CONFIG, device="cuda", seed=0,
+                            steps_per_epoch=QUERY_TRAIN_STEPS_PER_EPOCH)
+    model, opt, cfg = trainer.model, trainer.optimizer, trainer.cfg
+    head, enc = model.panoptic_head, model.backbone
+    bsz = cfg["train_dataloader"]["batch_size"]
+    size = tuple(cfg["crop_size"])
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in synthetic_batch(
+        bsz, size, cfg["model"]["num_classes"], max_gt=8, seed=0).items()}
+    valid = batch["gt_valid"].cpu()
+    gen = torch.Generator(device="cuda")
+
+    # the matcher, timed on the host: the whole call (the wait for the
+    # forward, the one copy to the host, scipy) and scipy's solve, whose
+    # host output is recorded (no copy back from the card)
+    matched, call_s, solve_s = [], [], []
+    match_fn, lsa_fn = head_mod.hungarian_match_batched, hungarian._lsa_host_batched
+
+    def timed_lsa(*a):
+        t0 = time.perf_counter()
+        out = lsa_fn(*a)
+        solve_s.append(time.perf_counter() - t0)
+        matched.append(torch.from_numpy(out))
+        return out
+
+    def recorded_match(cost, gt_valid):
+        t0 = time.perf_counter()
+        out = match_fn(cost, gt_valid)
+        call_s.append(time.perf_counter() - t0)
+        return out
+
+    def check(metrics, when):
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+        terms = [k for k in metrics if "loss" in k and k != "loss"]
+        if bad or len(terms) != QUERY_LOSS_TERMS:
+            raise AssertionError(f"query train step {when}: non-finite {bad}, "
+                                 f"{len(terms)} loss terms")
+        return {k: float(v) for k, v in metrics.items()}
+
+    head_mod.hungarian_match_batched, hungarian._lsa_host_batched = recorded_match, timed_lsa
+    try:
+        first = check(trainer.step(batch, gen.manual_seed(0)), "warm-up")
+        torch.cuda.synchronize()
+        enc_before = {n: p.detach().clone() for n, p in enc.named_parameters()}
+        before = {n: p.detach().clone() for n, p in opt.trained}
+        reached = set()
+        for k in kernels:
+            k.reset_counts()
+        matched.clear(), call_s.clear(), solve_s.clear()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(iters):
+            t0 = time.perf_counter()
+            metrics = trainer.step(batch, gen.manual_seed(1 + i))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            reached |= {n for n, p in opt.trained} - set(opt.unreached)
+            if not all(n.startswith(UNREACHED_QUERY) for n in opt.unreached):
+                raise AssertionError(f"query train step: no gradient reached {opt.unreached}")
+            last = check(metrics, f"{i + 1}")
+        counts = {k.name: dict(k.variant_launches) for k in kernels}
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        head_mod.hungarian_match_batched, hungarian._lsa_host_batched = match_fn, lsa_fn
+
+    for n, p in enc.named_parameters():
+        if p.grad is not None or not torch.equal(p.detach(), enc_before[n]):
+            raise AssertionError(f"query train step: the frozen encoder's {n} got a "
+                                 "gradient or moved")
+    for n, p in opt.trained:
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"query train step: {n} has no finite gradient")
+        if n in reached and torch.equal(p.detach(), before[n]):
+            raise AssertionError(f"query train step: {n} was not updated")
+    if len(matched) != iters:
+        raise AssertionError(f"query train step: {len(matched)} match solves in {iters} steps")
+    for m in matched:  # (calls x B, G): -1 exactly at invalid GT, one-to-one per image
+        if m.numel() != head.num_head_calls * valid.numel():
+            raise AssertionError(f"query train step: matches of shape {tuple(m.shape)}")
+        m = m.reshape(head.num_head_calls, *valid.shape)
+        if not torch.equal(m == -1, ~valid.expand_as(m)):
+            raise AssertionError(f"query train step: matches {m.tolist()} against valid "
+                                 f"{valid.tolist()}")
+        for row, v in zip(m.reshape(-1, m.shape[-1]), valid.repeat(m.shape[0], 1)):
+            picked = row[v]
+            if len(set(picked.tolist())) != len(picked) or picked.max() >= head.num_queries:
+                raise AssertionError(f"query train step: matches {row.tolist()} not one-to-one")
+
+    depth = enc.config.num_hidden_layers
+    n_global = len(enc.config.global_attn_indexes)
+    per_kind = {"global": n_global * iters, "window": (depth - n_global) * iters}
+    expect = {
+        "ln_mlp_residual": mlp_launches(depth * iters),
+        "ln_rows": dict(per_kind, mlp=depth * iters), "ln_qkv_headmajor": per_kind,
+        "relpos_attention": per_kind, "ln_mlp_residual_bwd": {},
+        "ln_qkv_headmajor_bwd": {}, "relpos_attention_bwd": {}, "qkv_headmajor": {},
+    }
+    for name, want in expect.items():
+        if counts[name] != want:
+            raise AssertionError(f"query train: {name} launches {counts[name]}, expected {want}")
+    med = statistics.median(times)
+    unreached = sorted(n for n, _ in opt.trained if n not in reached)
+    log(f"query train step launches over {iters} steps: "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    log(f"query train step: RSPrompter-query, ViT-B {size[0]}x{size[1]}, batch {bsz}, "
+        f"{head.num_queries} queries, {head.num_points} points, bf16 compute, fp32 master "
+        f"weights, encoder frozen: {med:.4f} s/step median of {iters} (min {min(times):.4f}, "
+        f"max {max(times):.4f}), {bsz / med:.3f} images/s; peak device memory "
+        f"{peak_gb:.2f} GiB; {len(opt.trained)} trained / {len(opt.frozen)} frozen tensors; "
+        f"not reached by the loss: {len(unreached)} ({UNREACHED_QUERY}*); valid GT per image "
+        f"{valid.sum(1).tolist()}")
+    log(f"query train step: Hungarian match, host ms per step (median of {iters}): whole call "
+        f"{statistics.median(call_s) * 1e3:.3f} (waits for the forward, one copy to the "
+        f"host), scipy solve of {head.num_head_calls * bsz} matrices "
+        f"{statistics.median(solve_s) * 1e3:.3f}")
+    log(f"query train step 1 (warm-up): {json.dumps(first)}")
+    log(f"query train step {iters + 1}: {json.dumps(last)}")
+
+    # one profiled step: the device's busy time, launches and host syncs
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.step(batch, gen.manual_seed(99))
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = device_busy_ms(prof)
+    rows = {e.key: e for e in prof.key_averages()}
+    bwd = {what: sum(device_ms(e) for k, e in rows.items() if k.endswith(name))
+           for what, name in (("grid_sample backward (pixel decoder)", "GridSampler2DBackward0"),
+                              ("point sampling backward", "_SampleBf16Backward"))}
+    casts = device_ms(rows["aten::_to_copy"]) if "aten::_to_copy" in rows else 0.0
+    log(f"query train step profile: device busy {busy_ms:.2f} ms (union of kernel "
+        f"intervals); profiled step wall {wall_ms:.2f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.4f}; against the unprofiled median step {med * 1e3:.2f} ms, "
+        f"idle share {1 - busy_ms / (med * 1e3):.4f}; host calls in the step (the "
+        f"script's one closing cudaDeviceSynchronize included): {host_counts(prof)}")
+    log("query train step profile, device ms: "
+        + "; ".join(f"{k} {v:.2f} ({v / busy_ms:.4f} of busy)" for k, v in bwd.items())
+        + f"; dtype casts (aten::_to_copy) {casts:.2f}")
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
+        with open(os.path.join(profile_dir, "query_train_step_profile.txt"), "w") as f:
+            f.write(table)
+        prof.export_chrome_trace(os.path.join(profile_dir, "query_train_step_trace.json"))
+        log(table[:8000])
+        # where the stream's time goes, by stage (forward stages by their
+        # modules and functions; the optimizer's whole update)
+        stages = {
+            "encoder (frozen, kernels)": [enc],
+            "neck": [model.neck_feature_aggregator, model.neck_feature_spliter],
+            "pixel decoder (forward)": [head.pixel_decoder],
+            "Mask2Former decoder layers": list(head.transformer_decoder.layers),
+            "match cost + Hungarian": [(head, "_match_cost"),
+                                       (head_mod, "hungarian_match_batched")],
+            "dense prompts of the matched (SamMaskEmbedding)": [head.sam_mask_embed],
+            "SAM decode of the matched prompts": [head.mask_decoder],
+            "point sampling (forward)": [(head_mod, "uncertain_point_coords"),
+                                         (head_mod, "sample_mask_points_bf16")],
+            "optimizer (clip + AdamW)": [(opt, "step")],
+        }
+        split = stage_ms(stages, lambda: trainer.step(batch, gen.manual_seed(98)), iters=3)
+        log("query train step: stream ms per stage (forward stages; backward in the "
+            "profile rows above): " + "; ".join(f"{k} {v:.2f}" for k, v in split.items()))
+
+    query_gradient_check(model, batch, gen)
+    return counts
+
+
+def query_gradient_check(model, batch, gen):
+    """Phase 10's gradient check: phase 6's rule on the query step
+    (:func:`query_gradient_ratios`), each ratio held to ``FLOOR_FACTOR``."""
+    for what, (got, base) in query_gradient_ratios(model, batch, gen).items():
+        msg = (f"gradient check, query step, {what} tensor: kernels {got:.4g} from the "
+               f"reference, plain bf16 {base:.4g}; ratio {got / base:.4g} "
+               f"(limit {FLOOR_FACTOR})")
+        log(msg)
+        if got > FLOOR_FACTOR * base:
+            raise AssertionError(msg)
+
+
+def query_gradient_ratios(model, batch, gen, hold_masks: bool = True):
+    """The query step's gradients against a reference. One
+    batch with fixed draws through the kernels, through the plain versions,
+    and through the plain versions with the encoder computing in fp32 (the
+    reference; its outputs rounded to bf16 before the neck reads them). The
+    three runs take the kernels' run's discrete choices, as phase 6 takes
+    its proposals: the matches, the selected points and the decoder's
+    cross-attention masks (plus logits thresholded at 0). Random weights'
+    costs, uncertainties and mask logits hold near-ties that bf16 noise
+    reorders or flips; the share of attention-mask entries each run would
+    have flipped is logged. Returns the kernels' and the plain bf16 run's
+    distances from the reference, per head parameter, at the median and at
+    the worst tensor. ``hold_masks=False`` lets each run make its own masks
+    (``scripts/torch_query_grad_check.py`` compares the two)."""
+    import torch
+
+    from rsprompter_tpu_torch.apis.build import set_compute_dtype
+    from rsprompter_tpu_torch.engine.train_state import total_loss
+    from rsprompter_tpu_torch.models.dense_heads import mask2former_head as head_mod
+
+    enc = model.backbone
+    head_cls = head_mod.Mask2FormerHead
+    match_fn, coords_fn = head_mod.hungarian_match_batched, head_mod.uncertain_point_coords
+    mask_fn = head_cls.__dict__["_next_attn_mask"]
+    kept = {"match": None, "coords": [], "call": 0, "masks": [], "mask_call": 0,
+            "flipped": 0, "entries": 0}
+
+    def keep_match(*a):
+        if kept["match"] is None:
+            kept["match"] = match_fn(*a)
+        return kept["match"]
+
+    def keep_coords(*a, **kw):
+        i, kept["call"] = kept["call"], kept["call"] + 1
+        if i == len(kept["coords"]):
+            kept["coords"].append(coords_fn(*a, **kw))
+        return kept["coords"][i]
+
+    def keep_mask(*a):
+        am = mask_fn.__func__(*a)
+        i, kept["mask_call"] = kept["mask_call"], kept["mask_call"] + 1
+        if i == len(kept["masks"]):
+            kept["masks"].append(am)
+        kept["flipped"] += int((am != kept["masks"][i]).sum())
+        kept["entries"] += am.numel()
+        return kept["masks"][i]
+
+    def to_bf16(_mod, _inputs, outputs):
+        return outputs[0].to(torch.bfloat16), tuple(t.to(torch.bfloat16) for t in outputs[1])
+
+    def grads(impl, what):
+        enc.impl = impl
+        model.zero_grad(set_to_none=True)
+        kept.update(call=0, mask_call=0, flipped=0, entries=0)
+        total_loss(model.loss(batch, generator=gen.manual_seed(7))).backward()
+        if what and hold_masks:
+            log(f"query gradient check: the {what} run would have flipped "
+                f"{kept['flipped']} of {kept['entries']} cross-attention mask entries "
+                f"({kept['flipped'] / kept['entries']:.4g}) of the kernels' run")
+        return {n: p.grad.float().clone() for n, p in model.named_parameters()
+                if p.grad is not None}
+
+    head_mod.hungarian_match_batched, head_mod.uncertain_point_coords = keep_match, keep_coords
+    if hold_masks:
+        head_cls._next_attn_mask = staticmethod(keep_mask)
+    hook = enc.register_forward_hook(to_bf16)
+    try:
+        kernel = grads("kernel", "")
+        plain = grads("plain", "plain bf16")
+        set_compute_dtype(enc, torch.float32, cast_params=False)
+        ref = grads("plain", "fp32-encoder reference")
+    finally:
+        hook.remove()
+        head_mod.hungarian_match_batched, head_mod.uncertain_point_coords = match_fn, coords_fn
+        head_cls._next_attn_mask = mask_fn
+        set_compute_dtype(enc, torch.bfloat16, cast_params=False)
+        enc.impl = "kernel"
+        model.zero_grad(set_to_none=True)
+    if any(n.startswith("backbone") for n in kernel):
+        raise AssertionError("query gradient check: a gradient reached the frozen encoder")
+    floor = relative_grad_diffs(plain, ref)
+    kernel_ref = relative_grad_diffs(kernel, ref)
+    check_grads("query step, plain bf16 vs fp32-encoder reference (the floor)", floor, None)
+    check_grads("query step, kernels vs fp32-encoder reference", kernel_ref, None)
+    return {what: (stat(kernel_ref.values()), stat(floor.values()))
+            for what, stat in (("median", statistics.median), ("worst", max))}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10,
                         help="timed forwards of the main path")
     parser.add_argument("--train-steps", type=int, default=10,
-                        help="timed steps of the train step (after one warm-up)")
+                        help="timed steps of each train step (after one warm-up)")
     parser.add_argument("--profile-dir", default="",
                         help="also write torch.profiler tables of one forward, one "
-                             "train step and one query forward per route here")
+                             "train step, one query forward per route and one query "
+                             "train step here")
     args = parser.parse_args()
     t_start = time.time()
 
@@ -1553,6 +1898,7 @@ def main() -> int:
     paths["query_fused"], paths["query_flash"] = query["fused"], query["flash"]
     sam_checkpoint_phase()
     eval_phase(kernels)
+    paths["query_train_step"] = query_train_phase(kernels, args.train_steps, args.profile_dir)
     out = []
     for r in rows:
         name, variant = r["kernel"].name, r["variant"]

@@ -1,8 +1,8 @@
 """Model builder: reference-flavoured config dict -> torch detector.
 
 Counterpart of ``rsprompter_tpu/apis/build.py`` for the families this port
-covers so far: ``type='RSPrompterAnchor'`` (predict and the train step) and
-``type='RSPrompterQuery'`` (predict). Keeps the key vocabulary
+covers so far: ``type='RSPrompterAnchor'`` and ``type='RSPrompterQuery'``
+(predict and the train step each). Keeps the key vocabulary
 (``hf_sam_pretrain_name``, ``prompt_shape``, ``num_classes``, ``train_cfg``,
 ``test_cfg``, ``bf16``, ``attn_impl``, ``train_backbone``,
 ``decoder_freeze``, ``num_samples``, ``pos_fraction``, the tiny-model
@@ -76,7 +76,8 @@ def build_detector(model_cfg: Dict[str, Any]) -> nn.Module:
     if mtype == "RSPrompterQuery":
         if not cfg.get("decoder_plus", True):
             raise NotImplementedError("decoder_plus=False is not ported to torch yet")
-        return RSPrompterQuery(**common)
+        return RSPrompterQuery(**common, freeze_backbone=not cfg.get("train_backbone", False),
+                               train_cfg=cfg.get("train_cfg"))
     if cfg.get("mask_loss_resolution", "full") != "full":
         raise NotImplementedError("mask_loss_resolution='low' is not ported to torch yet")
     for key in ("rpn_strides", "roi_strides"):
@@ -100,7 +101,8 @@ def freeze_paths_for(model_cfg: Dict[str, Any]) -> List[str]:
     freeze: List[str] = []
     if not model_cfg.get("train_backbone", False):
         freeze.append("backbone")
-    if model_cfg["type"] == "RSPrompterAnchor" and model_cfg.get("decoder_freeze", True):
+    if model_cfg["type"] in ("RSPrompterAnchor", "RSPrompterQuery") and model_cfg.get(
+            "decoder_freeze", True):
         freeze += ["shared_image_embedding", "mask_decoder", "no_mask_embed"]
     return freeze
 

@@ -5,12 +5,12 @@ Counterpart of ``rsprompter_tpu/engine/train_state.py`` (``total_loss`` :45,
 functional state; here the step is eager over the module's own parameters
 (updated in place) and BatchNorm statistics (updated by the forward in train
 mode), and the optimizer keeps its moments. ``build_trainer`` is the entry
-point: it builds the detector from a config on the card, unless the caller
-asks for the CPU, with seeded random weights, the SAM subtrees from the
-config's ``hf_sam_pretrain_ckpt_path`` where that file exists
-(``engine/checkpoint.py``; the runner's own checkpoints are not ported yet),
-and fp32 master parameters computing in bf16 where the config says
-``bf16=True``.
+point: it builds the detector (RSPrompter-anchor or -query) from a config
+on the card, unless the caller asks for the CPU, with seeded random
+weights, the SAM subtrees from the config's ``hf_sam_pretrain_ckpt_path``
+where that file exists (``engine/checkpoint.py``; the runner's own
+checkpoints are not ported yet), and fp32 master parameters computing in
+bf16 where the config says ``bf16=True``.
 """
 
 from __future__ import annotations
@@ -34,12 +34,15 @@ from rsprompter_tpu_torch.engine.optim import Optimizer, build_optimizer
 
 
 def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The sum of the terms whose name starts with ``loss``, as JAX's
+    ``total_loss`` (:45): for the query head only the last of its seven
+    calls, its ``d0.`` ... ``d5.`` terms are reported and do not train."""
     return sum(v for k, v in losses.items() if k.startswith("loss"))
 
 
 def make_train_step(model: nn.Module, optimizer: Optimizer) -> Callable:
     """Returns step(batch, generator=None) -> metrics: every loss term,
-    ``acc``, ``loss`` (their sum) and ``grad_norm`` (the global norm of every
+    ``acc``, ``loss`` (:func:`total_loss`) and ``grad_norm`` (the global norm of every
     parameter's gradient before the clip, frozen ones included), as device
     tensors. One optimizer update per call; the samplers draw from
     ``generator``."""
@@ -76,10 +79,9 @@ class Trainer:
             cfg = Config.fromdict(config)
         self.cfg = cfg
         model_cfg = cfg["model"]
-        if model_cfg["type"] != "RSPrompterAnchor":
+        if model_cfg["type"] not in ("RSPrompterAnchor", "RSPrompterQuery"):
             raise NotImplementedError(
-                f"training '{model_cfg['type']}' is not ported to torch yet "
-                "(the query family's losses come with its train step)"
+                f"training '{model_cfg['type']}' is not ported to torch yet"
             )
         self.model = build_detector(model_cfg)
         init_random_weights(self.model, seed)

@@ -1,16 +1,37 @@
 """RSPrompter-query head: Mask2Former decoder that prompts SAM (torch, NHWC).
 
-Counterpart of the prediction half of
-``rsprompter_tpu/models/dense_heads/mask2former_head.py`` (reference
-``RSMask2FormerHead``, ``mmdet/rsprompter/models.py:275-658``) with
+Counterpart of ``rsprompter_tpu/models/dense_heads/mask2former_head.py``
+(reference ``RSMask2FormerHead``, ``mmdet/rsprompter/models.py:275-658``) with
 ``sam_prompting`` and ``decoder_plus``: after each decoder layer every query
 gives class logits, ``per_pointset_point`` sparse SAM prompts (``point_emb``
 MLP with interleaved sin), and a mask-feature product ("plus" mask logits)
 whose ``SamMaskEmbedding`` is its dense SAM prompt; the plus mask, resized to
-the next memory level, is that layer's cross-attention mask. At predict only
-the last layer's prompts go through the SAM mask decoder
-(``decode_last_only``): the attention masks come from the plus stream.
-The losses and Hungarian matching come with the query train step.
+the next memory level, is that layer's cross-attention mask. So the decoder
+chain never reads the SAM stream, and the SAM decode runs after it: at
+predict only for the last layer (``decode_last_only``); in :meth:`loss`
+only for the queries the Hungarian match picks.
+
+:meth:`loss` (JAX ``loss`` :411, ``_match_cost`` :483, ``_loss_single``
+:509) runs in three phases over all 7 head calls (before the first decoder
+layer, then after each), stacked:
+
+1. each call's (B, Q, G) match cost on the plus stream, without gradient
+   (classification, point-sampled BCE and dice on shared random points,
+   weights ``CLS_WEIGHT`` / ``MASK_WEIGHT`` / ``DICE_WEIGHT``), then one
+   host solve of all of them (``hungarian_match_batched``);
+2. the matched queries' sparse and dense prompts (invalid GT clamped to
+   query 0, masked out later), every call's stacked on the point-batch axis
+   of ONE SAM decode. Prompts are per query, so embedding only the matched
+   ones is exact (JAX embeds all and takes the matched);
+3. per call: softmax CE over every query (``BG_CLS_WEIGHT`` on the
+   unmatched), then BCE and dice on importance-sampled points of each
+   matched GT, for the SAM stream and the plus stream. The loss names are
+   JAX's: ``d0.`` ... ``d5.`` for the first six calls, none for the last.
+
+The uniforms of the match points and of each stream's candidate and fill
+points come in ``draws`` (JAX's key streams: per call ``li``, the match
+points from ``split(fold_in(rng, li))[0]``, the candidates and fill points
+from ``[1]``, shared by the two streams).
 
 Norms are flax's (eps 1e-6, fp32 output) and the head's MLPs stay fp32 as
 JAX builds them without ``dtype=``; the attention projections compute in the
@@ -19,7 +40,7 @@ model's dtype.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -36,7 +57,26 @@ from rsprompter_tpu_torch.models.sam.configs import (
 )
 from rsprompter_tpu_torch.models.sam.mask_decoder import SamMaskDecoder
 from rsprompter_tpu_torch.models.sam.prompt_encoder import SamMaskEmbedding
+from rsprompter_tpu_torch.models.task_modules.hungarian import (
+    BIG_COST,
+    bce_cost,
+    classification_cost,
+    dice_cost,
+    hungarian_match_batched,
+)
+from rsprompter_tpu_torch.ops.point_utils import (
+    point_draw_shapes,
+    sample_mask_points_bf16,
+    sample_mask_points_shared,
+    uncertain_point_coords,
+)
 from rsprompter_tpu_torch.ops.resize import resize
+
+# The loss weights of JAX's head (:130-136), which no config sets.
+CLS_WEIGHT = 2.0
+MASK_WEIGHT = 5.0
+DICE_WEIGHT = 5.0
+BG_CLS_WEIGHT = 0.1
 
 
 class MultiheadAttention(nn.Module):
@@ -113,13 +153,19 @@ class Mask2FormerHead(nn.Module):
                  num_queries: int = 100, feat_channels: int = 128, out_channels: int = 256,
                  num_transformer_feat_level: int = 3, num_decoder_layers: int = 6,
                  num_heads: int = 8, feedforward_channels: int = 512,
-                 per_pointset_point: int = 5, with_sincos: bool = True):
+                 per_pointset_point: int = 5, with_sincos: bool = True,
+                 num_points: int = 12544, oversample_ratio: float = 3.0,
+                 importance_sample_ratio: float = 0.75):
         super().__init__()
+        self.num_classes = num_classes
         self.num_queries = num_queries
         self.feat_channels = feat_channels
         self.num_levels = num_transformer_feat_level
         self.per_pointset_point = per_pointset_point
         self.with_sincos = with_sincos
+        self.num_points = num_points
+        self.oversample_ratio = oversample_ratio
+        self.importance_sample_ratio = importance_sample_ratio
         self.pixel_decoder = MSDeformAttnPixelDecoder(
             in_channels=256, feat_channels=feat_channels, out_channels=out_channels,
             num_encoder_levels=num_transformer_feat_level,
@@ -141,29 +187,27 @@ class Mask2FormerHead(nn.Module):
         )
         self.mask_embed = _mlp((feat_channels, feat_channels, feat_channels, out_channels))
 
-    def _forward_head(self, decoder_out, mask_feature, attn_hw, image_embeddings,
-                      image_pe, decode: bool):
-        """-> (class logits (B, Q, C+1), SAM mask logits (B, Q, 4h, 4w) or
-        None when ``decode`` is False, next attention mask)."""
-        b, q, _ = decoder_out.shape
+    @property
+    def num_head_calls(self) -> int:
+        return len(self.transformer_decoder.layers) + 1
+
+    def draw_shapes(self, batch_size: int, max_gt: int) -> Dict[str, Tuple[int, ...]]:
+        """Shapes of :meth:`loss`'s ``draws`` (uniforms in [0, 1))."""
+        k_cand, k_rand = point_draw_shapes(self.num_points, self.oversample_ratio,
+                                           self.importance_sample_ratio)
+        n = self.num_head_calls
+        return {"match": (n, batch_size, self.num_points, 2),
+                "cand": (n, batch_size * max_gt, k_cand, 2),
+                "rand": (n, batch_size * max_gt, k_rand, 2)}
+
+    def _forward_head(self, decoder_out, mask_feature, attn_hw):
+        """-> (class logits (B, Q, C+1), post-normed queries (B, Q, C), plus
+        mask logits (B, Q, H4, W4) fp32, next attention mask)."""
         x = self.transformer_decoder.post_norm(decoder_out)
-        cls_pred = self.cls_embed(x)
         mask_plus = torch.einsum(
             "bqc,bhwc->bqhw", self.mask_embed(x).float(), mask_feature.float()
         )
-        mask_pred = None
-        if decode:
-            pts = self.point_emb(x).reshape(b, q, self.per_pointset_point, -1)
-            if self.with_sincos:
-                pts = torch.sin(pts[..., ::2]) + pts[..., 1::2]
-            h4, w4 = mask_plus.shape[2:]
-            dense = self.sam_mask_embed(mask_plus.reshape(b * q, h4, w4, 1))
-            dense = dense.reshape(b, q, *dense.shape[1:])  # (B, Q, h, w, C)
-            masks, _ = self.mask_decoder(
-                image_embeddings, image_pe.expand(b, *image_pe.shape[1:]), pts, dense
-            )
-            mask_pred = masks[:, :, 0]
-        return cls_pred, mask_pred, self._next_attn_mask(mask_plus, attn_hw)
+        return self.cls_embed(x), x, mask_plus, self._next_attn_mask(mask_plus, attn_hw)
 
     @staticmethod
     def _next_attn_mask(mask_plus: torch.Tensor, attn_hw: Tuple[int, int]) -> torch.Tensor:
@@ -171,15 +215,39 @@ class Mask2FormerHead(nn.Module):
         antialiased bilinear resize of ``jax.image.resize``, then sigmoid < 0.5;
         a query blocked everywhere is unblocked everywhere."""
         b, q = mask_plus.shape[:2]
-        am = resize(mask_plus, (b, q) + tuple(attn_hw), "bilinear")
-        am = (torch.sigmoid(am) < 0.5).reshape(b, 1, q, -1)
-        return am & (~am).any(dim=-1, keepdim=True)
+        with torch.no_grad():
+            am = resize(mask_plus, (b, q) + tuple(attn_hw), "bilinear")
+            am = (torch.sigmoid(am) < 0.5).reshape(b, 1, q, -1)
+            return am & (~am).any(dim=-1, keepdim=True)
 
-    def forward(self, feats: Sequence[torch.Tensor], image_embeddings: torch.Tensor,
-                image_pe: torch.Tensor, decode_last_only: bool = False):
-        """Returns (cls_list, mask_list), one entry per head call (before the
-        first decoder layer, then after each); with ``decode_last_only``
-        every mask_list entry but the last is None."""
+    def _sparse_prompts(self, x: torch.Tensor) -> torch.Tensor:
+        """Post-normed queries (B, N, C) -> sparse prompts (B, N, K, C_sam)."""
+        b, n = x.shape[:2]
+        pts = self.point_emb(x).reshape(b, n, self.per_pointset_point, -1)
+        if self.with_sincos:
+            pts = torch.sin(pts[..., ::2]) + pts[..., 1::2]
+        return pts
+
+    def _dense_prompts(self, mask_plus: torch.Tensor) -> torch.Tensor:
+        """Plus masks (B, N, H4, W4) -> dense prompts (B, N, h, w, C_sam); no
+        gradient reaches the masks (JAX's stop_gradient, :248)."""
+        b, n, h4, w4 = mask_plus.shape
+        dense = self.sam_mask_embed(mask_plus.detach().reshape(b * n, h4, w4, 1))
+        return dense.reshape(b, n, *dense.shape[1:])
+
+    def _decode(self, sparse, dense, image_embeddings, image_pe) -> torch.Tensor:
+        """(B, N, K, C) sparse + (B, N, h, w, C) dense prompts -> SAM mask
+        logits (B, N, 4h, 4w)."""
+        b = sparse.shape[0]
+        masks, _ = self.mask_decoder(
+            image_embeddings, image_pe.expand(b, *image_pe.shape[1:]), sparse, dense
+        )
+        return masks[:, :, 0]
+
+    def run_decoder(self, feats: Sequence[torch.Tensor]):
+        """The pixel decoder, then the query decoder chain. Returns, one
+        entry per head call, class logits, post-normed queries and plus
+        masks."""
         b = feats[0].shape[0]
         mask_feature, memorys = self.pixel_decoder(feats)  # memorys low -> high res
         dev = mask_feature.device
@@ -194,26 +262,135 @@ class Mask2FormerHead(nn.Module):
         query_feat = self.query_feat.weight[None].expand(b, -1, -1)
         query_pos = self.query_embed.weight[None].expand(b, -1, -1)
 
-        cls_list, mask_list = [], []
+        cls_list, x_list, plus_list = [], [], []
 
-        def head(qf, hw_idx, decode):
-            cls_pred, mask_pred, am = self._forward_head(
-                qf, mask_feature, mem_hw[hw_idx], image_embeddings, image_pe, decode
-            )
+        def head(qf, hw_idx):
+            cls_pred, x, mask_plus, am = self._forward_head(qf, mask_feature, mem_hw[hw_idx])
             cls_list.append(cls_pred)
-            mask_list.append(mask_pred)
+            x_list.append(x)
+            plus_list.append(mask_plus)
             return am
 
-        layers = self.transformer_decoder.layers
-        attn_mask = head(query_feat, 0, not decode_last_only)
-        for i, layer in enumerate(layers):
+        attn_mask = head(query_feat, 0)
+        for i, layer in enumerate(self.transformer_decoder.layers):
             lvl = i % self.num_levels
             query_feat = layer(query_feat, query_pos, mem_tokens[lvl], mem_pos[lvl], attn_mask)
-            attn_mask = head(query_feat, (i + 1) % self.num_levels,
-                             not decode_last_only or i == len(layers) - 1)
+            attn_mask = head(query_feat, (i + 1) % self.num_levels)
+        return cls_list, x_list, plus_list
+
+    def forward(self, feats: Sequence[torch.Tensor], image_embeddings: torch.Tensor,
+                image_pe: torch.Tensor, decode_last_only: bool = False):
+        """Returns (cls_list, mask_list), one entry per head call, each
+        call's SAM decode over all its queries; with ``decode_last_only``
+        every mask_list entry but the last is None."""
+        cls_list, x_list, plus_list = self.run_decoder(feats)
+        mask_list: List[Optional[torch.Tensor]] = [None] * len(cls_list)
+        for i in range(len(cls_list)):
+            if decode_last_only and i < len(cls_list) - 1:
+                continue
+            mask_list[i] = self._decode(self._sparse_prompts(x_list[i]),
+                                        self._dense_prompts(plus_list[i]),
+                                        image_embeddings, image_pe)
         return cls_list, mask_list
 
     def predict(self, feats, image_embeddings, image_pe):
         """(class logits (B, Q, C+1), mask logits (B, Q, 4h, 4w)) of the last layer."""
         cls_list, mask_list = self(feats, image_embeddings, image_pe, decode_last_only=True)
         return cls_list[-1], mask_list[-1]
+
+    # -- loss ----------------------------------------------------------------
+    def loss(self, feats: Sequence[torch.Tensor], gt_labels: torch.Tensor,
+             gt_masks: torch.Tensor, gt_valid: torch.Tensor, image_embeddings: torch.Tensor,
+             image_pe: torch.Tensor, draws: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """gt_labels, gt_valid (B, G); gt_masks (B, G, H, W) at the batch
+        input's resolution (any dtype, 0 / 1); ``draws`` as
+        :meth:`draw_shapes`. Returns the 35 loss terms (module docstring)."""
+        cls_list, x_list, plus_list = self.run_decoder(feats)
+        n_calls = len(cls_list)
+        b, g = gt_labels.shape
+        q = self.num_queries
+        cls_all = torch.stack(cls_list)  # (L, B, Q, C+1)
+        plus_all = torch.stack(plus_list)  # (L, B, Q, H4, W4)
+        matched = hungarian_match_batched(
+            self._match_cost(cls_all, plus_all, gt_labels, gt_masks, gt_valid,
+                             draws["match"]),
+            gt_valid,
+        )  # (L, B, G)
+        safe_q = matched.clamp(0, q - 1)
+        li = torch.arange(n_calls, device=safe_q.device)[:, None, None]
+        bi = torch.arange(b, device=safe_q.device)[None, :, None]
+        # the matched queries' prompts, every call on one decode's point-batch axis
+        x_m = torch.stack(x_list)[li, bi, safe_q]  # (L, B, G, C)
+        plus_m = plus_all[li, bi, safe_q]  # (L, B, G, H4, W4)
+        h4, w4 = plus_m.shape[-2:]
+        sparse = self._sparse_prompts(x_m.transpose(0, 1).reshape(b, n_calls * g, -1))
+        dense = self._dense_prompts(plus_m.transpose(0, 1).reshape(b, n_calls * g, h4, w4))
+        sam = self._decode(sparse, dense, image_embeddings, image_pe)  # (B, L*G, 4h, 4w)
+        sam = sam.reshape(b, n_calls, g, *sam.shape[-2:]).transpose(0, 1)
+
+        per_call = {"loss_cls": self._cls_loss(cls_all, matched, gt_labels, gt_valid)}
+        for suffix, masks in (("", sam), ("_plus", plus_m)):
+            loss_mask, loss_dice = self._mask_losses(masks, matched, gt_masks, gt_valid,
+                                                     draws["cand"], draws["rand"])
+            per_call[f"loss_mask{suffix}"] = loss_mask
+            per_call[f"loss_dice{suffix}"] = loss_dice
+        losses = {}
+        for i in range(n_calls):
+            prefix = "" if i == n_calls - 1 else f"d{i}."
+            for k, v in per_call.items():
+                losses[prefix + k] = v[i]
+        return losses
+
+    @torch.no_grad()
+    def _match_cost(self, cls_all, plus_all, gt_labels, gt_masks, gt_valid, points):
+        """(L, B, Q, G) cost: every prediction and GT of an image sampled at
+        the same points ``points`` (L, B, P, 2); invalid GT cost 1e8."""
+        n_calls = cls_all.shape[0]
+        pred_pts = sample_mask_points_shared(plus_all, points)  # (L, B, Q, P)
+        gt_pts = sample_mask_points_shared(
+            gt_masks[None].expand(n_calls, *gt_masks.shape), points)
+        gt_pts = (gt_pts >= 0.5).float()
+        cost = (CLS_WEIGHT * classification_cost(cls_all, gt_labels)
+                + MASK_WEIGHT * bce_cost(pred_pts, gt_pts)
+                + DICE_WEIGHT * dice_cost(pred_pts, gt_pts))
+        return torch.where(gt_valid[:, None, :], cost, BIG_COST)
+
+    def _cls_loss(self, cls_all, matched, gt_labels, gt_valid) -> torch.Tensor:
+        """(L,) weighted softmax CE over every query: matched queries take
+        their GT's class, the rest the background class at ``BG_CLS_WEIGHT``."""
+        n_calls, b, q = cls_all.shape[:3]
+        assigned = gt_valid & (matched >= 0)
+        scatter_q = torch.where(assigned, matched.clamp(0, q - 1), q)
+        labels = torch.full((n_calls, b, q + 1), self.num_classes, dtype=torch.long,
+                            device=cls_all.device)
+        labels.scatter_(2, scatter_q, gt_labels.long().expand_as(scatter_q))
+        labels = labels[..., :q]
+        logp = torch.log_softmax(cls_all.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+        cw = torch.where(labels == self.num_classes, BG_CLS_WEIGHT, 1.0)
+        return CLS_WEIGHT * (nll * cw).sum((1, 2)) / cw.sum((1, 2)).clamp(min=1.0)
+
+    def _mask_losses(self, masks, matched, gt_masks, gt_valid, cand, rand):
+        """masks (L, B, G, h, w): each GT's matched mask logits, per call.
+        Returns (L,) point-sampled BCE and dice (eps 1), each at its
+        weight, over the GT that are valid and matched."""
+        n_calls, b, g, h, w = masks.shape
+        flat = masks.reshape(n_calls * b * g, h, w)
+        coords = uncertain_point_coords(
+            flat, cand.reshape(n_calls * b * g, *cand.shape[-2:]),
+            rand.reshape(n_calls * b * g, *rand.shape[-2:]), self.num_points,
+            self.importance_sample_ratio,
+        )
+        pred = sample_mask_points_bf16(flat, coords).reshape(n_calls, b * g, -1)
+        gt = gt_masks.reshape(1, b * g, *gt_masks.shape[-2:])
+        tgt = sample_mask_points_bf16(gt.expand(n_calls, *gt.shape[1:]),
+                                      coords.reshape(n_calls, b * g, -1, 2))
+        tgt = (tgt >= 0.5).float()
+        wgt = (gt_valid & (matched >= 0)).reshape(n_calls, b * g).float()
+        num_total = gt_valid.sum().float().clamp(min=1.0)
+        p = torch.sigmoid(pred)
+        dice = 1 - (2 * (p * tgt).sum(-1) + 1.0) / (p.sum(-1) + tgt.sum(-1) + 1.0)
+        loss_dice = DICE_WEIGHT * (dice * wgt).sum(-1) / num_total
+        bce = (pred.clamp(min=0) - pred * tgt + torch.log1p(torch.exp(-pred.abs()))).mean(-1)
+        loss_mask = MASK_WEIGHT * (bce * wgt).sum(-1) / wgt.sum(-1).clamp(min=1.0)
+        return loss_mask, loss_dice

@@ -1,12 +1,17 @@
-"""RSPrompter query-variant detector (torch): predict.
+"""RSPrompter query-variant detector (torch): loss and predict.
 
 Counterpart of ``rsprompter_tpu/models/detectors/rsprompter_query.py``
 (reference ``RSPrompterQuery``, ``mmdet/rsprompter/models.py:174-272``) with
 ``aggregator_type='multi'``: SAM ViT encoder -> RS aggregator + simple FPN
 features, image embeddings and the image-wide Fourier PE -> the Mask2Former
 query head prompting the SAM mask decoder -> the fusion head's top-k
-instances. Attribute names mirror the JAX module's parameter tree. The loss
-comes with the query train step.
+instances. Attribute names mirror the JAX module's parameter tree.
+
+``loss`` (JAX :144) returns the head's 35 loss terms for one batch: with
+``freeze_backbone`` the encoder runs without gradient (JAX's stop-gradient
+on its outputs); the head's point draws come from one generator, or are
+given (``draws``, as the anchor's ``loss`` takes them). The module's train /
+eval mode is the neck's BatchNorms' (batch statistics in ``loss``).
 """
 
 from __future__ import annotations
@@ -40,11 +45,15 @@ class RSPrompterQuery(nn.Module):
         select_layers: Tuple[int, ...] = tuple(range(1, 13, 2)),
         aggregator_hidden: int = 32,
         with_sincos: bool = True,
+        freeze_backbone: bool = True,
+        train_cfg: Any = None,
         test_cfg: Any = None,
         attn_impl: str = "fused",
     ):
         super().__init__()
         self.num_classes = num_classes
+        self.freeze_backbone = freeze_backbone
+        tc = dict(train_cfg or {})
         self.max_per_image = dict(test_cfg or {}).get("max_per_image", 100)
         vcfg = vision_config or sam_config(arch, image_size=image_size).vision_config
         decoder_cfg = sam_config("base").mask_decoder_config
@@ -61,16 +70,35 @@ class RSPrompterQuery(nn.Module):
         self.panoptic_head = Mask2FormerHead(
             decoder_cfg, num_classes=num_classes, num_queries=prompt_shape[0],
             out_channels=vcfg.output_channels, per_pointset_point=prompt_shape[1],
-            with_sincos=with_sincos,
+            with_sincos=with_sincos, num_points=tc.get("num_points", 12544),
+            oversample_ratio=tc.get("oversample_ratio", 3.0),
+            importance_sample_ratio=tc.get("importance_sample_ratio", 0.75),
         )
 
     def extract_feat(self, images: torch.Tensor):
-        image_embeddings, hidden_states = self.backbone(preprocess_images(images))
+        images = preprocess_images(images)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze_backbone):
+            image_embeddings, hidden_states = self.backbone(images)
         image_pe = image_wide_positional_embeddings(
             self.shared_image_embedding, image_embeddings.shape[1]
         )
         feats = self.neck_feature_spliter(self.neck_feature_aggregator(hidden_states))
         return feats, image_embeddings, image_pe
+
+    def loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+             draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """batch: images, gt_labels, gt_valid (B, G) and gt_masks (B, G, H, W)
+        at the batch input's resolution. ``draws`` (the head's
+        ``draw_shapes``) are the point samplers' uniforms; without them they
+        come from ``generator``."""
+        feats, image_embeddings, image_pe = self.extract_feat(batch["images"])
+        head = self.panoptic_head
+        if draws is None:
+            b, g = batch["gt_valid"].shape
+            draws = {k: torch.rand(shape, generator=generator, device=image_pe.device)
+                     for k, shape in head.draw_shapes(b, g).items()}
+        return head.loss(feats, batch["gt_labels"], batch["gt_masks"], batch["gt_valid"],
+                         image_embeddings, image_pe, draws)
 
     @torch.no_grad()
     def predict_logits(self, batch: Dict[str, torch.Tensor]):

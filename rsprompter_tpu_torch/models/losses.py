@@ -6,8 +6,10 @@ elementwise ``weight`` (or ``valid`` mask) and an ``avg_factor`` normaliser --
 the masked static-shape idiom the JAX package uses instead of boolean
 indexing; the port's callers use only that form of JAX's ``_reduce`` (:19). Each
 loss computes in its logits' dtype, as the JAX functions do; the weighted
-reduction promotes to the weight's fp32. Focal and dice losses belong to the
-query family and are not ported yet.
+reduction promotes to the weight's fp32. JAX's ``sigmoid_focal_loss``,
+``dice_loss`` and ``l1_loss`` serve none of its models and are not ported:
+the query head computes its point-sampled BCE and dice itself, as JAX's
+``_loss_single`` does.
 """
 
 from __future__ import annotations
