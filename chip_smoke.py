@@ -81,7 +81,27 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    peak memory, the Hungarian call's host time, and from one profiled step
    the device's busy time and idle share, launches and host syncs, and the
    ``grid_sample`` backward's device time; with ``--profile-dir`` the
-   profile's table and the stream time by stage.
+   profile's table and the stream time by stage;
+11. the training loop: ``python -m rsprompter_tpu_torch.tools.train``'s main
+   on ``rsprompter_anchor-nwpu-scratch-512.py`` (ViT-B 512^2, batch 4, bf16
+   on fp32 master weights, the train pipeline, two loader threads) over a
+   synthetic NWPU-named COCO set in a temporary directory (16 train PNGs of
+   700 x 900 to 1000 x 1000 and 4 val PNGs, polygon and RLE GT): 4 epochs
+   of 4 steps, a checkpoint at steps 12 and 16 and a validation at the end;
+   then a second main with ``--resume`` from the step-12 checkpoint alone,
+   which must start at step 12 and the loader's epoch 3, run the fourth
+   epoch and validate; then ``tools.test`` on its step-16 checkpoint. Gates:
+   every logged loss finite; the restored model tensors and AdamW moments
+   equal to the file's; the resumed run's step-16 parameters within Adam's
+   step bound of the straight run's (2 x the summed learning rate x
+   (|m/sqrt(v)| <= 3.17, plus the decay); the card's scatter-adds are not
+   bitwise repeatable), its BN statistics finite; A, B, C, A', B', C' launched per step as phase 5 counts over
+   one profiled epoch; ``tools.test``'s keys equal to the last validation's
+   (the trainer's fp32 parameters, cast at each use, take the inferencer's
+   bf16 values). Prints the loop's steps/s and images/s, the loader alone in
+   images/s, a pinned and a pageable upload of one batch, the device's busy
+   time and idle share over the profiled epoch, launches and syncs a step,
+   peak memory, and the checkpoint's MB and save ms.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -807,6 +827,24 @@ def device_busy_ms(prof) -> float:
     return busy / 1e3
 
 
+def check_train_launches(what: str, counts, model, steps: int) -> None:
+    """Every encoder layer through A, B, C forward and A', B', C' backward
+    in each of ``steps`` train steps, K12' never."""
+    depth = model.backbone.config.num_hidden_layers
+    n_global = len(model.backbone.config.global_attn_indexes)
+    per_kind = {"global": n_global * steps, "window": (depth - n_global) * steps}
+    expect = {
+        "ln_mlp_residual": mlp_launches(depth * steps),
+        "ln_rows": dict(per_kind, mlp=depth * steps), "ln_qkv_headmajor": per_kind,
+        "relpos_attention": per_kind, "ln_mlp_residual_bwd": {"": depth * steps},
+        "ln_qkv_headmajor_bwd": per_kind, "relpos_attention_bwd": per_kind,
+        "qkv_headmajor": {},
+    }
+    for name, want in expect.items():
+        if counts[name] != want:
+            raise AssertionError(f"{what}: {name} launches {counts[name]}, expected {want}")
+
+
 def train_phase(kernels, iters: int, profile_dir: str = ""):
     import torch
 
@@ -855,19 +893,7 @@ def train_phase(kernels, iters: int, profile_dir: str = ""):
             raise AssertionError(f"train step: {n} was not updated")
     unreached = sorted(n for n, _ in opt.trained if n not in reached)
 
-    depth = model.backbone.config.num_hidden_layers
-    n_global = len(model.backbone.config.global_attn_indexes)
-    per_kind = {"global": n_global * iters, "window": (depth - n_global) * iters}
-    expect = {
-        "ln_mlp_residual": mlp_launches(depth * iters),
-        "ln_rows": dict(per_kind, mlp=depth * iters), "ln_qkv_headmajor": per_kind,
-        "relpos_attention": per_kind, "ln_mlp_residual_bwd": {"": depth * iters},
-        "ln_qkv_headmajor_bwd": per_kind, "relpos_attention_bwd": per_kind,
-        "qkv_headmajor": {},
-    }
-    for name, want in expect.items():
-        if counts[name] != want:
-            raise AssertionError(f"train: {name} launches {counts[name]}, expected {want}")
+    check_train_launches("train", counts, model, iters)
     med = statistics.median(times)
     log(f"train step launches over {iters} steps: {counts}")
     log(f"train step: RSPrompter-anchor, ViT-B {size[0]}x{size[1]}, batch {bsz}, bf16 "
@@ -1857,6 +1883,227 @@ def query_gradient_ratios(model, batch, gen, hold_masks: bool = True):
             for what, stat in (("median", statistics.median), ("worst", max))}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the training loop (tools.train) on the card
+# ---------------------------------------------------------------------------
+
+LOOP_TRAIN_SIZES = tuple((700 + 20 * i, 900 + 6 * i) for i in range(16))  # 16 PNGs
+LOOP_VAL_SIZES = ((720, 930), (860, 1000), (1000, 960), (780, 900))
+LOOP_EPOCHS = 4  # of 4 steps: 16 images at batch 4
+ADAM_STEP_BOUND = 0.1 / (1 - 0.999) ** 0.5  # max |m_hat / sqrt(v_hat)|: (1-b1) / sqrt(1-b2)
+
+
+def _loop_options(train_root: str, val_root: str):
+    opts = [f"max_epochs={LOOP_EPOCHS}", "val_interval=4", "ckpt_interval=3",
+            "log_interval=4", "train_dataloader.num_workers=2"]
+    for split, root in (("train", train_root), ("val", val_root), ("test", val_root)):
+        opts += [f"{split}_dataloader.dataset.data_root={root}",
+                 f"{split}_dataloader.dataset.ann_file=ann.json",
+                 f"{split}_dataloader.dataset.data_prefix.img=imgs"]
+    return opts
+
+
+def _read_records(work_dir: str):
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_loop_phase(kernels, profile_dir: str = "", config: str = TRAIN_CONFIG,
+                     device: str = "cuda") -> dict:
+    """Phase 11. ``tools.train``'s main on the scratch-512 config over a
+    synthetic NWPU-named set: 4 epochs of 4 steps with a validation and
+    checkpoints; a second main resumed from the step-12 checkpoint for the
+    fourth epoch; ``tools.test`` on its last checkpoint. Returns the
+    kernels' launch counts over one profiled epoch of the loop. (``config``
+    and ``device='cpu'`` rehearse it at a small size on the CPU.)"""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rsprompter_tpu_torch.engine.checkpoint import CKPT_FILE, load_train_checkpoint
+    from rsprompter_tpu_torch.engine.checkpoint import restore_checkpoint
+    from rsprompter_tpu_torch.engine.runner import upload
+    from rsprompter_tpu_torch.tools import test as test_tool
+    from rsprompter_tpu_torch.tools import train as train_tool
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_coco
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_root = synthetic_coco(os.path.join(tmp, "train"), NWPU_CLASSES, LOOP_TRAIN_SIZES,
+                                    write_png, seed=2)
+        val_root = synthetic_coco(os.path.join(tmp, "val"), NWPU_CLASSES, LOOP_VAL_SIZES,
+                                  write_png, seed=3)
+        opts = _loop_options(train_root, val_root)
+        on_card = device == "cuda"
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        log(f"train loop set: {len(LOOP_TRAIN_SIZES)} train PNGs of {LOOP_TRAIN_SIZES[0]}.."
+            f"{LOOP_TRAIN_SIZES[-1]}, {len(LOOP_VAL_SIZES)} val PNGs, written in "
+            f"{time.time() - t0:.2f} s")
+
+        # run 1: four epochs straight
+        work1, work2 = os.path.join(tmp, "run1"), os.path.join(tmp, "run2")
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        runner = train_tool.main([config, "--work-dir", work1, "--device", device,
+                                  "--cfg-options", *opts])
+        wall1 = time.perf_counter() - t1
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+        trainer, loader = runner.trainer, runner.train_loader
+        spe, bsz = len(loader), loader.batch_size
+        rec1 = _read_records(work1)
+        train1 = [r for r in rec1 if "loss" in r]
+        bad = [r["iter"] for r in train1 if not all(
+            math.isfinite(v) for v in r.values() if isinstance(v, float))]
+        if bad or [r["iter"] for r in train1] != [4, 8, 12, 16]:
+            raise AssertionError(f"train loop: records {[r['iter'] for r in train1]}, "
+                                 f"non-finite at {bad}")
+        if not [r for r in rec1 if "coco/bbox_mAP" in r]:
+            raise AssertionError("train loop: no validation record")
+        for d in ("ckpts/step_12", "ckpts/step_16", "best_bbox_mAP", "best_segm_mAP"):
+            if not os.path.exists(os.path.join(work1, d)):
+                raise AssertionError(f"train loop: {d} missing")
+        step_rates = [r["it_per_s"] for r in train1[1:]]  # the first holds the warm-up
+        ckpt_file = os.path.join(work1, "ckpts", "step_16", CKPT_FILE)
+        ckpt_mb = os.path.getsize(ckpt_file) / 1e6
+        log(f"train loop run 1: {len(train1) * 4} steps in {spe} steps/epoch x {LOOP_EPOCHS} "
+            f"epochs, batch {bsz}, in {wall1:.2f} s with 1 validation and "
+            f"{len(runner.save_ms)} checkpoint saves; steps/s by logged epoch "
+            f"{[round(r['it_per_s'], 4) for r in train1]}, after the first: median "
+            f"{statistics.median(step_rates):.4f} steps/s, "
+            f"{statistics.median(step_rates) * bsz:.3f} images/s; peak device memory "
+            f"{peak_gb:.2f} GiB; checkpoint {ckpt_mb:.1f} MB, saves "
+            f"{[round(ms, 1) for ms in runner.save_ms]} ms")
+        log(f"train loop run 1 losses: {[round(r['loss'], 5) for r in train1]}")
+
+        # the loader alone (decode, augment, collate; its own thread ahead)
+        t2 = time.perf_counter()
+        n_img = sum(sum(m["img_id"] != -1 for m in metas) for _, metas in loader)
+        loader_ips = n_img / (time.perf_counter() - t2)
+        batch_np, _ = next(iter(loader))
+        up = {}
+        for pin in (True, False, True, False):
+            sync()
+            ta = time.perf_counter()
+            upload(batch_np, trainer.device, pin=pin)
+            sync()
+            up.setdefault(pin, []).append((time.perf_counter() - ta) * 1e3)
+        log(f"train loader alone: {n_img} images in one epoch, {loader_ips:.3f} images/s "
+            f"({loader_ips / bsz:.3f} batches/s against the loop's "
+            f"{statistics.median(step_rates):.4f} steps/s); upload of one batch "
+            f"({sum(v.nbytes for v in batch_np.values()) / 1e6:.1f} MB) pinned "
+            f"{min(up[True]):.2f} ms, pageable {min(up[False]):.2f} ms")
+        del runner, trainer
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # run 2: a fresh main resumed from step 12 for the fourth epoch
+        os.makedirs(os.path.join(work2, "ckpts"))
+        os.rename(os.path.join(work1, "ckpts", "step_12"), os.path.join(work2, "ckpts", "step_12"))
+        shutil.rmtree(os.path.join(work1, "best_bbox_mAP"))
+        shutil.rmtree(os.path.join(work1, "best_segm_mAP"))
+        runner = train_tool.main([config, "--work-dir", work2, "--resume", "--device", device,
+                                  "--cfg-options", *opts])
+        trainer = runner.trainer
+        rec2 = _read_records(work2)
+        train2 = [r for r in rec2 if "loss" in r]
+        val2 = [r for r in rec2 if "coco/bbox_mAP" in r]
+        if ([(r["epoch"], r["iter"]) for r in train2] != [(3, 16)] or len(val2) != 1
+                or trainer.iter != 16 or runner.train_loader.epoch != LOOP_EPOCHS):
+            raise AssertionError(f"resume: records {[(r['epoch'], r['iter']) for r in train2]}, "
+                                 f"step {trainer.iter}, loader epoch {runner.train_loader.epoch}")
+        if not math.isfinite(train2[0]["loss"]):
+            raise AssertionError(f"resume: non-finite loss {train2[0]}")
+        # the continuation against run 1's fourth epoch: the two runs' updates
+        # each stay within Adam's step bound, lr (|m/sqrt(v)| + wd |w|) a step
+        a = load_train_checkpoint(ckpt_file)["model"]
+        b = load_train_checkpoint(os.path.join(work2, "ckpts", "step_16"))["model"]
+        sched, wd = trainer.optimizer.schedule, trainer.cfg.get("weight_decay", 0.05)
+        lr_sum = sum(sched(i) for i in range(12, 16))
+        params = {n for n, _ in trainer.model.named_parameters()}
+        diffs = {n: (a[n].float() - b[n].float()).abs().max().item() for n in params}
+        worst = max(diffs, key=diffs.get)
+        bound = 2 * lr_sum * (ADAM_STEP_BOUND + wd * max(a[n].abs().max().item() for n in diffs))
+        n_exact = sum(v == 0 for v in diffs.values())
+        # BN statistics follow the forward's values: no step bound applies
+        bn = {n: ((a[n].float() - b[n].float()).abs().max() / a[n].float().abs().max()).item()
+              for n in a if n not in params and a[n].is_floating_point()}
+        log(f"resume: run 2 took steps 13-16 from step 12 at loader epoch 3; loss at step 16 "
+            f"{train2[0]['loss']:.6f} (run 1 {train1[-1]['loss']:.6f}); step-16 parameters "
+            f"against run 1's: {n_exact} of {len(diffs)} bitwise equal, median max|diff| "
+            f"{statistics.median(diffs.values()):.3e}, worst {diffs[worst]:.3e} ({worst}), "
+            f"bound {bound:.3e} (Adam's step bound over lr {lr_sum:.3e}); {len(bn)} BN "
+            f"statistics: worst max|diff| / max|value| {max(bn.values()):.3e}")
+        if diffs[worst] > bound or not all(math.isfinite(v) for v in bn.values()):
+            raise AssertionError(f"resume: {worst} differs by {diffs[worst]} > {bound}")
+
+        # the restore itself: every tensor and moment equal to the file's
+        saved = load_train_checkpoint(os.path.join(work2, "ckpts", "step_12"))
+        restore_checkpoint(os.path.join(work2, "ckpts", "step_12"), trainer)
+        own = trainer.model.state_dict()
+        wrong = [n for n, v in saved["model"].items() if not torch.equal(own[n].cpu(), v)]
+        adam_own = trainer.optimizer.adamw.state_dict()["state"]
+        adam_saved = saved["optimizer"]["adamw"]["state"]
+        wrong += [f"adamw {i} {k}" for i, st in adam_saved.items() for k, v in st.items()
+                  if not torch.equal(adam_own[i][k].cpu(), v)]
+        if (wrong or trainer.iter != 12 or trainer.optimizer.count != saved["optimizer"]["count"]
+                or adam_own.keys() != adam_saved.keys()):
+            raise AssertionError(f"restore: {len(wrong)} tensors differ (first: {wrong[:3]})")
+        log(f"restore: {len(saved['model'])} model tensors and {len(adam_saved)} parameters' "
+            f"moments on the card equal to the step-12 file's; step {trainer.iter}, "
+            f"update count {trainer.optimizer.count}")
+
+        # one profiled epoch of the loop (upload, step, a log point)
+        for k in kernels:
+            k.reset_counts()
+        from torch.profiler import ProfilerActivity, profile
+
+        sync()
+        t3 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU]
+                     + ([ProfilerActivity.CUDA] if on_card else [])) as prof:
+            runner.train_epoch(LOOP_EPOCHS)
+            sync()
+        wall_ms = (time.perf_counter() - t3) * 1e3
+        counts = {k.name: dict(k.variant_launches) for k in kernels}
+        if on_card:
+            check_train_launches("train loop", counts, trainer.model, spe)
+        busy_ms = device_busy_ms(prof)
+        host = host_counts(prof)
+        per_step = {k: round(v / spe, 2) for k, v in host.items()}
+        log(f"train loop profile ({spe} steps): device busy {busy_ms:.2f} ms of {wall_ms:.2f} "
+            f"ms wall, idle share {1 - busy_ms / wall_ms:.4f}; a step: {per_step}; kernels "
+            f"per step as phase 5 counts: {counts}")
+        if profile_dir:
+            os.makedirs(profile_dir, exist_ok=True)
+            with open(os.path.join(profile_dir, "train_loop_profile.txt"), "w") as f:
+                f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50))
+
+        # tools.test on run 2's last checkpoint against its last validation
+        report = test_tool.main([config, os.path.join(work2, "ckpts", "step_16"),
+                                 "--device", device, "--cfg-options", *opts])
+        tested = dict(report["metrics"], **report["digest"])
+        last = val2[-1]
+        cmp = {k: (last[k], tested[k]) for k in tested}
+        # equal: the inferencer's bf16 parameters are the values the trainer's
+        # fp32 ones take at each use (rel-pos tables and pos-embed included)
+        differ = [k for k, (v, t) in cmp.items()
+                  if not (v == t or (math.isnan(v) and math.isnan(t)))]
+        if differ or cmp.keys() != set(last) - {"epoch"}:
+            raise AssertionError(f"validation against tools.test: {differ} differ, keys "
+                                 f"{sorted(cmp)} against {sorted(last)}")
+        log("validation (trainer's module, fp32 master weights cast at use) equals tools.test "
+            "on the step-16 checkpoint (bf16 parameters): " + json.dumps(cmp))
+        del runner, trainer, report
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"train loop phase: {time.time() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10,
@@ -1899,6 +2146,7 @@ def main() -> int:
     sam_checkpoint_phase()
     eval_phase(kernels)
     paths["query_train_step"] = query_train_phase(kernels, args.train_steps, args.profile_dir)
+    paths["train_loop"] = train_loop_phase(kernels, args.profile_dir)
     out = []
     for r in rows:
         name, variant = r["kernel"].name, r["variant"]

@@ -81,6 +81,20 @@ class DetInferencer:
             set_compute_dtype(self.model, torch.bfloat16)
         self.model.to(self.device).eval()
 
+    @classmethod
+    def from_module(cls, model: torch.nn.Module, cfg: Config, batch_size: int = 2):
+        """An inferencer over a detector that already exists, on its device
+        and in its dtypes (the train runner's validation: the trainer's
+        fp32 master parameters, cast at each use). The caller sets its
+        train / eval mode."""
+        self = cls.__new__(cls)
+        self.device = next(model.parameters()).device
+        self.cfg = cfg
+        self.crop_size = tuple(cfg.get("crop_size", (1024, 1024)))
+        self.batch_size = batch_size
+        self.model = model
+        return self
+
     def make_batch(self, imgs: Sequence[np.ndarray], metas: Optional[Sequence[Dict]] = None):
         """HWC BGR images -> (batch dict on the device, per-slot metas).
 

@@ -1,12 +1,16 @@
 """COCO-format instance-segmentation datasets (no pycocotools dependency).
 
 The port's copy of ``rsprompter_tpu/data/coco.py`` (``poly_to_mask`` :21,
-``rle_dict_to_mask`` :36, ``CocoDataset`` :44 with ``load_raw`` :112, and the
-three RSPrompter datasets :170-190, registered under the same names), with
+``rle_dict_to_mask`` :36, ``CocoDataset`` :44 with ``load_raw`` :112 and
+``__getitem__`` :159, and the three RSPrompter datasets :170-190, registered
+under the same names), with
 OpenCV replaced: images are read by ``data/io.py`` and polygons rasterised
 by ``data/polygon.py``, each the same bytes and pixels as OpenCV. The image
-stays uint8 BGR (``make_batch`` takes uint8); every GT array is
-the JAX package's.
+stays uint8 BGR (``make_batch`` takes uint8; the train transforms,
+``data/transforms.py``, take it to float where JAX's float32 decode would
+give the same values); every GT array is the JAX package's. Without a
+pipeline (the test side) a sample is ``load_raw``'s: the evaluation path
+resizes on the device.
 
 Behavior parity: reference ``mmdet/datasets/coco.py:14`` (``CocoDataset``) and
 the three RSPrompter dataset classes (``mmdet/rsprompter/datasets.py:5,17,25``)
@@ -55,6 +59,7 @@ class CocoDataset:
         ann_file: str,
         data_root: str = "",
         data_prefix: Optional[Dict[str, str]] = None,
+        pipeline: Sequence = (),
         test_mode: bool = False,
         filter_empty_gt: bool = False,
         indices: Optional[Sequence[int]] = None,
@@ -66,6 +71,7 @@ class CocoDataset:
         self.metainfo = dict(self.METAINFO)
         if metainfo:
             self.metainfo.update(metainfo)
+        self.pipeline = list(pipeline)
 
         ann_path = ann_file
         if data_root and not os.path.isabs(ann_path):
@@ -156,9 +162,13 @@ class CocoDataset:
         )
 
     def __getitem__(self, idx: int) -> Dict[str, Any]:
-        # no transform pipeline: the test side resizes on the device
-        # (apis/inference.py); the train pipeline comes with the train loop
-        return self.load_raw(idx)
+        sample = self.load_raw(idx)
+        for t in self.pipeline:
+            sample = t(sample)
+            if sample is None:
+                # filtered out (train-time): resample another index
+                return self[np.random.randint(len(self))]
+        return sample
 
 
 @DATASETS.register_module()

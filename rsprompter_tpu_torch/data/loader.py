@@ -1,23 +1,67 @@
-"""Test-side data loader: decoded samples in a fixed order, in batches.
+"""Data loaders: the test side (raw samples in order) and the train side
+(shuffled, sharded, collated batches).
 
-Counterpart of the test side of ``rsprompter_tpu/data/loader.py``
-(``DataLoader`` :19 with ``shuffle=False, drop_last=False``; the background
-decode of :56-79) and of ``collate_batch``'s padded slots
-(``data/transforms.py:310-312``). The port resizes and pads on the device
-(``apis/inference.py``), so a batch is the dataset's raw samples (the uint8
-BGR image and its GT at the original size) with one meta per slot: the last
-partial batch's empty slots get a copy of the last meta with ``img_id=-1``,
-which the metric skips. The train side (shuffle, shards, the GT collate)
-comes with the train loop.
+Counterpart of ``rsprompter_tpu/data/loader.py`` (``DataLoader`` :19-97).
+
+- :class:`DataLoader` is the test side (JAX's ``shuffle=False,
+  drop_last=False``) with ``collate_batch``'s padded slots
+  (``data/transforms.py:310-312``): the port resizes and pads on the device
+  (``apis/inference.py``), so a batch is the dataset's raw samples (the
+  uint8 BGR image and its GT at the original size) with one meta per slot;
+  the last partial batch's empty slots get a copy of the last meta with
+  ``img_id=-1``, which the metric skips.
+- :class:`TrainLoader` is JAX's loader as ``tools/train.py`` uses it: the
+  indices shuffled by ``RandomState(seed + epoch)``, ``epoch`` advancing on
+  each iteration, every ``num_shards``-th index from ``shard_id``, batches
+  collated (``max_gt``, ``pad_shape``, bit-packed masks). Where it is given
+  the ``rng`` its dataset's transforms draw from, it re-seeds that rng with
+  ``(seed, epoch)`` before each epoch, so a run resumed at an epoch draws
+  the samples an uninterrupted one would.
+
+Both decode ``prefetch`` batches ahead in a background thread when asked
+(the num_workers analogue of the reference's torch DataLoader); an error in
+the thread is raised in the consumer.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from rsprompter_tpu_torch.data.transforms import collate_batch
 
 META_KEYS = ("img_id", "img_path", "ori_shape")
+
+
+def prefetched(make_iter: Callable[[], Iterator], depth: int) -> Iterator:
+    """Run ``make_iter()`` in a background thread, ``depth`` items ahead;
+    an error in the thread is raised here."""
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = object()
+    failure: List[BaseException] = []
+
+    def worker():
+        try:
+            for item in make_iter():
+                q.put(item)
+        except BaseException as err:  # handed to the consumer below
+            failure.append(err)
+        finally:
+            q.put(stop)
+
+    t = threading.Thread(target=worker, daemon=True)
+    t.start()
+    while True:
+        item = q.get()
+        if item is stop:
+            t.join()
+            if failure:
+                raise failure[0]
+            return
+        yield item
 
 
 class DataLoader:
@@ -31,7 +75,7 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[Tuple[List[Dict], List[Dict]]]:
         if self.prefetch > 0:
-            return self._iter_prefetch()
+            return prefetched(self._iter_sync, self.prefetch)
         return self._iter_sync()
 
     def _iter_sync(self):
@@ -43,30 +87,63 @@ class DataLoader:
                 metas.append(dict(metas[-1], img_id=-1))
             yield samples, metas
 
-    def _iter_prefetch(self):
-        """Decode up to ``prefetch`` batches ahead in a background thread (the
-        num_workers analogue of the reference's torch DataLoader). An error
-        in the thread is raised here."""
-        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
-        stop = object()
-        failure: List[BaseException] = []
 
-        def worker():
-            try:
-                for item in self._iter_sync():
-                    q.put(item)
-            except BaseException as err:  # handed to the consumer below
-                failure.append(err)
-            finally:
-                q.put(stop)
+class TrainLoader:
+    def __init__(
+        self,
+        dataset,
+        batch_size: int = 2,
+        shuffle: bool = True,
+        seed: int = 0,
+        max_gt: int = 100,
+        pad_shape: Optional[Tuple[int, int]] = None,
+        drop_last: bool = True,
+        shard_id: int = 0,
+        num_shards: int = 1,
+        prefetch: int = 0,
+        rng: Optional[np.random.RandomState] = None,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.max_gt = max_gt
+        self.pad_shape = pad_shape
+        self.drop_last = drop_last
+        self.shard_id = shard_id
+        self.num_shards = num_shards
+        self.prefetch = prefetch
+        self.rng = rng
+        self.epoch = 0
 
-        t = threading.Thread(target=worker, daemon=True)
-        t.start()
-        while True:
-            item = q.get()
-            if item is stop:
-                t.join()
-                if failure:
-                    raise failure[0]
+    def __len__(self) -> int:
+        n = len(self.dataset) // self.num_shards
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self) -> Iterator[Tuple[Dict[str, np.ndarray], List[Dict]]]:
+        if self.prefetch > 0:
+            return prefetched(self._iter_sync, self.prefetch)
+        return self._iter_sync()
+
+    def _iter_sync(self):
+        indices = np.arange(len(self.dataset))
+        if self.shuffle:
+            rs = np.random.RandomState(self.seed + self.epoch)
+            rs.shuffle(indices)
+        indices = indices[self.shard_id :: self.num_shards]
+        if self.rng is not None:
+            self.rng.seed([self.seed, self.epoch])
+        self.epoch += 1
+        for start in range(0, len(indices), self.batch_size):
+            chunk = indices[start : start + self.batch_size]
+            if len(chunk) < self.batch_size and self.drop_last:
                 return
-            yield item
+            samples = [self.dataset[int(i)] for i in chunk]
+            yield collate_batch(
+                samples,
+                batch_size=self.batch_size,
+                max_gt=self.max_gt,
+                pad_shape=self.pad_shape,
+            )

@@ -1,4 +1,5 @@
-"""Pretrained SAM weights -> the port's detector.
+"""Pretrained SAM weights -> the port's detector; the runner's train
+checkpoints.
 
 Counterpart of ``rsprompter_tpu/engine/checkpoint.py`` (``SAM_SUBTREE_PREFIXES``
 :83, ``load_sam_pretrained`` :199) and of the load-time helpers of
@@ -35,14 +36,21 @@ the map is the prefix revisions and the split. JAX's reordering of the
 linears fed by a flattened conv map (``REFERENCE_FLATTEN_LINEARS`` :141,
 NCHW -> NHWC) is the identity here: the port flattens NCHW, as the
 reference does.
+
+The runner's checkpoints (``save_checkpoint`` :18, ``latest_checkpoint``
+:29, ``restore_train_params`` :42, ``restore_checkpoint`` :56, ``_prune``
+:67) keep JAX's layout, ``ckpts/step_{n}/`` with the newest ``keep`` kept;
+each holds one ``torch.save`` of the trainer's state. JAX's orbax
+directories are not read.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import shutil
 import warnings
-from typing import Any, Dict, List, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -233,3 +241,63 @@ def load_reference_checkpoint(model: nn.Module, state_dict: Mapping[str, Any],
         print(f"[load_reference_checkpoint] loaded {len(own) - len(missing)} tensors, "
               f"{len(missing)} missing, {len(unused)} unused")
     return missing, unused
+
+
+# ---------------------------------------------------------------------------
+# The runner's train checkpoints (JAX :18-77, orbax there, torch.save here)
+# ---------------------------------------------------------------------------
+
+CKPT_FILE = "state.pt"
+
+
+def _step_dirs(ckpt_dir: str) -> List[Tuple[int, str]]:
+    return sorted(
+        (int(d.split("_")[1]), d)
+        for d in os.listdir(ckpt_dir)
+        if d.startswith("step_") and d.split("_")[1].isdigit()
+    )
+
+
+def save_checkpoint(ckpt_dir: str, trainer, step: int, keep: int = 5) -> str:
+    """Write ``trainer.state_dict()`` (fp32 master parameters, BN buffers,
+    the optimizer's moments and counts, the step) as one ``torch.save`` in
+    ``ckpt_dir/step_{step}/state.pt``, then keep only the newest ``keep``
+    step directories. Returns the directory."""
+    path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step}"))
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, CKPT_FILE + ".tmp")
+    torch.save(trainer.state_dict(), tmp)
+    os.replace(tmp, os.path.join(path, CKPT_FILE))
+    _prune(ckpt_dir, keep)
+    return path
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = _step_dirs(ckpt_dir)
+    return os.path.join(ckpt_dir, steps[-1][1]) if steps else None
+
+
+def load_train_checkpoint(path: str) -> Dict[str, Any]:
+    """A ``step_{n}`` directory or its file -> the saved dict, on the CPU
+    (``torch.load(weights_only=True)``: tensors and plain containers only)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, CKPT_FILE)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore_train_params(path: str) -> Dict[str, torch.Tensor]:
+    """The model's state_dict (parameters and BN buffers) of a train
+    checkpoint, without its optimizer: what evaluation needs."""
+    return load_train_checkpoint(path)["model"]
+
+
+def restore_checkpoint(path: str, trainer) -> None:
+    """Load a train checkpoint into ``trainer`` (model, optimizer, step)."""
+    trainer.load_state_dict(load_train_checkpoint(path))
+
+
+def _prune(ckpt_dir: str, keep: int) -> None:
+    for _, d in _step_dirs(ckpt_dir)[:-keep]:
+        shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)

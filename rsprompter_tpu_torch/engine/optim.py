@@ -15,12 +15,18 @@ bias-corrected moments with eps 1e-8 outside the square root, the decay
 added to the update before the learning rate scales it (``torch.optim.AdamW``
 computes the same update), and the schedule read at the step count before
 the update, as optax reads it.
+
+``accumulate_steps`` k > 1 is ``optax.MultiSteps(tx, every_k_schedule=k)``
+(JAX :119): each micro-step folds its gradients into a running mean
+(Welford's update, as optax's), and only the k-th clips, updates and
+advances the schedule's count; the parameters stay as they are on the
+others.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -52,7 +58,8 @@ class Optimizer:
     """One update per :meth:`step` from the parameters' ``.grad``."""
 
     def __init__(self, model: nn.Module, schedule: Schedule, weight_decay: float,
-                 freeze_paths: Sequence[str] = (), grad_clip: Optional[float] = None):
+                 freeze_paths: Sequence[str] = (), grad_clip: Optional[float] = None,
+                 accumulate_steps: int = 1):
         self.model = model
         self.schedule = schedule
         self.grad_clip = grad_clip
@@ -66,7 +73,10 @@ class Optimizer:
             params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
             weight_decay=weight_decay,
         )
-        self.count = 0
+        self.count = 0  # updates made (the schedule's count)
+        self.accumulate_steps = accumulate_steps
+        self.mini_step = 0  # micro-steps folded into ``acc_grads`` since the last update
+        self.acc_grads: List[torch.Tensor] = []
         self.lr = schedule(0)  # the learning rate of the last update
         self.unreached: List[str] = []  # trained parameters the last loss did not reach
 
@@ -74,9 +84,11 @@ class Optimizer:
         self.model.zero_grad(set_to_none=True)
 
     def step(self) -> torch.Tensor:
-        """Clip, then AdamW. Returns the global norm of every parameter's
-        gradient before the clip, frozen ones included (JAX's ``grad_norm``);
-        the clip uses the norm over the trained ones. A trained parameter the
+        """Clip, then AdamW (on the k-th micro-step only, with the mean of
+        the k gradients, where ``accumulate_steps`` is k). Returns the global
+        norm of every parameter's gradient before the clip, frozen ones
+        included (JAX's ``grad_norm``, of this micro-step's gradients); the
+        clip uses the norm over the trained ones. A trained parameter the
         loss did not reach gets a zero gradient, as in JAX: its moments decay
         and its weight decay still applies."""
         grads = []
@@ -91,6 +103,23 @@ class Optimizer:
         # accumulates long tensors in order and drifts by ~1e-3
         sq = torch.stack(torch._foreach_norm(grads + frozen, 2, dtype=torch.float64)).square()
         trained_sq = sq[: len(grads)].sum()
+        grad_norm = (trained_sq + sq[len(grads):].sum()).sqrt().float()
+        if self.accumulate_steps > 1:
+            if self.mini_step == 0:
+                self.acc_grads = [torch.zeros_like(g) for g in grads]
+            # acc + (g - acc) / (n + 1): optax's running mean
+            diff = torch._foreach_sub(grads, self.acc_grads)
+            torch._foreach_div_(diff, float(self.mini_step + 1))
+            torch._foreach_add_(self.acc_grads, diff)
+            self.mini_step += 1
+            if self.mini_step < self.accumulate_steps:
+                return grad_norm
+            self.mini_step = 0
+            for (_, p), acc in zip(self.trained, self.acc_grads):
+                p.grad = acc
+            grads, self.acc_grads = list(self.acc_grads), []
+            trained_sq = torch.stack(
+                torch._foreach_norm(grads, 2, dtype=torch.float64)).square().sum()
         if self.grad_clip:
             norm = trained_sq.sqrt()
             scale = torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm)
@@ -100,15 +129,30 @@ class Optimizer:
             group["lr"] = self.lr
         self.adamw.step()
         self.count += 1
-        return (trained_sq + sq[len(grads):].sum()).sqrt().float()
+        return grad_norm
+
+    def state_dict(self) -> Dict[str, Any]:
+        """AdamW's moments and step, the update count and the accumulation
+        state: everything :meth:`step` reads besides the parameters."""
+        return {"adamw": self.adamw.state_dict(), "count": self.count,
+                "mini_step": self.mini_step, "acc_grads": list(self.acc_grads)}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        self.acc_grads = [a.to(p.device) for a, (_, p) in zip(state["acc_grads"], self.trained)]
+        self.lr = self.schedule(max(self.count - 1, 0))
 
 
 def build_optimizer(model: nn.Module, base_lr: float = 1e-4, weight_decay: float = 0.05,
                     total_steps: int = 10000, warmup_steps: int = 50,
                     freeze_paths: Sequence[str] = (),
                     grad_clip: Optional[float] = None,
-                    schedule: Optional[Schedule] = None) -> Optimizer:
-    """AdamW + warm-up cosine over the parameters that train (JAX's
-    ``build_optimizer`` :86, without gradient accumulation)."""
+                    schedule: Optional[Schedule] = None,
+                    accumulate_steps: int = 1) -> Optimizer:
+    """AdamW + warm-up cosine over the parameters that train, with gradients
+    averaged over ``accumulate_steps`` micro-steps (JAX's ``build_optimizer``
+    :86)."""
     sched = schedule or warmup_cosine_schedule(base_lr, total_steps, warmup_steps)
-    return Optimizer(model, sched, weight_decay, freeze_paths, grad_clip)
+    return Optimizer(model, sched, weight_decay, freeze_paths, grad_clip, accumulate_steps)

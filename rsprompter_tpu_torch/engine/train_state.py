@@ -8,9 +8,12 @@ mode), and the optimizer keeps its moments. ``build_trainer`` is the entry
 point: it builds the detector (RSPrompter-anchor or -query) from a config
 on the card, unless the caller asks for the CPU, with seeded random
 weights, the SAM subtrees from the config's ``hf_sam_pretrain_ckpt_path``
-where that file exists (``engine/checkpoint.py``; the runner's own
-checkpoints are not ported yet), and fp32 master parameters computing in
-bf16 where the config says ``bf16=True``.
+where that file exists (``engine/checkpoint.py``), and fp32 master
+parameters computing in bf16 where the config says ``bf16=True``.
+:meth:`Trainer.train_step` is the step the runner takes: it seeds the
+samplers' generator from ``(seed, iter)``, as JAX folds ``state.step`` into
+its key (:60), so a resumed run draws what an uninterrupted one would;
+:meth:`Trainer.state_dict` is what a train checkpoint holds.
 """
 
 from __future__ import annotations
@@ -62,10 +65,17 @@ def make_train_step(model: nn.Module, optimizer: Optimizer) -> Callable:
     return step
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The samplers' seed at ``step`` of a run seeded ``seed`` (distinct for
+    every pair below 2^32 steps)."""
+    return (seed << 32) + step
+
+
 class Trainer:
     """A detector, its optimizer and its train step, built from a config;
     the schedule spans ``max_epochs * steps_per_epoch`` steps, as JAX's
-    ``tools/train.py`` sets it."""
+    ``tools/train.py`` sets it (``steps_per_epoch`` is the train loader's
+    length)."""
 
     def __init__(self, config: Union[str, Dict[str, Any], Config],
                  device: Union[str, torch.device] = "cuda", seed: int = 0,
@@ -97,6 +107,30 @@ class Trainer:
             freeze_paths=freeze_paths_for(model_cfg), grad_clip=cfg.get("grad_clip"),
         )
         self.step = make_train_step(self.model, self.optimizer)
+        self.seed = seed
+        self.iter = 0  # steps taken (JAX's ``state.step``)
+        self.generator = torch.Generator(device=self.device)
+
+    def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One step on a batch on the device, the samplers drawing from a
+        generator seeded from ``(seed, iter)``; returns the step's metrics
+        as device tensors."""
+        self.generator.manual_seed(step_seed(self.seed, self.iter))
+        metrics = self.step(batch, self.generator)
+        self.iter += 1
+        return metrics
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The model's state_dict (fp32 master parameters and BN buffers),
+        the optimizer's (AdamW's moments and step, its update count, the
+        accumulation state) and the step."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                "step": self.iter}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.iter = int(state["step"])
 
 
 def build_trainer(config, device: Union[str, torch.device] = "cuda", **kwargs) -> Trainer:

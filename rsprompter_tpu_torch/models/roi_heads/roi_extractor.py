@@ -100,7 +100,14 @@ def extract_roi_feats(
     ygrid = torch.cat([y_lo, y_hi], dim=1).long()  # (R, 2 n_y)
     xgrid = torch.cat([x_lo, x_hi], dim=1).long()
     idx = base[:, None, None] + ygrid[:, :, None] * lvl_w.long()[:, None, None] + xgrid[:, None, :]
-    v = flat.reshape(-1, c)[idx.reshape(-1)].reshape(r, 2 * n_y, 2 * n_x, c)
+    # the gather's backward must sum in a fixed order for a resumed run to
+    # equal an uninterrupted one: on the CPU index_select's (index_add_, in
+    # index order; an indexing gather's index_put_ accumulate adds with
+    # atomics across threads there), on the card the indexing gather's
+    # (a sorted accumulate; index_add_ adds with atomics there)
+    rows, flat_idx = flat.reshape(-1, c), idx.reshape(-1)
+    v = rows[flat_idx] if rows.is_cuda else rows.index_select(0, flat_idx)
+    v = v.reshape(r, 2 * n_y, 2 * n_x, c)
 
     oh_y = torch.as_tensor(
         ((np.arange(n_y) // s)[None, :] == np.arange(out_h)[:, None]).astype(np.float32),

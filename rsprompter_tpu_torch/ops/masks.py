@@ -1,6 +1,8 @@
-"""Mask post-processing: u8 quantise -> resize -> crop -> resize -> threshold.
+"""GT mask unpacking, and mask post-processing: u8 quantise -> resize ->
+crop -> resize -> threshold.
 
-Counterpart of ``rsprompter_tpu/ops/masks.py`` (u8 transfer path only):
+Counterpart of ``rsprompter_tpu/ops/masks.py`` (``unpack_bits`` :22,
+``unpack_batch_masks`` :37, and the u8 transfer path):
 sigmoid 256^2 masks are quantised to uint8 (``quantize_probs_u8``), then
 bilinearly resized to the padded batch input shape, cropped to the region the
 keep-ratio resize filled, resized to the original image shape and
@@ -17,6 +19,27 @@ import torch
 import torch.nn.functional as F
 
 from rsprompter_tpu_torch.ops.resize import resize
+
+
+def unpack_bits(packed: torch.Tensor, width: int) -> torch.Tensor:
+    """The inverse of ``np.packbits(axis=-1)`` (MSB first) on the tensor's
+    device: (..., ceil(W/8)) uint8 -> (..., W) float32 in {0, 1}."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    bits = bits.reshape(*packed.shape[:-1], packed.shape[-1] * 8)
+    return bits[..., :width].float()
+
+
+def unpack_batch_masks(batch: dict) -> dict:
+    """Replace ``gt_masks_packed`` with unpacked ``gt_masks`` (the batch as
+    it is if it already carries raw masks); masks are padded to the image
+    width."""
+    if "gt_masks_packed" not in batch:
+        return batch
+    batch = dict(batch)
+    packed = batch.pop("gt_masks_packed")
+    batch["gt_masks"] = unpack_bits(packed, batch["images"].shape[-2])
+    return batch
 
 
 def quantize_probs_u8(probs: torch.Tensor) -> torch.Tensor:

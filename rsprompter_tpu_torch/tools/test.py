@@ -7,14 +7,17 @@ The port's counterpart of the JAX package's ``tools/test.py`` (``main``
 :84-228), for the detectors the port predicts (``RSPrompterAnchor``,
 ``RSPrompterQuery`` on either ``attn_impl`` route). The model is built by
 ``init_detector`` (seeded init, then the config's SAM file where it exists);
-a ``CHECKPOINT`` is told by its keys: a file whose names the reference map
+a ``CHECKPOINT`` is the port's train checkpoint (``tools.train``'s
+``WORK_DIR/ckpts/step_{n}`` or its ``state.pt``: parameters and BN
+buffers), or a file told by its keys: one whose names the reference map
 renames is a reference-trained mmengine file
 (``engine.checkpoint.load_reference_checkpoint``, strict), any other the
 port's own state_dict (``load_state_dict(strict=True)``).
 The config's ``test_dataloader`` (else ``val_dataloader``) dataset is read
 in order, ``val_dataloader.batch_size`` images a batch, the next batch
-decoded in a background thread; each batch is predicted on the device,
-quantised to uint8 and handed to ``CocoMetric`` with the GT of
+decoded in a background thread; ``evaluation.loop.evaluate`` (the loop the
+train runner's validation runs too) predicts each batch on the device,
+quantises it to uint8 and hands it to ``CocoMetric`` with the GT of
 ``load_raw`` at the original size. Prints the same ``coco/...`` keys as the
 JAX tool, then one line with the loop's throughput and where its time went.
 
@@ -26,8 +29,8 @@ refuses them): ``--tta``, ``--oracle``, ``--show-dir``, ``--corruption`` /
 from __future__ import annotations
 
 import argparse
-import time
-from typing import Any, Dict, List, Optional, Sequence
+import os
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
@@ -37,8 +40,10 @@ from rsprompter_tpu_torch.core.registry import DATASETS
 from rsprompter_tpu_torch.data import coco as _coco  # noqa: F401  (registers the datasets)
 from rsprompter_tpu_torch.data.loader import DataLoader
 from rsprompter_tpu_torch.engine.checkpoint import (
-    load_reference_checkpoint, load_torch_checkpoint, revise_keys, split_packed_mha)
-from rsprompter_tpu_torch.evaluation.coco_metric import CocoMetric, gt_from_raw_sample
+    CKPT_FILE, load_reference_checkpoint, load_torch_checkpoint, restore_train_params, revise_keys,
+    split_packed_mha)
+from rsprompter_tpu_torch.evaluation.coco_metric import CocoMetric
+from rsprompter_tpu_torch.evaluation.loop import _to_host, evaluate  # noqa: F401
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -56,11 +61,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> str:
-    """Load ``path`` into ``model``: 'reference' for a file whose names the
-    reference map renames (the ``backbone.vision_encoder.`` wrapper, packed
-    ``attn.in_proj_*``, a ``module.`` prefix), which no name of the port's
-    has; else 'port', where ``load_state_dict(strict=True)`` names any key
-    the file lacks or has too many."""
+    """Load ``path`` into ``model``: 'train' for the port's own train
+    checkpoint (a ``step_{n}`` directory of ``tools.train``, or its
+    ``state.pt``), whose parameters and BN buffers are restored and whose
+    optimizer state is left, as JAX's ``restore_train_params`` path does;
+    'reference' for a file whose names the reference map renames (the
+    ``backbone.vision_encoder.`` wrapper, packed ``attn.in_proj_*``, a
+    ``module.`` prefix), which no name of the port's has; else 'port', where
+    ``load_state_dict(strict=True)`` names any key the file lacks or has too
+    many."""
+    if os.path.isdir(path) or os.path.basename(path) == CKPT_FILE:
+        model.load_state_dict(restore_train_params(path), strict=True)
+        return "train"
     sd = load_torch_checkpoint(path)
     renamed = split_packed_mha(revise_keys(sd))
     if any(k not in renamed for k in sd):
@@ -70,14 +82,8 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> str:
     return "port"
 
 
-def _to_host(dets):
-    """The padded detections as numpy (floating fields as fp32)."""
-    return type(dets)(*[(t.float() if t.is_floating_point() else t).cpu().numpy()
-                        for t in dets])
-
-
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
-    """Run the evaluation; returns {'metrics', 'timing', 'inferencer'}."""
+    """Run the evaluation; returns {'metrics', 'digest', 'timing', 'inferencer'}."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
@@ -96,45 +102,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         num_classes=cfg["model"].get("num_classes", 1), dump_path=args.out,
         classwise=args.classwise, class_names=(dataset.metainfo or {}).get("classes"),
     )
-
-    timing = dict(load_s=0.0, predict_s=0.0, process_s=0.0, compute_s=0.0, device_ms=0.0)
-    spans: List = []
-    n_images = 0
-    t_start = time.perf_counter()
-    t0 = t_start
-    for samples, metas in loader:
-        gts = [gt_from_raw_sample(s) for s in samples]
-        gts += [None] * (len(metas) - len(samples))
-        t1 = time.perf_counter()
-        if device.type == "cuda":  # the device's span of each predict
-            spans.append((torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True)))
-            spans[-1][0].record()
-        dets, probs_u8, metas = inferencer.predict_batch([s["img"] for s in samples], metas)
-        if device.type == "cuda":
-            spans[-1][1].record()
-        dets_np, probs_np = _to_host(dets), probs_u8.cpu().numpy()
-        t2 = time.perf_counter()
-        metric.process(metas, dets_np, probs_np, gts)
-        t3 = time.perf_counter()
-        timing["load_s"] += t1 - t0
-        timing["predict_s"] += t2 - t1
-        timing["process_s"] += t3 - t2
-        n_images += len(samples)
-        t0 = time.perf_counter()
-    results = metric.compute()
-    t_end = time.perf_counter()
-    timing["compute_s"] = t_end - t0
-    timing["wall_s"] = t_end - t_start
-    timing["images"] = n_images
-    timing["device_ms"] = sum(a.elapsed_time(b) for a, b in spans)
+    report = evaluate(inferencer, loader, metric)
+    results, timing, n_images = report["metrics"], report["timing"], report["timing"]["images"]
     for k, v in results.items():
         print(f"{k}: {v}")
     print(f"{n_images} images in {timing['wall_s']:.3f} s "
           f"({n_images / timing['wall_s']:.3f} images/s) on {device}: decode + GT "
           f"{timing['load_s']:.3f} s (waiting on the loader), predict {timing['predict_s']:.3f} s, "
           f"metric.process {timing['process_s']:.3f} s, compute {timing['compute_s']:.3f} s")
-    return dict(metrics=results, timing=timing, inferencer=inferencer)
+    return dict(report, inferencer=inferencer)
 
 
 if __name__ == "__main__":
