@@ -101,7 +101,30 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    bf16 values). Prints the loop's steps/s and images/s, the loader alone in
    images/s, a pinned and a pageable upload of one batch, the device's busy
    time and idle share over the profiled epoch, launches and syncs a step,
-   peak memory, and the checkpoint's MB and save ms.
+   peak memory, and the checkpoint's MB and save ms;
+12. LoRA and the peft configs: K12' with the adapter folded into its K
+   (``qkv_headmajor_lora``, K = C + 64) at the peft step's shapes (36
+   windows of 196 rows, 4 images of 1024) against
+   ``qkv_headmajor_lora_plain``, beside the other candidate (K12' and the
+   adapter's two torch products added head-major), forward and forward +
+   backward; then ``build_trainer`` on ``rsprompter_anchor-nwpu-peft-512.py``
+   (ViT-B 512^2, LoRA r 16 alpha 32 on qkv, the pseudo aggregator, batch 4,
+   bf16 on fp32 master weights) over a seeded 1024^2 HF-named SAM file
+   written to a temporary directory (loaded through the 512^2 resize; the
+   encoder's tensors equal to the file's, the adapters at their init), every
+   ``qkv_lora_b`` then seeded non-zero; one warm-up step and 10 timed steps:
+   every loss and the gradient norm finite, every trained tensor (the 24
+   adapters, the neck and the heads) reached by the loss has a finite
+   gradient and moves, every other tensor bitwise unchanged, A, C, A', C'
+   and K12' 12 launches a step and B, B' none; one profiled step's busy
+   time, launches and syncs; the gradient check of phase 6 on the trained
+   tensors (the adapters' same-cotangent gradients held to its floor rule);
+   then ``init_detector`` / ``inference_detector`` on the same config at
+   batch 2 (launches; the encoder within ``ENCODER_TOL`` of plain, and
+   plain with every ``qkv_lora_b`` zeroed moved by more than twice that);
+   then 3 steps of ``rsprompter_query-nwpu-peft-512.py`` after a warm-up
+   (finite, the adapters move and nothing else of the encoder, B and B'
+   never launch).
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -827,9 +850,10 @@ def device_busy_ms(prof) -> float:
     return busy / 1e3
 
 
-def check_train_launches(what: str, counts, model, steps: int) -> None:
+def check_train_launches(what: str, counts, model, steps: int, lora: bool = False) -> None:
     """Every encoder layer through A, B, C forward and A', B', C' backward
-    in each of ``steps`` train steps, K12' never."""
+    in each of ``steps`` train steps, K12' never; with ``lora`` (the LoRA
+    route) K12' in B's place and B, B' never."""
     depth = model.backbone.config.num_hidden_layers
     n_global = len(model.backbone.config.global_attn_indexes)
     per_kind = {"global": n_global * steps, "window": (depth - n_global) * steps}
@@ -840,6 +864,9 @@ def check_train_launches(what: str, counts, model, steps: int) -> None:
         "ln_qkv_headmajor_bwd": per_kind, "relpos_attention_bwd": per_kind,
         "qkv_headmajor": {},
     }
+    if lora:
+        expect.update(ln_rows={"mlp": depth * steps}, ln_qkv_headmajor={},
+                      ln_qkv_headmajor_bwd={}, qkv_headmajor=per_kind)
     for name, want in expect.items():
         if counts[name] != want:
             raise AssertionError(f"{what}: {name} launches {counts[name]}, expected {want}")
@@ -966,8 +993,23 @@ def check_grads(what: str, rel, tol: Optional[float]) -> None:
         raise AssertionError(f"gradient check, {what}: {worst} {rel[worst]:.4g} > {tol}")
 
 
-def gradient_phase(model, opt, loss_fn):
-    """Phase 6. ``loss_fn()`` runs one batch with fixed draws through the
+def check_floor(what: str, got_rel, floor_rel) -> None:
+    """Phase 6's rule: the kernels' distance from the reference at most
+    ``FLOOR_FACTOR`` times the plain bf16 run's, at the median tensor and at
+    the worst."""
+    for name, stat in (("median", statistics.median), ("worst", max)):
+        got, base = stat(got_rel.values()), stat(floor_rel.values())
+        msg = (f"gradient check, {what}, {name} tensor: kernels {got:.4g} from the "
+               f"reference, plain bf16 {base:.4g}; ratio {got / base:.4g} "
+               f"(limit {FLOOR_FACTOR})")
+        log(msg)
+        if got > FLOOR_FACTOR * base:
+            raise AssertionError(msg)
+
+
+def gradient_phase(model, opt, loss_fn, only=None):
+    """Phase 6 (and phase 12's, ``only`` naming the parameters compared:
+    those that train). ``loss_fn()`` runs one batch with fixed draws through the
     whole loss three times: through the kernels, through the plain versions,
     and through the plain versions with the encoder computing in fp32 (the
     reference; its outputs are rounded to bf16, as the others', before the
@@ -979,7 +1021,11 @@ def gradient_phase(model, opt, loss_fn):
     run's. The encoder is also run through the kernels and the plain
     versions with the same cotangents of its outputs, those of the kernels'
     run: that comparison sees the backward kernels alone, without the heads'
-    amplification, and is held to ``GRAD_TOL``."""
+    amplification, and is held to ``GRAD_TOL``; with ``only`` (phase 12:
+    the LoRA adapters are the encoder's only trained tensors, and their
+    low-rank gradients, sums over every token, carry more bf16 noise than
+    ``GRAD_TOL`` was set by) it is held to the same floor rule against the
+    fp32 encoder given those cotangents."""
     import torch
 
     from rsprompter_tpu_torch.apis.build import set_compute_dtype
@@ -1030,24 +1076,29 @@ def gradient_phase(model, opt, loss_fn):
         same_cot = encoder_grads("plain", cot)
         set_compute_dtype(enc, torch.float32, cast_params=False)
         ref, _ = whole_loss_grads("plain")
+        ref_cot = encoder_grads("plain", cot) if only is not None else None
     finally:
         det_mod.rpn_predict = rpn_predict
         set_compute_dtype(enc, torch.bfloat16, cast_params=False)
         enc.impl = "kernel"
+    if only is not None:
+        kernel, plain, ref, same_cot, ref_cot = ({n: g for n, g in d.items() if n in only}
+                                                 for d in (kernel, plain, ref, same_cot, ref_cot))
     floor = relative_grad_diffs(plain, ref)
     kernel_ref = relative_grad_diffs(kernel, ref)
     check_grads("whole loss, plain bf16 vs fp32-encoder reference (the floor)", floor, None)
     check_grads("whole loss, kernels vs fp32-encoder reference", kernel_ref, None)
-    for what, stat in (("median", statistics.median), ("worst", max)):
-        got, base = stat(kernel_ref.values()), stat(floor.values())
-        msg = (f"gradient check, whole loss, {what} tensor: kernels {got:.4g} from the "
-               f"reference, plain bf16 {base:.4g}; ratio {got / base:.4g} "
-               f"(limit {FLOOR_FACTOR})")
-        log(msg)
-        if got > FLOOR_FACTOR * base:
-            raise AssertionError(msg)
-    check_grads("encoder with the same cotangents, kernels vs plain",
-                relative_grad_diffs({n: kernel[n] for n in same_cot}, same_cot), GRAD_TOL)
+    check_floor("whole loss", kernel_ref, floor)
+    if only is None:
+        check_grads("encoder with the same cotangents, kernels vs plain",
+                    relative_grad_diffs({n: kernel[n] for n in same_cot}, same_cot), GRAD_TOL)
+    else:  # the adapters' gradients: phase 6's rule against the fp32 encoder
+        kernel_cot = relative_grad_diffs({n: kernel[n] for n in ref_cot}, ref_cot)
+        floor_cot = relative_grad_diffs(same_cot, ref_cot)
+        check_grads("encoder with the same cotangents, plain bf16 vs fp32 (the floor)",
+                    floor_cot, None)
+        check_grads("encoder with the same cotangents, kernels vs fp32", kernel_cot, None)
+        check_floor("encoder with the same cotangents", kernel_cot, floor_cot)
     for n, g in same_cot.items():
         if n.endswith(("rel_pos_h", "rel_pos_w")) and float(g.abs().max()) == 0.0:
             raise AssertionError(f"gradient check: {n} has a zero gradient")
@@ -2104,6 +2155,467 @@ def train_loop_phase(kernels, profile_dir: str = "", config: str = TRAIN_CONFIG,
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: LoRA and the peft configs
+# ---------------------------------------------------------------------------
+
+PEFT_CONFIG = os.path.join(ROOT, "configs", "rsprompter", "rsprompter_anchor-nwpu-peft-512.py")
+PEFT_QUERY_CONFIG = os.path.join(ROOT, "configs", "rsprompter",
+                                 "rsprompter_query-nwpu-peft-512.py")
+PEFT_BATCH = 4  # the scratch-512 cell's batch (the config's loader says 2)
+PEFT_QUERY_STEPS = 3
+# the seeded adapters' b: s (z la) lb about half of z W at the seeded init
+# (a trained adapter moves qkv by a fraction of it); zeroing them moves the
+# plain encoder far past twice ENCODER_TOL. At LORA_B_STD_WIDE the adapters'
+# term is as large as z W, and the sharper softmax read kernels vs plain
+# 0.07867 on an H100: phase 12 reports that reading beside both bf16
+# encoders' distance from an fp32 one, and gates the other.
+LORA_B_STD = 0.02
+LORA_B_STD_WIDE = 0.05
+
+
+def lora_candidate_b(x, w, b, la, lb, scale, heads3, n):
+    """The adapter beside K12' rather than folded into it: K12' on x alone,
+    plus ((x la) lb) * scale as two torch products added head-major (timed
+    against :func:`fused_mlp.qkv_headmajor_lora`, which won)."""
+    from rsprompter_tpu_torch.ops import fused_mlp as fm
+
+    y = fm.qkv_headmajor(x, w, b, heads3, n)
+    d = ((x @ la) @ lb) * scale
+    return (y + d.reshape(n, -1, heads3, 64).permute(0, 2, 1, 3)).contiguous()
+
+
+def lora_kernel_rows(dev):
+    """K12' with the adapter at the peft step's shapes (ViT-B 512^2, batch
+    4: 36 windows of 196 rows, 4 images of 1024), held against
+    ``qkv_headmajor_lora_plain``; both candidates timed, forward and
+    forward + backward."""
+    import torch
+
+    from rsprompter_tpu_torch.ops import fused_mlp as fm
+
+    g = torch.Generator(device="cpu").manual_seed(12)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, torch.bfloat16)
+
+    c, heads3, r, scale = 768, 36, 16, 2.0
+    w, b = rnd(3 * c, c, scale=0.02), rnd(3 * c, scale=0.02)
+    la, lb = rnd(c, r, scale=1.0 / r), rnd(r, 3 * c, scale=LORA_B_STD)
+    rows = []
+    for variant, n_img, s in (("window", 36, 196), ("global", PEFT_BATCH, 1024)):
+        x = rnd(n_img * s, c)
+        a = (x, w, b, la, lb, scale, heads3, n_img)
+        got = fm.qkv_headmajor_lora(*a)
+        got_b = lora_candidate_b(*a)
+        torch.cuda.synchronize()
+        ref = fm.qkv_headmajor_lora_plain(*[v.float() if torch.is_tensor(v) else v for v in a])
+        err = compare(f"qkv_headmajor_lora/{variant}", got, ref)
+        err_b = compare(f"qkv_headmajor_lora/{variant} (candidate b)", got_b, ref)
+
+        def library(x=x, n_img=n_img):  # composed of bf16 PyTorch calls
+            y = torch.nn.functional.linear(x, w, b) + ((x @ la) @ lb) * scale
+            return y.reshape(n_img, -1, heads3, 64).permute(0, 2, 1, 3).contiguous()
+
+        m = n_img * s
+        flops = 2.0 * m * c * 3 * c + 2.0 * m * c * r + 2.0 * m * r * 3 * c
+        nbytes = (x.numel() + w.numel() + b.numel() + la.numel() + lb.numel()
+                  + got.numel()) * 2
+        b_ms, b_by = bound_ms(flops, nbytes)
+        ms_a = cuda_time_ms(lambda: fm.qkv_headmajor_lora(*a))
+        ms_b = cuda_time_ms(lambda: lora_candidate_b(*a))
+        dy = rnd(*got.shape)
+        leaves = [t.detach().requires_grad_(True) for t in (x, w, b, la, lb)]
+
+        def fwd_bwd(fn):
+            out = fn(*leaves, scale, heads3, n_img)
+            return torch.autograd.grad(out, leaves, dy)
+
+        train_a, train_b = cuda_time_ms(lambda: fwd_bwd(fm.qkv_headmajor_lora)), \
+            cuda_time_ms(lambda: fwd_bwd(lora_candidate_b))
+        busy = {k: device_ms_per_call(f) for k, f in (
+            ("(a)", lambda: fm.qkv_headmajor_lora(*a)), ("(b)", lambda: lora_candidate_b(*a)),
+            ("(a) forward + backward", lambda: fwd_bwd(fm.qkv_headmajor_lora)),
+            ("(b) forward + backward", lambda: fwd_bwd(lora_candidate_b)))}
+        for ga, gb in zip(fwd_bwd(fm.qkv_headmajor_lora), fwd_bwd(lora_candidate_b)):
+            compare(f"qkv_headmajor_lora/{variant} gradients, (a) vs (b)", ga, gb)
+        log(f"K12' with the adapter, {variant} (x {tuple(x.shape)}, r {r}): candidate (a) "
+            f"folded into K (C + 64 = {c + fm.LORA_K_PAD}) {ms_a:.4f} ms, forward + backward "
+            f"{train_a:.4f} ms; candidate (b) K12' + two torch products added head-major "
+            f"{ms_b:.4f} ms, forward + backward {train_b:.4f} ms (CUDA events, back to back); "
+            f"device busy a call (profiler): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in busy.items())
+            + f"; max_abs_err (a) {err:.4g}, (b) {err_b:.4g}")
+        rows.append(dict(
+            name=f"qkv_headmajor_lora/{variant}", kernel=fm.QKV_HEADMAJOR, variant=variant,
+            route="cuda", source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor.cu",
+            replaces="rsprompter_tpu/ops/fused_mlp.py:154", path="peft_train_step",
+            shape=f"x {tuple(x.shape)} + adapter r {r} -> {tuple(got.shape)} bf16",
+            max_abs_err=err, ms=ms_a,
+            plain_ms=cuda_time_ms(lambda: fm.qkv_headmajor_lora_plain(*a)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(library),
+        ))
+    return rows
+
+
+def device_ms_per_call(fn, calls: int = 20) -> float:
+    """The device's busy time (union of kernel intervals) a call, from a
+    profile of ``calls`` back-to-back calls: what the card spends, apart
+    from the host's time to enqueue it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return device_busy_ms(prof) / calls
+
+
+def write_hf_sam(path: str, model_cfg, seed: int) -> dict:
+    """A seeded SAM state_dict under Hugging Face's names at the 1024^2 the
+    SAM file is made at (the detector's SAM subtrees with the port's seeded
+    init, no LoRA adapter: SAM has none), saved to ``path``."""
+    import torch
+
+    from rsprompter_tpu_torch.apis.build import build_detector, init_random_weights
+    from rsprompter_tpu_torch.engine.checkpoint import SAM_SUBTREE_PREFIXES
+
+    model = build_detector(dict(model_cfg, image_size=1024))
+    init_random_weights(model, seed)
+    hf = {}
+    for name, t in model.state_dict().items():
+        for prefix, hf_prefix in SAM_SUBTREE_PREFIXES[model_cfg["type"]].items():
+            if name.startswith(prefix) and "lora" not in name:
+                hf[hf_prefix + name[len(prefix):]] = t.clone()
+    torch.save(hf, path)
+    return hf
+
+
+def seed_lora_b(model, seed: int, std: float = LORA_B_STD) -> int:
+    """Every ``qkv_lora_b`` to seeded N(0, std) values (at init they are
+    zero, and a dropped adapter could not be seen). Returns the count."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    names = []
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith("qkv_lora_b"):
+                p.copy_(torch.randn(p.shape, generator=g) * std)
+                names.append(n)
+    return len(names)
+
+
+def peft_phase(kernels, iters: int, profile_dir: str = "", config: str = PEFT_CONFIG,
+               query_config: str = PEFT_QUERY_CONFIG, device: str = "cuda"):
+    """Phase 12. Returns the anchor peft step's launch counts over its timed
+    steps. (``config``, ``query_config`` and ``device='cpu'`` rehearse it at
+    a small size on the CPU, without the launch checks.)"""
+    import tempfile
+
+    import torch
+
+    from rsprompter_tpu_torch.core.config import Config
+    from rsprompter_tpu_torch.engine.train_state import build_trainer
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_batch
+
+    t_phase = time.time()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    # --- 1. the anchor peft train step --------------------------------------
+    cfg = Config.fromfile(config)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "pytorch_model.bin")
+        hf = write_hf_sam(path, cfg["model"], seed=2)
+        cfg.merge_from_options({"model.hf_sam_pretrain_ckpt_path": path})
+        trainer = build_trainer(cfg, device=device, seed=0,
+                                steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    model, opt = trainer.model, trainer.optimizer
+    enc = model.backbone
+    depth = enc.config.num_hidden_layers
+    resized = {"pos_embed"} | {f"layers.{i}.attn.rel_pos_{a}"
+                                for i in enc.config.global_attn_indexes for a in "hw"}
+    loaded = 0
+    for n, p in enc.named_parameters():
+        if "lora" in n:
+            if n.endswith("qkv_lora_b") and bool(p.detach().any()):
+                raise AssertionError(f"peft: {n} is not at its zero init after the SAM load")
+        elif n not in resized:
+            if not torch.equal(p.detach().cpu(), hf["vision_encoder." + n]):
+                raise AssertionError(f"peft: {n} differs from the SAM file")
+            loaded += 1
+    grid = (enc.config.grid_size,) * 2
+    if tuple(enc.pos_embed.shape[1:3]) != grid:
+        raise AssertionError(f"peft: pos_embed {tuple(enc.pos_embed.shape)} for a {grid} grid")
+    n_lora = seed_lora_b(model, seed=3)
+    trained = {n for n, _ in opt.trained}
+    lora_names = {n for n in trained if "qkv_lora" in n}
+    if ({n for n in trained if n.startswith("backbone")} != lora_names
+            or len(lora_names) != 2 * depth):
+        raise AssertionError(f"peft: the encoder's trained tensors are not its adapters: "
+                             f"{sorted(n for n in trained if n.startswith('backbone'))[:6]}")
+    size = tuple(cfg["crop_size"])
+    batch = {k: torch.as_tensor(v, device=device) for k, v in synthetic_batch(
+        PEFT_BATCH, size, cfg["model"]["num_classes"], max_gt=8, seed=0).items()}
+    gen = torch.Generator(device=device)
+
+    def check(metrics, when, what="peft train step"):
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+        if bad:
+            raise AssertionError(f"{what} {when}: non-finite {bad}")
+        return {k: float(v) for k, v in metrics.items()}
+
+    first = check(trainer.step(batch, gen.manual_seed(0)), "warm-up")
+    sync()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    reached = set()
+    for k in kernels:
+        k.reset_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(iters):
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch, gen.manual_seed(1 + i))
+        sync()
+        times.append(time.perf_counter() - t0)
+        reached |= trained - set(opt.unreached)
+        if not all(n.startswith(UNREACHED) for n in opt.unreached):
+            raise AssertionError(f"peft train step: no gradient reached {opt.unreached}")
+        last = check(metrics, f"{i + 1}")
+    counts = {k.name: dict(k.variant_launches) for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+    for n, p in model.named_parameters():
+        moved = not torch.equal(p.detach(), before[n])
+        if n in trained:
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                raise AssertionError(f"peft train step: {n} has no finite gradient")
+            if n in reached and not moved:
+                raise AssertionError(f"peft train step: {n} was not updated")
+        elif moved:
+            raise AssertionError(f"peft train step: the frozen {n} moved")
+    if not lora_names <= reached:
+        raise AssertionError(f"peft train step: adapters not reached {lora_names - reached}")
+    if on_card:
+        check_train_launches("peft train", counts, model, iters, lora=True)
+    med = statistics.median(times)
+    log(f"peft train step launches over {iters} steps: "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    log(f"peft train step: RSPrompter-anchor peft (LoRA r 16, alpha 32 on qkv; pseudo "
+        f"aggregator), ViT-B {size[0]}x{size[1]}, batch {PEFT_BATCH}, bf16 compute, fp32 "
+        f"master weights, a seeded 1024^2 SAM file through the {size[0]}^2 resize ({loaded} "
+        f"encoder tensors equal to the file's), {n_lora} adapters with seeded qkv_lora_b: {med:.4f} "
+        f"s/step median of {iters} (min {min(times):.4f}, max {max(times):.4f}), "
+        f"{PEFT_BATCH / med:.3f} images/s; peak device memory {peak_gb:.2f} GiB; "
+        f"{len(opt.trained)} trained / {len(opt.frozen)} frozen tensors; every frozen tensor "
+        f"bitwise unchanged")
+    log(f"peft train step 1 (warm-up): {json.dumps(first)}")
+    log(f"peft train step {iters + 1}: {json.dumps(last)}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    t0 = time.perf_counter()
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities) as prof:
+        trainer.step(batch, gen.manual_seed(99))
+        sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = device_busy_ms(prof)
+    log(f"peft train step profile: device busy {busy_ms:.2f} ms (union of kernel intervals); "
+        f"profiled step wall {wall_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.4f}; against "
+        f"the unprofiled median step {med * 1e3:.2f} ms, idle share "
+        f"{1 - busy_ms / (med * 1e3):.4f}; host calls in the step (the script's closing "
+        f"cudaDeviceSynchronize included): {host_counts(prof)}")
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
+        with open(os.path.join(profile_dir, "peft_train_step_profile.txt"), "w") as f:
+            f.write(table)
+        prof.export_chrome_trace(os.path.join(profile_dir, "peft_train_step_trace.json"))
+        log(table[:8000])
+        from rsprompter_tpu_torch.ops import fused_mlp as fm
+
+        split = stage_ms({
+            "encoder (LoRA route)": [enc],
+            "LN1 + window partition (torch)": [(fm, "layer_norm"), (fm, "window_partition")],
+            "K12' with the adapter": [(fm, "qkv_headmajor_lora")],
+            "neck (pseudo aggregator + FPN)": [model.neck_feature_aggregator,
+                                               model.neck_feature_spliter],
+            "optimizer (clip + AdamW)": [(opt, "step")],
+        }, lambda: trainer.step(batch, gen.manual_seed(98)), iters=3)
+        log("peft train step: stream ms per stage (forward stages; backward in the profile "
+            "rows above): " + "; ".join(f"{k} {v:.2f}" for k, v in split.items()))
+
+    gradient_phase(model, opt, lambda: model.loss(batch, generator=gen.manual_seed(7)),
+                   only=trained)
+    del trainer, model, opt, before, batch
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # --- 2. anchor peft predict ----------------------------------------------
+    peft_predict(kernels, config, device)
+
+    # --- 3. the query peft train step ---------------------------------------
+    peft_query_train(kernels, query_config, device)
+    log(f"peft phase: {time.time() - t_phase:.1f} s")
+    return counts
+
+
+def peft_predict(kernels, config: str = PEFT_CONFIG, device: str = "cuda") -> None:
+    """Part 2 of phase 12: ``init_detector`` / ``inference_detector`` on the
+    anchor peft config at 512^2, batch 2, every ``qkv_lora_b`` seeded; launch
+    counts; the encoder through the kernels against plain, and plain with
+    the adapters' b zeroed, which must move by more than twice that limit."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from rsprompter_tpu_torch.apis.build import set_compute_dtype
+    from rsprompter_tpu_torch.apis.inference import inference_detector, init_detector
+    from rsprompter_tpu_torch.models.preprocess import preprocess_images
+
+    on_card = device == "cuda"
+    model = init_detector(config, device=device, batch_size=2, seed=0)
+    det = model.model
+    enc = det.backbone
+    seed_lora_b(det, seed=3)
+    imgs = synthetic_images(0)
+    inference_detector(model, imgs)
+    for k in kernels:
+        k.reset_counts()
+    preds = inference_detector(model, imgs)
+    counts = {k.name: dict(k.variant_launches) for k in kernels}
+    depth = enc.config.num_hidden_layers
+    n_global = len(enc.config.global_attn_indexes)
+    per_kind = {"global": n_global, "window": depth - n_global}
+    expect = {"ln_mlp_residual": mlp_launches(depth), "ln_rows": {"mlp": depth},
+              "ln_qkv_headmajor": {}, "relpos_attention": per_kind, "qkv_headmajor": per_kind}
+    for name, want in expect.items():
+        if on_card and counts[name] != want:
+            raise AssertionError(f"peft predict: {name} launches {counts[name]}, expected {want}")
+    for img, p in zip(imgs, preds):
+        if not (np.isfinite(p["bboxes"]).all() and np.isfinite(p["scores"]).all()):
+            raise AssertionError("peft predict: non-finite detections")
+        if p["masks"].shape[1:] != img.shape[:2]:
+            raise AssertionError(f"peft predict: masks {p['masks'].shape} for {img.shape}")
+    batch, _ = model.make_batch(imgs)
+    x = preprocess_images(batch["images"])
+    lbs = [p for n, p in enc.named_parameters() if n.endswith("qkv_lora_b")]
+
+    def run(impl, module=enc, inputs=x):
+        module.impl = impl
+        with torch.no_grad():
+            out = module(inputs)
+        enc.impl = "kernel"
+        return out
+
+    def readings():
+        """The encoder through the kernels, through plain, and through plain
+        in fp32 (the bf16 noise's yardstick)."""
+        ref_enc = copy.deepcopy(enc).float()
+        set_compute_dtype(ref_enc, torch.float32, cast_params=False)
+        return run("kernel"), run("plain"), run("plain", ref_enc, x.float())
+
+    out_k, out_p, out_ref = readings()
+    saved = [t.detach().clone() for t in lbs]
+    with torch.no_grad():
+        for t in lbs:
+            t.zero_()
+    out_nolora = run("plain")
+    seed_lora_b(det, seed=3, std=LORA_B_STD_WIDE)  # report only: adapters as large as z W
+    wide = readings()
+    with torch.no_grad():
+        for t, v in zip(lbs, saved):
+            t.copy_(v)
+    if not all(torch.isfinite(a.float()).all() for a in (out_k[0],) + out_k[1]):
+        raise AssertionError("peft predict: non-finite encoder output")
+    worst = worst_rel_diff(out_k, out_p)
+    effect = worst_rel_diff(out_nolora, out_p)
+    per_out = [f"{rel_diff(a, b):.4g}" for a, b in zip((out_k[0],) + out_k[1],
+                                                        (out_p[0],) + out_p[1])]
+    log(f"peft predict: encoder kernels vs plain per output (neck, then hidden states 0-"
+        f"{len(out_k[1]) - 1}): {', '.join(per_out)}; against the plain encoder in fp32: "
+        f"kernels {worst_rel_diff(out_k, out_ref):.4g}, plain bf16 "
+        f"{worst_rel_diff(out_p, out_ref):.4g}; with qkv_lora_b at N(0, {LORA_B_STD_WIDE}) "
+        f"(not gated): kernels vs plain {worst_rel_diff(wide[0], wide[1]):.4g}, against fp32 "
+        f"kernels {worst_rel_diff(wide[0], wide[2]):.4g}, plain bf16 "
+        f"{worst_rel_diff(wide[1], wide[2]):.4g}")
+    size = enc.config.image_size
+    log(f"peft predict: RSPrompter-anchor peft, ViT-B {size}^2, batch 2, bf16, {depth} adapters "
+        f"seeded at N(0, {LORA_B_STD}): launches {counts.get('qkv_headmajor')} K12' with the "
+        f"adapter, {counts.get('relpos_attention')} C, {counts.get('ln_mlp_residual')} A, B 0; "
+        f"detections per image {[len(p['bboxes']) for p in preds]}; encoder kernels vs plain: "
+        f"worst max|diff|/max|plain| {worst:.4g} over neck + {len(out_k[1])} hidden states (tol "
+        f"{ENCODER_TOL}); the same measure with every qkv_lora_b zeroed (plain): {effect:.4g}")
+    if worst > ENCODER_TOL:
+        raise AssertionError(f"peft predict: encoder kernels vs plain {worst:.4g} > {ENCODER_TOL}")
+    if effect < 2 * ENCODER_TOL:
+        raise AssertionError(f"peft predict: dropping the adapters moves the encoder by "
+                             f"{effect:.4g}, too little for the {ENCODER_TOL} check to see")
+    del model, det, enc, out_k, out_p, out_ref, out_nolora, wide
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def peft_query_train(kernels, config: str = PEFT_QUERY_CONFIG, device: str = "cuda") -> None:
+    """Part 3 of phase 12: the query peft config, ``PEFT_QUERY_STEPS`` steps
+    after a warm-up: finite losses, the adapters move, the rest of the
+    encoder stays, B and B' never launch."""
+    import torch
+
+    from rsprompter_tpu_torch.engine.train_state import build_trainer
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_batch
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    trainer = build_trainer(config, device=device, seed=0,
+                            steps_per_epoch=QUERY_TRAIN_STEPS_PER_EPOCH)
+    model, cfg = trainer.model, trainer.cfg
+    seed_lora_b(model, seed=4)
+    bsz = cfg["train_dataloader"]["batch_size"]
+    size = tuple(cfg["crop_size"])
+    batch = {k: torch.as_tensor(v, device=device) for k, v in synthetic_batch(
+        bsz, size, cfg["model"]["num_classes"], max_gt=8, seed=0).items()}
+    gen = torch.Generator(device=device)
+    trainer.step(batch, gen.manual_seed(0))
+    sync()
+    enc_before = {n: p.detach().clone() for n, p in model.backbone.named_parameters()}
+    for k in kernels:
+        k.reset_counts()
+    times = []
+    for i in range(PEFT_QUERY_STEPS):
+        t0 = time.perf_counter()
+        metrics = trainer.step(batch, gen.manual_seed(1 + i))
+        sync()
+        times.append(time.perf_counter() - t0)
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+        if bad:
+            raise AssertionError(f"peft query train step {i + 1}: non-finite {bad}")
+    counts = {k.name: dict(k.variant_launches) for k in kernels}
+    for n, p in model.backbone.named_parameters():
+        moved = not torch.equal(p.detach(), enc_before[n])
+        if moved != ("qkv_lora" in n):
+            raise AssertionError(f"peft query train step: {n} moved {moved}")
+    if on_card and (counts["ln_qkv_headmajor"] or counts["ln_qkv_headmajor_bwd"]
+                    or counts["ln_rows"].keys() != {"mlp"} or not counts["qkv_headmajor"]
+                    or not counts["ln_mlp_residual_bwd"]):
+        raise AssertionError(f"peft query train step: launches {counts} (B and B' must not "
+                             "launch, K12', A' must)")
+    log(f"peft query train step: RSPrompter-query peft, ViT-B {size[0]}x{size[1]}, batch "
+        f"{bsz}: {statistics.median(times):.4f} s/step median of {PEFT_QUERY_STEPS}; loss "
+        f"{float(metrics['loss']):.4f}, grad_norm {float(metrics['grad_norm']):.4f}; the "
+        f"adapters moved, the rest of the encoder did not; launches "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    del trainer, model
+    if on_card:
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10,
@@ -2147,6 +2659,8 @@ def main() -> int:
     eval_phase(kernels)
     paths["query_train_step"] = query_train_phase(kernels, args.train_steps, args.profile_dir)
     paths["train_loop"] = train_loop_phase(kernels, args.profile_dir)
+    rows += lora_kernel_rows(dev)
+    paths["peft_train_step"] = peft_phase(kernels, args.train_steps, args.profile_dir)
     out = []
     for r in rows:
         name, variant = r["kernel"].name, r["variant"]

@@ -5,18 +5,23 @@ covers so far: ``type='RSPrompterAnchor'`` and ``type='RSPrompterQuery'``
 (predict and the train step each). Keeps the key vocabulary
 (``hf_sam_pretrain_name``, ``prompt_shape``, ``num_classes``, ``train_cfg``,
 ``test_cfg``, ``bf16``, ``attn_impl``, ``train_backbone``,
-``decoder_freeze``, ``num_samples``, ``pos_fraction``, the tiny-model
+``decoder_freeze``, ``num_samples``, ``pos_fraction``, ``peft_config``,
+``aggregator_type``, ``mask_loss_resolution``, the tiny-model
 ``vision_config`` override and the ``rpn_strides`` / ``roi_strides``
-ladders), and derives the optimizer's freeze paths (``freeze_paths_for``).
+ladders), and derives the optimizer's freeze and override paths
+(``freeze_paths_for``).
 
 ``attn_impl`` picks the encoder's route (``models/sam/vision_encoder.py``):
 ``'fused'`` (the default, kernels A, B, C) or ``'flash'`` (K12' and C). Any
 other value raises; the plain versions serve the tests and checks only.
+``peft_config`` (the peft configs: ``r`` 16, ``lora_alpha`` 32) gives every
+encoder block JAX's qkv adapter, which takes the LoRA route on either
+``attn_impl`` (K12' with the adapter, never kernel B).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn as nn
@@ -55,31 +60,32 @@ def build_detector(model_cfg: Dict[str, Any]) -> nn.Module:
     mtype = cfg.pop("type")
     if mtype not in ("RSPrompterAnchor", "RSPrompterQuery"):
         raise NotImplementedError(f"detector type '{mtype}' is not ported to torch yet")
-    if cfg.get("peft_config") is not None:
-        raise NotImplementedError("LoRA (peft_config) is not ported to torch yet")
-    if cfg.get("aggregator_type", "multi") != "multi":
-        raise NotImplementedError("aggregator_type='pseudo' is not ported to torch yet")
     arch = _arch_from_cfg(cfg)
+    peft = cfg.get("peft_config") or {}
     common = dict(
         arch=arch,
         image_size=cfg.get("image_size", 1024),
         num_classes=cfg.get("num_classes", 1),
         prompt_shape=tuple(cfg.get("prompt_shape", (100, 5))),
         select_layers=tuple(cfg.get("select_layers", _ARCH_SELECT_LAYERS[arch])),
+        aggregator_type=cfg.get("aggregator_type", "multi"),
         aggregator_hidden=cfg.get("aggregator_hidden", 32),
         with_sincos=cfg.get("with_sincos", True),
         test_cfg=cfg.get("test_cfg"),
         attn_impl=cfg.get("attn_impl", "fused"),
+        lora_rank=peft.get("r", 0),
+        lora_alpha=peft.get("lora_alpha", 32.0),
+        # with LoRA the encoder runs under autograd: the optimizer's groups
+        # freeze all of it but the adapters (JAX :96, :110)
+        freeze_backbone=cfg.get("peft_config") is None and not cfg.get("train_backbone", False),
+        train_cfg=cfg.get("train_cfg"),
     )
     if cfg.get("vision_config") is not None:
         common["vision_config"] = SamVisionConfig(**cfg["vision_config"])
     if mtype == "RSPrompterQuery":
         if not cfg.get("decoder_plus", True):
             raise NotImplementedError("decoder_plus=False is not ported to torch yet")
-        return RSPrompterQuery(**common, freeze_backbone=not cfg.get("train_backbone", False),
-                               train_cfg=cfg.get("train_cfg"))
-    if cfg.get("mask_loss_resolution", "full") != "full":
-        raise NotImplementedError("mask_loss_resolution='low' is not ported to torch yet")
+        return RSPrompterQuery(**common)
     for key in ("rpn_strides", "roi_strides"):
         if cfg.get(key) is not None:
             common[key] = tuple(cfg[key])
@@ -88,23 +94,27 @@ def build_detector(model_cfg: Dict[str, Any]) -> nn.Module:
         multimask_output=cfg.get("multimask_output", False),
         num_samples=cfg.get("num_samples", 256),
         pos_fraction=cfg.get("pos_fraction", 0.25),
-        freeze_backbone=not cfg.get("train_backbone", False),
-        train_cfg=cfg.get("train_cfg"),
+        mask_loss_resolution=cfg.get("mask_loss_resolution", "full"),
     )
 
 
-def freeze_paths_for(model_cfg: Dict[str, Any]) -> List[str]:
-    """Parameter-name substrings the optimizer leaves untouched, per the
-    reference's freeze rules (the encoder unless ``train_backbone``; with
-    ``decoder_freeze`` the shared PE, the SAM mask decoder and
-    ``no_mask_embed``). JAX's LoRA train overrides wait for LoRA."""
+def freeze_paths_for(model_cfg: Dict[str, Any]) -> Tuple[List[str], List[str]]:
+    """(freeze, override): parameter-name substrings the optimizer leaves
+    untouched, and those that train even where a freeze path matches, per
+    the reference's freeze rules (JAX :155-177): the encoder unless
+    ``train_backbone``, its LoRA adapters (``lora_a``, ``lora_b``) training
+    under ``peft_config``; with ``decoder_freeze`` the shared PE, the SAM
+    mask decoder and ``no_mask_embed``."""
     freeze: List[str] = []
+    override: List[str] = []
     if not model_cfg.get("train_backbone", False):
         freeze.append("backbone")
+        if model_cfg.get("peft_config") is not None:
+            override += ["lora_a", "lora_b"]
     if model_cfg["type"] in ("RSPrompterAnchor", "RSPrompterQuery") and model_cfg.get(
             "decoder_freeze", True):
         freeze += ["shared_image_embedding", "mask_decoder", "no_mask_embed"]
-    return freeze
+    return freeze, override
 
 
 # modules whose parameters keep fp32 when the model computes in bf16 (the

@@ -17,7 +17,10 @@ prefix rename per subtree, a copy cast to the parameter's dtype, and two
 resizes for a checkpoint made at another input size: the absolute position
 embedding (bicubic) and the global layers' rel-pos tables (linear). Any other
 shape mismatch raises. Parameters the file does not hold keep their values
-and are reported, as JAX reports them.
+and are reported, as JAX reports them: the peft configs' LoRA adapters
+(``qkv_lora_a`` / ``qkv_lora_b``, which SAM has not) count as missing and
+stay at their init. A train checkpoint holds them, with their AdamW
+moments, as it holds every parameter.
 
 ``init_detector`` and ``build_trainer`` call :func:`load_config_sam` after
 the seeded init and before the bf16 cast: when the config's

@@ -2,10 +2,12 @@
 parameters that train.
 
 Counterpart of ``rsprompter_tpu/engine/optim.py``. JAX labels each parameter
-'train' or 'frozen' (``build_param_label_fn`` :38: frozen when a freeze path
-is a substring of its name) and sends the frozen ones through
-``optax.set_to_zero``; here the label picks the parameter group (JAX's
-override paths serve LoRA, which is not ported):
+'train' or 'frozen' (``build_param_label_fn`` :38: trained when an override
+path is a substring of its name, checked first, as at :54; else frozen when
+a freeze path is; the peft configs freeze ``backbone`` and override it with
+``lora_a`` / ``lora_b``, so the encoder's LoRA adapters train inside it) and
+sends the frozen ones through ``optax.set_to_zero``; here the label picks
+the parameter group:
 frozen parameters take no update and no weight decay, and keep their
 ``requires_grad``, so gradients still flow through them to what trains (and
 still count in the step's ``grad_norm``, as JAX's do). The trained group gets
@@ -59,14 +61,15 @@ class Optimizer:
 
     def __init__(self, model: nn.Module, schedule: Schedule, weight_decay: float,
                  freeze_paths: Sequence[str] = (), grad_clip: Optional[float] = None,
-                 accumulate_steps: int = 1):
+                 accumulate_steps: int = 1, train_paths_override: Sequence[str] = ()):
         self.model = model
         self.schedule = schedule
         self.grad_clip = grad_clip
         self.trained: List[Tuple[str, nn.Parameter]] = []
         self.frozen: List[Tuple[str, nn.Parameter]] = []
         for name, p in model.named_parameters():
-            frozen = any(f in name for f in freeze_paths)
+            frozen = (not any(t in name for t in train_paths_override)
+                      and any(f in name for f in freeze_paths))
             (self.frozen if frozen else self.trained).append((name, p))
         params = [p for _, p in self.trained]
         self.adamw = torch.optim.AdamW(
@@ -150,9 +153,11 @@ def build_optimizer(model: nn.Module, base_lr: float = 1e-4, weight_decay: float
                     freeze_paths: Sequence[str] = (),
                     grad_clip: Optional[float] = None,
                     schedule: Optional[Schedule] = None,
-                    accumulate_steps: int = 1) -> Optimizer:
+                    accumulate_steps: int = 1,
+                    train_paths_override: Sequence[str] = ()) -> Optimizer:
     """AdamW + warm-up cosine over the parameters that train, with gradients
     averaged over ``accumulate_steps`` micro-steps (JAX's ``build_optimizer``
     :86)."""
     sched = schedule or warmup_cosine_schedule(base_lr, total_steps, warmup_steps)
-    return Optimizer(model, sched, weight_decay, freeze_paths, grad_clip, accumulate_steps)
+    return Optimizer(model, sched, weight_decay, freeze_paths, grad_clip, accumulate_steps,
+                     train_paths_override)

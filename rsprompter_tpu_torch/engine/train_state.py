@@ -99,12 +99,14 @@ class Trainer:
         if model_cfg.get("bf16", False):
             set_compute_dtype(self.model, torch.bfloat16, cast_params=False)
         self.model.to(self.device).train()
+        freeze, override = freeze_paths_for(model_cfg)
         self.optimizer = build_optimizer(
             self.model, base_lr=cfg.get("base_lr", 1e-4),
             weight_decay=cfg.get("weight_decay", 0.05),
             total_steps=cfg.get("max_epochs", 12) * steps_per_epoch,
             warmup_steps=cfg.get("warmup_iters", 50),
-            freeze_paths=freeze_paths_for(model_cfg), grad_clip=cfg.get("grad_clip"),
+            freeze_paths=freeze, train_paths_override=override,
+            grad_clip=cfg.get("grad_clip"),
         )
         self.step = make_train_step(self.model, self.optimizer)
         self.seed = seed

@@ -1,15 +1,20 @@
 """RSPrompter anchor-variant detector (torch): loss and predict.
 
 Counterpart of ``rsprompter_tpu/models/detectors/rsprompter_anchor.py``: SAM
-ViT encoder -> (RS aggregator + simple FPN features, image embeddings,
-image-wide Fourier PE) -> RPN -> RoI prompt head with the SAM mask decoder.
-Attribute names mirror the JAX module's parameter tree.
+ViT encoder (with the qkv LoRA adapters where ``lora_rank > 0``) -> (RS
+aggregator over the hidden states, or the pseudo aggregator over the image
+embeddings alone with ``aggregator_type='pseudo'`` (:146-149), + simple FPN
+features, image embeddings, image-wide Fourier PE) -> RPN -> RoI prompt head
+with the SAM mask decoder. Attribute names mirror the JAX module's
+parameter tree.
 
 ``loss`` (:164) returns the RPN, bbox and mask losses of one batch: with
 ``freeze_backbone`` the encoder runs without gradient (JAX's stop-gradient on
-every encoder output, :139-143); proposals come from the detached RPN
-outputs (:180-181); the RPN and RoI samplers draw from one generator (JAX's
-two RNG streams), or take explicit draws. The module's train / eval mode is
+every encoder output, :139-143; the peft configs leave it off, so the
+gradient reaches the adapters and the optimizer's groups freeze the rest);
+proposals come from the detached RPN outputs (:180-181); the RPN and RoI
+samplers draw from one generator (JAX's two RNG streams), or take explicit
+draws. The module's train / eval mode is
 the BatchNorms' (batch statistics in ``loss``, as JAX's ``train=True``).
 """
 
@@ -27,7 +32,7 @@ from rsprompter_tpu_torch.models.dense_heads.rpn_head import (
     rpn_loss,
     rpn_predict,
 )
-from rsprompter_tpu_torch.models.necks.rsfpn import RSFeatureAggregator, RSSimpleFPN
+from rsprompter_tpu_torch.models.necks.rsfpn import RSSimpleFPN, build_aggregator
 from rsprompter_tpu_torch.models.preprocess import preprocess_images
 from rsprompter_tpu_torch.models.roi_heads.prompt_roi_head import RSPrompterAnchorRoIPromptHead
 from rsprompter_tpu_torch.models.sam.configs import SamVisionConfig, sam_config
@@ -47,6 +52,7 @@ class RSPrompterAnchor(nn.Module):
         num_classes: int = 1,
         prompt_shape: Tuple[int, int] = (100, 5),
         select_layers: Tuple[int, ...] = tuple(range(1, 13, 2)),
+        aggregator_type: str = "multi",
         aggregator_hidden: int = 32,
         rpn_scales: Tuple[float, ...] = (4, 8),
         rpn_strides: Tuple[int, ...] = (4, 8, 16, 32, 64),
@@ -60,6 +66,9 @@ class RSPrompterAnchor(nn.Module):
         train_cfg: Any = None,
         test_cfg: Any = None,
         attn_impl: str = "fused",
+        lora_rank: int = 0,
+        lora_alpha: float = 32.0,
+        mask_loss_resolution: str = "full",
     ):
         super().__init__()
         self.freeze_backbone = freeze_backbone
@@ -70,12 +79,13 @@ class RSPrompterAnchor(nn.Module):
         if vcfg.output_channels != decoder_cfg.hidden_size:
             decoder_cfg = dataclasses.replace(decoder_cfg, hidden_size=vcfg.output_channels)
         self.test_cfg = dict(test_cfg or {})
-        self.backbone = SamVisionEncoder(vcfg, attn_impl)
+        self.backbone = SamVisionEncoder(vcfg, attn_impl, lora_rank, lora_alpha)
         self.shared_image_embedding = SamPositionalEmbedding(
             vcfg.output_channels // 2, scale=vcfg.output_channels // 2
         )
-        self.neck_feature_aggregator = RSFeatureAggregator(
-            vcfg.hidden_size, aggregator_hidden, 256, select_layers, vcfg.num_hidden_layers
+        self.aggregator_type = aggregator_type
+        self.neck_feature_aggregator = build_aggregator(
+            aggregator_type, vcfg, aggregator_hidden, select_layers
         )
         self.neck_feature_spliter = RSSimpleFPN(backbone_channel=256)
         self.anchor_generator = build_rpn_anchor_generator(
@@ -87,7 +97,7 @@ class RSPrompterAnchor(nn.Module):
             with_extra_pe=with_extra_pe, per_pointset_point=prompt_shape[1],
             with_sincos=with_sincos, multimask_output=multimask_output,
             num_samples=num_samples, pos_fraction=pos_fraction,
-            test_cfg=self.test_cfg.get("rcnn"),
+            mask_loss_resolution=mask_loss_resolution, test_cfg=self.test_cfg.get("rcnn"),
         )
 
     def extract_feat(self, images: torch.Tensor):
@@ -97,7 +107,8 @@ class RSPrompterAnchor(nn.Module):
         image_pe = image_wide_positional_embeddings(
             self.shared_image_embedding, image_embeddings.shape[1]
         )
-        feats = self.neck_feature_spliter(self.neck_feature_aggregator(hidden_states))
+        neck_in = (image_embeddings,) if self.aggregator_type == "pseudo" else hidden_states
+        feats = self.neck_feature_spliter(self.neck_feature_aggregator(neck_in))
         return feats, image_embeddings, image_pe
 
     def level_anchors(self, feats):

@@ -1,16 +1,21 @@
 """RSPrompter query-variant detector (torch): loss and predict.
 
 Counterpart of ``rsprompter_tpu/models/detectors/rsprompter_query.py``
-(reference ``RSPrompterQuery``, ``mmdet/rsprompter/models.py:174-272``) with
-``aggregator_type='multi'``: SAM ViT encoder -> RS aggregator + simple FPN
-features, image embeddings and the image-wide Fourier PE -> the Mask2Former
-query head prompting the SAM mask decoder -> the fusion head's top-k
-instances. Attribute names mirror the JAX module's parameter tree.
+(reference ``RSPrompterQuery``, ``mmdet/rsprompter/models.py:174-272``): SAM
+ViT encoder (with the qkv LoRA adapters where ``lora_rank > 0``) -> the
+multi-layer RS aggregator over its hidden states, or with
+``aggregator_type='pseudo'`` the pseudo aggregator over the image
+embeddings alone (JAX :139), + simple FPN features, image embeddings and
+the image-wide Fourier PE -> the Mask2Former query head prompting the SAM
+mask decoder -> the fusion head's top-k instances. Attribute names mirror
+the JAX module's parameter tree.
 
 ``loss`` (JAX :144) returns the head's 35 loss terms for one batch: with
 ``freeze_backbone`` the encoder runs without gradient (JAX's stop-gradient
-on its outputs); the head's point draws come from one generator, or are
-given (``draws``, as the anchor's ``loss`` takes them). The module's train /
+on its outputs; the peft configs leave it off, so the gradient reaches the
+adapters and the optimizer's groups freeze the rest); the head's point
+draws come from one generator, or are given (``draws``, as the anchor's
+``loss`` takes them). The module's train /
 eval mode is the neck's BatchNorms' (batch statistics in ``loss``).
 """
 
@@ -23,7 +28,7 @@ import torch
 import torch.nn as nn
 
 from rsprompter_tpu_torch.models.dense_heads.mask2former_head import Mask2FormerHead
-from rsprompter_tpu_torch.models.necks.rsfpn import RSFeatureAggregator, RSSimpleFPN
+from rsprompter_tpu_torch.models.necks.rsfpn import RSSimpleFPN, build_aggregator
 from rsprompter_tpu_torch.models.preprocess import preprocess_images
 from rsprompter_tpu_torch.models.sam.configs import SamVisionConfig, sam_config
 from rsprompter_tpu_torch.models.sam.positional import (
@@ -43,12 +48,15 @@ class RSPrompterQuery(nn.Module):
         num_classes: int = 1,
         prompt_shape: Tuple[int, int] = (100, 5),
         select_layers: Tuple[int, ...] = tuple(range(1, 13, 2)),
+        aggregator_type: str = "multi",
         aggregator_hidden: int = 32,
         with_sincos: bool = True,
         freeze_backbone: bool = True,
         train_cfg: Any = None,
         test_cfg: Any = None,
         attn_impl: str = "fused",
+        lora_rank: int = 0,
+        lora_alpha: float = 32.0,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -59,12 +67,13 @@ class RSPrompterQuery(nn.Module):
         decoder_cfg = sam_config("base").mask_decoder_config
         if vcfg.output_channels != decoder_cfg.hidden_size:
             decoder_cfg = dataclasses.replace(decoder_cfg, hidden_size=vcfg.output_channels)
-        self.backbone = SamVisionEncoder(vcfg, attn_impl)
+        self.backbone = SamVisionEncoder(vcfg, attn_impl, lora_rank, lora_alpha)
         self.shared_image_embedding = SamPositionalEmbedding(
             vcfg.output_channels // 2, scale=vcfg.output_channels // 2
         )
-        self.neck_feature_aggregator = RSFeatureAggregator(
-            vcfg.hidden_size, aggregator_hidden, 256, select_layers, vcfg.num_hidden_layers
+        self.aggregator_type = aggregator_type
+        self.neck_feature_aggregator = build_aggregator(
+            aggregator_type, vcfg, aggregator_hidden, select_layers
         )
         self.neck_feature_spliter = RSSimpleFPN(backbone_channel=256)
         self.panoptic_head = Mask2FormerHead(
@@ -82,7 +91,8 @@ class RSPrompterQuery(nn.Module):
         image_pe = image_wide_positional_embeddings(
             self.shared_image_embedding, image_embeddings.shape[1]
         )
-        feats = self.neck_feature_spliter(self.neck_feature_aggregator(hidden_states))
+        neck_in = (image_embeddings,) if self.aggregator_type == "pseudo" else hidden_states
+        feats = self.neck_feature_spliter(self.neck_feature_aggregator(neck_in))
         return feats, image_embeddings, image_pe
 
     def loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,

@@ -1,6 +1,8 @@
-"""RSPrompter necks: ViT feature aggregator + ViTDet-style simple FPN (NHWC).
+"""RSPrompter necks: ViT feature aggregators + ViTDet-style simple FPN (NHWC).
 
-Counterpart of ``rsprompter_tpu/models/necks/rsfpn.py``. Module names mirror
+Counterpart of ``rsprompter_tpu/models/necks/rsfpn.py``: the multi-layer
+``RSFeatureAggregator`` and the peft configs' ``PseudoFeatureAggregator``
+(``aggregator_type='pseudo'``), then ``RSSimpleFPN``. Module names mirror
 the reference's torch ``Sequential`` / ``ModuleList`` indices
 (``downconvs.0.3``, ``fpn1.0``), so JAX variables convert mechanically.
 """
@@ -23,6 +25,39 @@ from rsprompter_tpu_torch.models.sam.common import (
 
 def _conv_bn_relu(cin: int, cout: int, k: int):
     return [Conv2d(cin, cout, k, padding=k // 2), BatchNorm2d(cout), nn.ReLU()]
+
+
+class PseudoFeatureAggregator(nn.Module):
+    """The encoder's image embeddings alone -> ``out_channels``: bias-free
+    1x1, 3x3 and 3x3 convs, each followed by a LayerNorm (JAX :56-70; the
+    reference's ``channel_fusion`` Sequential)."""
+
+    def __init__(self, in_channels: int, hidden_channels: int = 64,
+                 out_channels: int = 256):
+        super().__init__()
+        hc = hidden_channels
+        self.channel_fusion = nn.Sequential(
+            Conv2d(in_channels, hc, 1, bias=False), SamLayerNorm(hc),
+            Conv2d(hc, hc, 3, padding=1, bias=False), SamLayerNorm(hc),
+            Conv2d(hc, out_channels, 3, padding=1, bias=False), SamLayerNorm(out_channels),
+        )
+
+    def forward(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+        (x,) = inputs
+        return self.channel_fusion(x)
+
+
+def build_aggregator(aggregator_type: str, vcfg, hidden_channels: int,
+                     select_layers: Sequence[int]) -> nn.Module:
+    """The detectors' ``neck_feature_aggregator``: 'multi' reads the
+    encoder's hidden states, 'pseudo' its image embeddings alone, with
+    ``max(hidden_channels, 64)`` channels (JAX ``rsprompter_anchor.py:93-97``)."""
+    if aggregator_type == "pseudo":
+        return PseudoFeatureAggregator(vcfg.output_channels, max(hidden_channels, 64), 256)
+    if aggregator_type != "multi":
+        raise ValueError(f"aggregator_type={aggregator_type!r}: 'multi' or 'pseudo'")
+    return RSFeatureAggregator(vcfg.hidden_size, hidden_channels, 256, select_layers,
+                               vcfg.num_hidden_layers)
 
 
 class RSFeatureAggregator(nn.Module):

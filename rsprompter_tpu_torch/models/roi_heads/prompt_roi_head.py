@@ -7,7 +7,10 @@ with ``jax.image.resize``'s antialiased bilinear weights), then
 - ``loss`` (:120): sample proposals (gt boxes added), RoIAlign -> bbox head
   loss; the mask branch runs on the packed positive slots (the first
   ``num_samples * pos_fraction``), upsamples SAM's low-res masks bilinearly
-  to the gt size and takes the per-instance mask CE;
+  to the gt size and takes the per-instance mask CE there, or, with
+  ``mask_loss_resolution='low'`` (:171-182), resizes the targets to SAM's
+  mask size instead (antialiased bilinear, as ``jax.image.resize``
+  downsamples), thresholds them at 0.5 and takes the CE at that size;
 - ``predict`` (:218): RoIAlign -> bbox head -> per-class NMS, then
   full-frame SAM masks for the detections.
 """
@@ -62,8 +65,11 @@ class RSPrompterAnchorRoIPromptHead(nn.Module):
                  multimask_output: bool = False, num_samples: int = 256,
                  pos_fraction: float = 0.25,
                  target_stds: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.2),
-                 test_cfg: Any = None):
+                 mask_loss_resolution: str = "full", test_cfg: Any = None):
         super().__init__()
+        if mask_loss_resolution not in ("full", "low"):
+            raise ValueError(f"mask_loss_resolution={mask_loss_resolution!r}: 'full' or 'low'")
+        self.mask_loss_resolution = mask_loss_resolution
         self.num_classes = num_classes
         self.num_samples = num_samples
         self.pos_fraction = pos_fraction
@@ -140,8 +146,13 @@ class RSPrompterAnchorRoIPromptHead(nn.Module):
         g = gt_masks.shape[1]
         safe_gt = (smp.gt_inds[:, :m] - 1).clamp(0, g - 1)
         targets = take_per_image(gt_masks, safe_gt)
-        th, tw = targets.shape[-2:]
-        preds = resize(mask_logits, (b, m, th, tw), "bilinear")
+        if self.mask_loss_resolution == "full":
+            th, tw = targets.shape[-2:]
+            preds = resize(mask_logits, (b, m, th, tw), "bilinear")
+        else:
+            th, tw = mask_logits.shape[-2:]
+            preds = mask_logits
+            targets = (resize(targets.float(), (b, m, th, tw), "bilinear") >= 0.5).float()
         losses["loss_mask"] = mask_cross_entropy(
             preds.reshape(b * m, th, tw), targets.reshape(b * m, th, tw),
             valid=pos_mask.reshape(-1),

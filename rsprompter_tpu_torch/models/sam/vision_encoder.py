@@ -24,6 +24,16 @@ The config key ``attn_impl`` picks the block's route, as in JAX
   LN2 and ``MLPBlock`` in torch (JAX runs them outside any Pallas kernel on
   this route). K12''s backward is plain torch products, as in JAX.
 
+``lora_rank > 0`` (the peft configs: r 16, alpha 32 on ``qkv``) adds JAX's
+low-rank adapter to every block's qkv, ``qkv_lora_a`` (C, r) and
+``qkv_lora_b`` (r, 3C) scaled by ``lora_alpha / r``, and takes JAX's LoRA
+route on both ``attn_impl`` values: JAX runs its LN1 + qkv kernels only
+without LoRA (``vision_encoder.py:389-403``, ``:321``), so LN1 and the
+window partition are plain, as on ``'flash'``, and the qkv product with its
+adapter is K12' (``ops.fused_mlp.qkv_headmajor_lora``); the rel-pos factors
+and the MLP follow the route (kernel A on ``'fused'``, which JAX keeps with
+LoRA, ``:437-451``). Kernels B and B' never run there.
+
 Weights are cast to the activations' dtype at each use, so fp32 master
 parameters train through bf16 kernels. ``impl='plain'`` runs either route
 through the plain forward versions under torch autograd (the oracle the GPU
@@ -61,10 +71,12 @@ class SamPatchEmbeddings(nn.Module):
 
 
 class SamVisionAttention(nn.Module):
-    """Parameters of one block's attention (qkv, proj, rel-pos tables)."""
+    """Parameters of one block's attention (qkv, proj, rel-pos tables and,
+    with ``lora_rank > 0``, the qkv adapter in JAX's layout and names)."""
 
     def __init__(self, hidden_size: int, num_heads: int, input_size: Tuple[int, int],
-                 qkv_bias: bool = True, use_rel_pos: bool = True):
+                 qkv_bias: bool = True, use_rel_pos: bool = True, lora_rank: int = 0,
+                 lora_alpha: float = 32.0):
         super().__init__()
         head_dim = hidden_size // num_heads
         self.num_heads = num_heads
@@ -74,13 +86,27 @@ class SamVisionAttention(nn.Module):
         if use_rel_pos:
             self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, head_dim))
             self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, head_dim))
+        self.lora_rank = lora_rank
+        if lora_rank:
+            self.lora_scale = lora_alpha / lora_rank
+            self.qkv_lora_a = nn.Parameter(torch.empty(hidden_size, lora_rank))
+            self.qkv_lora_b = nn.Parameter(torch.empty(lora_rank, 3 * hidden_size))
+            self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        """The adapter's init, JAX's: a ~ N(0, 1/r), b = 0 (the block starts
+        as the pretrained one)."""
+        if self.lora_rank:
+            self.qkv_lora_a.normal_(0.0, 1.0 / self.lora_rank)
+            self.qkv_lora_b.zero_()
 
 
 class SamVisionLayer(nn.Module):
     """Pre-LN ViT block; ``window_size > 0`` attends within zero-padded windows."""
 
     def __init__(self, config: SamVisionConfig, window_size: int,
-                 attn_impl: str = "fused"):
+                 attn_impl: str = "fused", lora_rank: int = 0, lora_alpha: float = 32.0):
         super().__init__()
         c = config.hidden_size
         grid = config.grid_size
@@ -91,41 +117,31 @@ class SamVisionLayer(nn.Module):
         self.attn = SamVisionAttention(
             c, config.num_attention_heads,
             (window_size, window_size) if window_size else (grid, grid),
-            config.qkv_bias, config.use_rel_pos,
+            config.qkv_bias, config.use_rel_pos, lora_rank, lora_alpha,
         )
         self.layer_norm2 = SamLayerNorm(c, eps=self.eps)
         self.mlp = MLPBlock(c, config.mlp_dim)
 
     def forward(self, x: torch.Tensor, impl: str = "kernel") -> torch.Tensor:
-        if self.attn_impl == "flash":
-            return self._forward_flash(x, impl == "plain")
         plain = impl == "plain"
-        b, h, w, c = x.shape
         attn = self.attn
-        nh = attn.num_heads
-        win = self.window_size
-        x = x.contiguous()
+        if self.attn_impl == "fused" and not attn.lora_rank:
+            x = x.contiguous()
+            qkv_fn = fm.ln_qkv_headmajor_plain if plain else fm.ln_qkv_headmajor
+            qkv = qkv_fn(
+                x, self.layer_norm1.weight, self.layer_norm1.bias,
+                attn.qkv.weight.to(x.dtype), self._qkv_bias(x), 3 * attn.num_heads,
+                self.window_size, self.eps,
+            )  # (N, 3n, S, d)
+        else:  # plain LN1, then the window partition zero-padded after it
+            z = fm.layer_norm(x, self.layer_norm1.weight, self.layer_norm1.bias, self.eps)
+            qkv = self._qkv(fm.window_partition(z, self.window_size), plain)
+        x = x + self._attend(qkv, x.shape[:3], plain)
+        if self.attn_impl == "flash":
+            return x + self.mlp(self.layer_norm2(x))
+        b, h, w, c = x.shape
+        x = x.reshape(-1, c).contiguous()
         dt = x.dtype
-        qkv_bias = attn.qkv.bias
-        if qkv_bias is None:
-            qkv_bias = torch.zeros(3 * c, dtype=dt, device=x.device)
-        qkv_fn = fm.ln_qkv_headmajor_plain if plain else fm.ln_qkv_headmajor
-        qkv = qkv_fn(
-            x, self.layer_norm1.weight, self.layer_norm1.bias, attn.qkv.weight.to(dt),
-            qkv_bias.to(dt), 3 * nh, win, self.eps,
-        )  # (N, 3n, S, d)
-        hw = (win, win) if win else (h, w)
-        n_img, _, s, d = qkv.shape
-        if attn.use_rel_pos:
-            fh, fw = rel_pos_factors(qkv[:, :nh], attn.rel_pos_h, attn.rel_pos_w, hw)
-        else:
-            fh = qkv.new_zeros((n_img, nh, s, hw[0]))
-            fw = qkv.new_zeros((n_img, nh, s, hw[1]))
-        attn_fn = fa.relpos_attention_plain if plain else fa.relpos_attention
-        o = attn_fn(qkv, fh.contiguous(), fw.contiguous(), hw)  # (N, n, S, d)
-        o = attn.proj(o.permute(0, 2, 1, 3).reshape(n_img, s, nh * d))
-        o = fm.window_unpartition(o, (b, h, w), win)
-        x = (x + o).reshape(-1, c).contiguous()
         mlp_fn = fm.ln_mlp_residual_plain if plain else fm.ln_mlp_residual
         mlp = self.mlp
         y = mlp_fn(
@@ -135,34 +151,44 @@ class SamVisionLayer(nn.Module):
         )
         return y.reshape(b, h, w, c)
 
-    def _forward_flash(self, x: torch.Tensor, plain: bool) -> torch.Tensor:
-        b, h, w, c = x.shape
+    def _qkv_bias(self, x: torch.Tensor) -> torch.Tensor:
+        bias = self.attn.qkv.bias
+        if bias is None:
+            return torch.zeros(self.attn.qkv.weight.shape[0], dtype=x.dtype, device=x.device)
+        return bias.to(x.dtype)
+
+    def _qkv(self, z: torch.Tensor, plain: bool) -> torch.Tensor:
+        """z (N, S, C), normalised and partitioned -> head-major qkv (N, 3n,
+        S, d) through K12', with the LoRA adapter where the block has one."""
         attn = self.attn
-        nh = attn.num_heads
-        win = self.window_size
-        dt = x.dtype
-        z = fm.layer_norm(x, self.layer_norm1.weight, self.layer_norm1.bias, self.eps)
-        z = fm.window_partition(z, win)  # (N, S, C), zero pad after LN1
-        n_img, s, _ = z.shape
-        qkv_bias = attn.qkv.bias
-        if qkv_bias is None:
-            qkv_bias = torch.zeros(3 * c, dtype=dt, device=x.device)
-        qkv_fn = fm.qkv_headmajor_plain if plain else fm.qkv_headmajor
-        qkv = qkv_fn(z.reshape(n_img * s, c), attn.qkv.weight.to(dt), qkv_bias.to(dt),
-                     3 * nh, n_img)  # (N, 3n, S, d)
-        hw = (win, win) if win else (h, w)
-        d = qkv.shape[-1]
+        n_img, s, c = z.shape
+        dt = z.dtype
+        args = (z.reshape(n_img * s, c), attn.qkv.weight.to(dt), self._qkv_bias(z))
+        if attn.lora_rank:
+            fn = fm.qkv_headmajor_lora_plain if plain else fm.qkv_headmajor_lora
+            return fn(*args, attn.qkv_lora_a.to(dt), attn.qkv_lora_b.to(dt), attn.lora_scale,
+                      3 * attn.num_heads, n_img)
+        fn = fm.qkv_headmajor_plain if plain else fm.qkv_headmajor
+        return fn(*args, 3 * attn.num_heads, n_img)
+
+    def _attend(self, qkv: torch.Tensor, grid, plain: bool) -> torch.Tensor:
+        """Head-major qkv -> the attention branch's output on the token grid
+        (B, H, W, C): the rel-pos factors (in fp32 on ``'flash'``, as JAX's
+        flash route computes them), kernel C, proj, unpartition."""
+        attn = self.attn
+        nh, win = attn.num_heads, self.window_size
+        n_img, _, s, d = qkv.shape
+        hw = (win, win) if win else tuple(grid[1:])
         if attn.use_rel_pos:
             fh, fw = rel_pos_factors(qkv[:, :nh], attn.rel_pos_h, attn.rel_pos_w, hw,
-                                     fp32=True)
+                                     fp32=self.attn_impl == "flash")
         else:
             fh = qkv.new_zeros((n_img, nh, s, hw[0]))
             fw = qkv.new_zeros((n_img, nh, s, hw[1]))
         attn_fn = fa.relpos_attention_plain if plain else fa.relpos_attention
         o = attn_fn(qkv, fh.contiguous(), fw.contiguous(), hw)  # (N, n, S, d)
         o = attn.proj(o.permute(0, 2, 1, 3).reshape(n_img, s, nh * d))
-        x = x + fm.window_unpartition(o, (b, h, w), win)
-        return x + self.mlp(self.layer_norm2(x))
+        return fm.window_unpartition(o, tuple(grid), win)
 
 
 class SamVisionNeck(nn.Module):
@@ -182,9 +208,11 @@ class SamVisionNeck(nn.Module):
 
 class SamVisionEncoder(nn.Module):
     """Full SAM image encoder. ``attn_impl``: the block route, 'fused'
-    (default) or 'flash'; ``impl``: 'kernel' (default) or 'plain'."""
+    (default) or 'flash'; ``impl``: 'kernel' (default) or 'plain';
+    ``lora_rank`` > 0: the qkv adapter in every block."""
 
-    def __init__(self, config: SamVisionConfig, attn_impl: str = "fused"):
+    def __init__(self, config: SamVisionConfig, attn_impl: str = "fused",
+                 lora_rank: int = 0, lora_alpha: float = 32.0):
         super().__init__()
         if attn_impl not in ("fused", "flash"):
             raise ValueError(
@@ -204,7 +232,7 @@ class SamVisionEncoder(nn.Module):
         self.layers = nn.ModuleList(
             SamVisionLayer(
                 config, 0 if i in config.global_attn_indexes else config.window_size,
-                attn_impl,
+                attn_impl, lora_rank, lora_alpha,
             )
             for i in range(config.num_hidden_layers)
         )

@@ -530,3 +530,41 @@ def qkv_headmajor(x, w, b, heads3: int, n: int):
     the plain version on the CPU. Returns (N, heads3, S, 64). Its backward
     is :func:`qkv_headmajor_bwd` on every device."""
     return _QkvHeadmajor.apply(x, w, b, heads3, n)
+
+
+# --------------------------------------------------------------------------
+# K12' with the LoRA adapter (JAX's LoRA route computes it in XLA)
+# --------------------------------------------------------------------------
+
+LORA_K_PAD = 64  # the adapter's columns of K12''s operands, padded to one K slice
+
+
+def qkv_headmajor_lora_plain(x, w, b, la, lb, scale: float, heads3: int, n: int):
+    """x (N*S, C) -> head-major x W^T + b + ((x la) lb) * scale (N, heads3,
+    S, d), as JAX's ``_HeadMajorDense`` with ``lora`` (``vision_encoder.py``
+    :186-193): each product in x's dtype, the adapter's added after the
+    bias. la (C, r), lb (r, heads3*d), as JAX lays them out."""
+    dt = x.dtype
+    y = (x @ w.to(dt).t()) + b.to(dt)
+    y = y + ((x @ la.to(dt)) @ lb.to(dt)) * scale
+    return y.reshape(n, -1, heads3, y.shape[-1] // heads3).permute(0, 2, 1, 3).contiguous()
+
+
+def qkv_headmajor_lora(x, w, b, la, lb, scale: float, heads3: int, n: int):
+    """K12' with the adapter folded into its K on CUDA tensors: one launch of
+    ``[x | s (x la) | 0] [W | lb^T | 0]^T + b`` (K = C + 64), both terms
+    summed in the kernel's fp32 accumulators before its one rounding; the
+    r-wide ``x la`` is a torch product (JAX's is XLA too), rounded to x's
+    dtype before the GEMM where JAX rounds ``(x la) lb``. The backward is
+    K12''s torch products on the widened operands; autograd through the
+    concatenations gives W and lb their slices and la, x theirs. The plain
+    version on the CPU."""
+    if x.device.type == "cpu":
+        return qkv_headmajor_lora_plain(x, w, b, la, lb, scale, heads3, n)
+    t, r = x.shape[0], la.shape[1]
+    if r > LORA_K_PAD:
+        raise ValueError(f"qkv_headmajor_lora: rank {r} exceeds {LORA_K_PAD}")
+    dt = x.dtype
+    xa = torch.cat([x, (x @ la.to(dt)) * scale, x.new_zeros(t, LORA_K_PAD - r)], dim=1)
+    wb = torch.cat([w, lb.to(dt).t(), w.new_zeros(w.shape[0], LORA_K_PAD - r)], dim=1)
+    return _QkvHeadmajor.apply(xa, wb, b, heads3, n)

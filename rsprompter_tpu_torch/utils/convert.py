@@ -17,6 +17,8 @@ torch converter):
   scale / embedding          .weight                      as is
   mean / var (batch_stats)   .running_mean / .running_var as is
   anything else              same name                    as is
+    (the LoRA adapters ``qkv_lora_a`` (C, r) and ``qkv_lora_b`` (r, 3C)
+    keep JAX's layout and names)
 
 Module names ``layers_3`` become ``layers.3`` (every trailing ``_N`` is an
 index) and flax's ``bn`` wrapper level disappears. The two linears fed by a

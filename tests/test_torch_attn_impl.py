@@ -181,13 +181,11 @@ def test_unknown_attn_impl_raises(attn_impl):
 
 
 @pytest.mark.parametrize("model,match", [
-    (dict(type="RSPrompterQuery", peft_config=dict(r=16)), "peft_config"),
     (dict(type="SAMDet"), "training 'SAMDet'"),
     (dict(type="SAMSegMaskRCNN"), "training 'SAMSegMaskRCNN'"),
     (dict(type="SAMSegMask2Former"), "training 'SAMSegMask2Former'"),
-], ids=["query", "samdet", "samseg_maskrcnn", "samseg_mask2former"])
+], ids=["samdet", "samseg_maskrcnn", "samseg_mask2former"])
 def test_build_trainer_raises_for_later_slices(model, match):
-    """The query family trains, but its LoRA configs (a later slice) do not
-    yet; the trainer refuses SAMDet and the SAM-seg baselines."""
+    """The trainer refuses SAMDet and the SAM-seg baselines (a later slice)."""
     with pytest.raises(NotImplementedError, match=match):
         build_trainer({"model": dict(model, vision_config=ODD_KW)}, device="cpu")

@@ -158,6 +158,25 @@ def test_qkv_headmajor_backward_on_cuda(gen):
     _close_each([t.grad for t in leaves], [t.grad for t in ref])
 
 
+@pytest.mark.parametrize("n,s,r", [(1, 37, 16), (3, 100, 4), (5, 196, 64)])
+def test_qkv_headmajor_lora_kernel(gen, n, s, r):
+    """K12' with the LoRA adapter folded into its K (C + 64), forward and
+    every gradient (x, W, b, la, lb) against the plain version's autograd."""
+    c, heads3 = 768, 36
+    args = (_rnd(gen, n * s, c), _rnd(gen, heads3 * 64, c, scale=0.02),
+            _rnd(gen, heads3 * 64, scale=0.02), _rnd(gen, c, r, scale=1.0 / r),
+            _rnd(gen, r, heads3 * 64, scale=0.02))
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    got = fm.qkv_headmajor_lora(*leaves, 2.0, heads3, n)
+    ref_leaves = [t.float().requires_grad_(True) for t in args]
+    ref = fm.qkv_headmajor_lora_plain(*ref_leaves, 2.0, heads3, n)
+    _close(got, ref)
+    dy = _rnd(gen, *got.shape)
+    got.backward(dy)
+    ref.backward(dy.float())
+    _close_each([t.grad for t in leaves], [t.grad for t in ref_leaves])
+
+
 @pytest.mark.parametrize("c", [768, 1024, 1280])
 def test_qkv_gemm_widths(gen, c):
     """Kernel B and K12' at ViT-B/L/H widths: 300 rows (not a multiple of the

@@ -265,7 +265,7 @@ def test_warmup_cosine_schedule_matches_optax(step):
 def test_freeze_paths_match_jax():
     for cfg in (dict(TINY), dict(TINY, train_backbone=False, decoder_freeze=True)):
         freeze, override = jax_freeze_paths_for(cfg)
-        assert override == [] and freeze_paths_for(cfg) == freeze
+        assert override == [] and freeze_paths_for(cfg) == (freeze, override)
 
 
 def test_default_config_freezes_encoder_and_decoder():
