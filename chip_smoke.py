@@ -124,7 +124,23 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    plain with every ``qkv_lora_b`` zeroed moved by more than twice that);
    then 3 steps of ``rsprompter_query-nwpu-peft-512.py`` after a warm-up
    (finite, the adapters move and nothing else of the encoder, B and B'
-   never launch).
+   never launch);
+13. SAM-det and the SAM-seg baselines: ``init_detector`` /
+   ``inference_detector`` on ``samdet-nwpu.py`` (fp32; ResNet-50 + FPN +
+   RPN + bbox head, its boxes prompting a complete SAM; the encoder's
+   blocks through the bf16 kernels), ``samseg-maskrcnn-nwpu.py`` (bf16, the
+   FCN head's RoI masks pasted into their boxes) and
+   ``samseg-mask2former-nwpu.py`` (bf16, 70 queries, the stock head) at
+   ViT-B 1024^2, batch 2, seeded weights, phase 3's images: a warm-up and
+   10 timed forwards each (ms/batch, images/s, peak memory, the model's
+   predict alone), A, B, C launched as phase 3 counts, every output finite,
+   one profiled forward's busy time, idle share, launches and syncs; for
+   SAM-det its fp32 encoder through the kernels within ``ENCODER_TOL`` of
+   plain fp32, and ``oracle_predict`` on seeded GT (scores equal to valid,
+   labels the GT's); for Mask R-CNN mask probabilities (2, 100, 28, 28),
+   each pasted mask empty outside its box; then ``tools.test``'s main over
+   phase 9's synthetic set with Mask R-CNN (paste; every key of JAX's tool
+   finite) and with SAM-det ``--oracle`` (bbox mAP 1.0).
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -2616,6 +2632,217 @@ def peft_query_train(kernels, config: str = PEFT_QUERY_CONFIG, device: str = "cu
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 13: SAM-det and the SAM-seg baselines' predict
+# ---------------------------------------------------------------------------
+
+SAM_BASELINES = {
+    "samdet": os.path.join(ROOT, "configs", "rsprompter", "samdet-nwpu.py"),
+    "samseg_maskrcnn": os.path.join(ROOT, "configs", "rsprompter", "samseg-maskrcnn-nwpu.py"),
+    "samseg_mask2former": os.path.join(ROOT, "configs", "rsprompter",
+                                       "samseg-mask2former-nwpu.py"),
+}
+# oracle prompts of phase 13: (x1, y1, x2, y2) in each synthetic image's
+# original pixels, and their classes
+ORACLE_GT = (((60, 80, 400, 300), (500, 420, 900, 760), (100, 500, 300, 780)),
+             ((40, 30, 380, 520), (420, 600, 840, 940)))
+ORACLE_LABELS = ((3, 0, 9), (5, 1))
+
+
+def oracle_gts():
+    """Phase 13's ground truth for ``synthetic_images``, as ``load_raw``
+    gives it (original pixels, nothing ignored)."""
+    import numpy as np
+
+    return [dict(gt_bboxes=np.asarray(b, np.float32), gt_labels=np.asarray(lab),
+                 gt_ignore_flags=np.zeros(len(b), bool))
+            for b, lab in zip(ORACLE_GT, ORACLE_LABELS)]
+
+
+def check_pasted(preds) -> int:
+    """Every pasted mask empty outside its box (corners rounded outward, as
+    ``paste_masks_np`` rounds them). Returns the masks checked."""
+    import numpy as np
+
+    n = 0
+    for p in preds:
+        for box, mask in zip(p["bboxes"], p["masks"]):
+            x1, y1 = (int(v) for v in np.floor(box[:2]))
+            x2, y2 = (int(v) for v in np.ceil(box[2:]))
+            inside = np.zeros_like(mask)
+            inside[max(y1, 0):max(y2, 0), max(x1, 0):max(x2, 0)] = True
+            if (mask & ~inside).any():
+                raise AssertionError(f"Mask R-CNN: a pasted mask reaches outside its box {box}")
+            n += 1
+    return n
+
+
+def sam_baseline_predict(name: str, config: str, kernels, iters: int, imgs, profile_dir: str,
+                         device: str):
+    """One family of phase 13 through ``init_detector`` / ``inference_detector``:
+    timing, launches, finiteness, a profiled forward and the family's own
+    gates. Returns the launch counts of the timed forwards."""
+    import numpy as np
+    import torch
+
+    from rsprompter_tpu_torch.apis.inference import inference_detector, init_detector
+    from rsprompter_tpu_torch.models.preprocess import preprocess_images
+
+    on_card = device == "cuda"
+    model = init_detector(config, device=device, batch_size=2, seed=0)
+    det = model.model
+    enc = det.segmentor.vision_encoder if name == "samdet" else det.backbone
+    dtype = next(enc.parameters()).dtype
+    preds = inference_detector(model, imgs)  # warm-up
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.reset_counts()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        preds = inference_detector(model, imgs)
+        if on_card:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = {k.name: dict(k.variant_launches) for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
+    if on_card:
+        depth = enc.config.num_hidden_layers
+        n_global = len(enc.config.global_attn_indexes)
+        per_kind = {"global": n_global * iters, "window": (depth - n_global) * iters}
+        expect = {"ln_mlp_residual": mlp_launches(depth * iters),
+                  "ln_rows": dict(per_kind, mlp=depth * iters),
+                  "ln_qkv_headmajor": per_kind, "relpos_attention": per_kind,
+                  "qkv_headmajor": {}}
+        for kname, want in expect.items():
+            if counts[kname] != want:
+                raise AssertionError(f"{name}: {kname} launches {counts[kname]}, "
+                                     f"expected {want} over {iters} forwards")
+    n_dets = []
+    for img, p in zip(imgs, preds):
+        h, w = img.shape[:2]
+        if not all(np.isfinite(p[k]).all() for k in ("bboxes", "scores")):
+            raise AssertionError(f"{name}: non-finite detections")
+        if p["masks"].shape != (len(p["bboxes"]), h, w) or p["masks"].dtype != np.bool_:
+            raise AssertionError(f"{name}: masks {p['masks'].shape} for image {h}x{w}")
+        n_dets.append(len(p["bboxes"]))
+    batch, _ = model.make_batch(imgs)
+    model_ms = []
+    for _ in range(3):  # the model alone, without the host's pre- and post-processing
+        t0 = time.perf_counter()
+        dets, probs = det.predict(batch)
+        if on_card:
+            torch.cuda.synchronize()
+        model_ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(torch.isfinite(t.float()).all() for t in (dets.boxes, dets.scores, probs)):
+        raise AssertionError(f"{name}: non-finite predict outputs")
+    ms = statistics.median(times)
+    log(f"{name}: predict through inference_detector, ViT-B 1024^2, batch 2, {dtype}: "
+        f"{ms:.2f} ms/batch median of {iters} ({', '.join(f'{t:.2f}' for t in times)}), "
+        f"{2e3 / ms:.3f} images/s, peak memory {peak_gb:.2f} GiB; model.predict alone "
+        f"{statistics.median(model_ms):.2f} ms median of 3; detections per image "
+        f"{n_dets}; masks {tuple(probs.shape)}; launches {counts}")
+
+    if name == "samdet":
+        x = preprocess_images(batch["images"])
+        with torch.no_grad():
+            out_k = enc(x)
+            enc.impl = "plain"
+            out_p = enc(x)
+            enc.impl = "kernel"
+        worst = worst_rel_diff(out_k, out_p)
+        dts = {str(t.dtype) for t in (out_k[0],) + out_k[1]}
+        log(f"samdet: fp32 encoder, kernels (bf16 inside) vs plain fp32, worst "
+            f"max|diff|/max|plain| {worst:.4g} over neck + {len(out_k[1])} hidden states "
+            f"(tol {ENCODER_TOL}); outputs {dts}")
+        if worst > ENCODER_TOL or dts != {"torch.float32"}:
+            raise AssertionError(f"samdet: fp32 encoder {worst:.4g} > {ENCODER_TOL} or {dts}")
+        model.oracle = True
+        gts = oracle_gts()
+        o_dets, o_probs, _ = model.predict_batch(imgs, gts=gts)
+        model.oracle = False
+        o_batch, _ = model.make_batch(imgs, gts=gts)
+        if not (torch.equal(o_dets.scores, o_batch["gt_valid"].float())
+                and torch.equal(o_dets.labels, o_batch["gt_labels"])
+                and torch.equal(o_dets.valid, o_batch["gt_valid"])):
+            raise AssertionError("samdet: oracle scores / labels are not the GT's")
+        log(f"samdet: oracle_predict on {sum(len(g['gt_bboxes']) for g in gts)} GT boxes: "
+            f"scores equal valid, labels the GT's; masks {tuple(o_probs.shape)}")
+    if name == "samseg_maskrcnn":
+        if tuple(probs.shape) != (2, 100, 28, 28):
+            raise AssertionError(f"Mask R-CNN: mask probabilities {tuple(probs.shape)}")
+        log(f"samseg_maskrcnn: {check_pasted(preds)} pasted masks, each empty outside its box")
+
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            inference_detector(model, imgs)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = device_busy_ms(prof)
+        log(f"{name} profile: device busy {busy:.2f} ms (union of kernel intervals) in a "
+            f"profiled forward of {wall_ms:.2f} ms, idle share {1 - busy / wall_ms:.4f}; "
+            f"against the unprofiled median {ms:.2f} ms, idle share {1 - busy / ms:.4f}; "
+            f"host calls {host_counts(prof)}")
+        if profile_dir:
+            os.makedirs(profile_dir, exist_ok=True)
+            table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
+            with open(os.path.join(profile_dir, f"{name}_profile.txt"), "w") as f:
+                f.write(table)
+    del model, det, enc
+    if on_card:
+        torch.cuda.empty_cache()
+    return counts
+
+
+def sam_baselines_phase(kernels, iters: int, profile_dir: str = "", configs=None,
+                        device: str = "cuda", eval_sizes=EVAL_SIZES):
+    """Phase 13: SAM-det (fp32, its encoder through the bf16 kernels), SAM-seg
+    Mask R-CNN (bf16, RoI masks pasted) and SAM-seg Mask2Former (bf16, 70
+    queries) at ViT-B 1024^2, batch 2, on phase 3's images; then
+    ``tools.test`` over phase 9's synthetic set with Mask R-CNN (paste:
+    every key finite) and with SAM-det ``--oracle`` (bbox mAP 1.0).
+    Returns each family's launch counts."""
+    import tempfile
+
+    import numpy as np
+
+    from rsprompter_tpu_torch.tools import test as tool
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_coco
+
+    t_start = time.time()
+    configs = configs or SAM_BASELINES
+    imgs = synthetic_images(0)
+    counts = {name: sam_baseline_predict(name, cfg, kernels, iters, imgs, profile_dir, device)
+              for name, cfg in configs.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        synthetic_coco(tmp, NWPU_CLASSES, eval_sizes, write_png, seed=0)
+        data = ["--cfg-options", f"test_dataloader.dataset.data_root={tmp}",
+                "test_dataloader.dataset.ann_file=ann.json",
+                "test_dataloader.dataset.data_prefix.img=imgs"]
+        rcnn = tool.main([configs["samseg_maskrcnn"], "--device", device] + data)
+        bad = [k for k in JAX_TOOL_KEYS if not np.isfinite(rcnn["metrics"].get(k, float("nan")))]
+        if bad or rcnn["inferencer"].mask_mode != "paste":
+            raise AssertionError(f"Mask R-CNN tools.test: keys missing or not finite {bad}, "
+                                 f"mask mode {rcnn['inferencer'].mask_mode}")
+        oracle = tool.main([configs["samdet"], "--oracle", "--device", device] + data)
+        if oracle["metrics"]["coco/bbox_mAP"] != 1.0:
+            raise AssertionError(f"SAM-det --oracle: bbox mAP {oracle['metrics']}")
+    for what, r in (("samseg_maskrcnn", rcnn), ("samdet --oracle", oracle)):
+        t = r["timing"]
+        log(f"tools.test {what}: {t['images']} images in {t['wall_s']:.3f} s "
+            f"({t['images'] / t['wall_s']:.3f} images/s), predict {t['predict_s']:.3f} s, "
+            f"metric.process {t['process_s']:.3f} s; metrics " + json.dumps(r["metrics"]))
+    del rcnn, oracle
+    log(f"phase 13: {time.time() - t_start:.1f} s")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10,
@@ -2661,6 +2888,8 @@ def main() -> int:
     paths["train_loop"] = train_loop_phase(kernels, args.profile_dir)
     rows += lora_kernel_rows(dev)
     paths["peft_train_step"] = peft_phase(kernels, args.train_steps, args.profile_dir)
+    for name, c in sam_baselines_phase(kernels, args.iters, args.profile_dir).items():
+        paths[f"{name}_predict"] = c
     out = []
     for r in rows:
         name, variant = r["kernel"].name, r["variant"]

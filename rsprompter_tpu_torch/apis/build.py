@@ -1,14 +1,16 @@
 """Model builder: reference-flavoured config dict -> torch detector.
 
-Counterpart of ``rsprompter_tpu/apis/build.py`` for the families this port
-covers so far: ``type='RSPrompterAnchor'`` and ``type='RSPrompterQuery'``
-(predict and the train step each). Keeps the key vocabulary
+Counterpart of ``rsprompter_tpu/apis/build.py`` (:102-135) for every
+family: ``type='RSPrompterAnchor'`` and ``type='RSPrompterQuery'`` (predict
+and the train step each), ``'SAMDet'``, ``'SAMSegMaskRCNN'`` and
+``'SAMSegMask2Former'`` (predict). Keeps the key vocabulary
 (``hf_sam_pretrain_name``, ``prompt_shape``, ``num_classes``, ``train_cfg``,
 ``test_cfg``, ``bf16``, ``attn_impl``, ``train_backbone``,
 ``decoder_freeze``, ``num_samples``, ``pos_fraction``, ``peft_config``,
-``aggregator_type``, ``mask_loss_resolution``, the tiny-model
-``vision_config`` override and the ``rpn_strides`` / ``roi_strides``
-ladders), and derives the optimizer's freeze and override paths
+``aggregator_type``, ``mask_loss_resolution``, ``resnet_depth``, the
+tiny-model ``vision_config`` override -- SAM-det's segmentor takes it too,
+where JAX ignores it -- and the ``rpn_strides`` / ``roi_strides`` ladders),
+and derives the optimizer's freeze and override paths
 (``freeze_paths_for``).
 
 ``attn_impl`` picks the encoder's route (``models/sam/vision_encoder.py``):
@@ -27,7 +29,12 @@ import torch
 import torch.nn as nn
 
 from rsprompter_tpu_torch.models.detectors.rsprompter_anchor import RSPrompterAnchor
-from rsprompter_tpu_torch.models.detectors.rsprompter_query import RSPrompterQuery
+from rsprompter_tpu_torch.models.detectors.rsprompter_query import (
+    RSPrompterQuery,
+    SAMSegMask2Former,
+)
+from rsprompter_tpu_torch.models.detectors.samdet import SAMDet
+from rsprompter_tpu_torch.models.detectors.two_stage import SAMSegMaskRCNN
 from rsprompter_tpu_torch.models.sam.common import (
     Conv2d,
     FastConvTranspose2x2,
@@ -39,6 +46,8 @@ from rsprompter_tpu_torch.models.sam.common import (
 from rsprompter_tpu_torch.models.sam.configs import SamVisionConfig
 from rsprompter_tpu_torch.models.sam.positional import SamPositionalEmbedding
 
+FAMILIES = ("RSPrompterAnchor", "RSPrompterQuery", "SAMDet", "SAMSegMaskRCNN",
+            "SAMSegMask2Former")
 _ARCH_SELECT_LAYERS = {
     "base": tuple(range(1, 13, 2)),
     "large": tuple(range(1, 25, 2)),
@@ -58,7 +67,7 @@ def build_detector(model_cfg: Dict[str, Any]) -> nn.Module:
     """Build the detector module (fp32 parameters) from a config dict."""
     cfg = dict(model_cfg)
     mtype = cfg.pop("type")
-    if mtype not in ("RSPrompterAnchor", "RSPrompterQuery"):
+    if mtype not in FAMILIES:
         raise NotImplementedError(f"detector type '{mtype}' is not ported to torch yet")
     arch = _arch_from_cfg(cfg)
     peft = cfg.get("peft_config") or {}
@@ -66,29 +75,40 @@ def build_detector(model_cfg: Dict[str, Any]) -> nn.Module:
         arch=arch,
         image_size=cfg.get("image_size", 1024),
         num_classes=cfg.get("num_classes", 1),
-        prompt_shape=tuple(cfg.get("prompt_shape", (100, 5))),
+        test_cfg=cfg.get("test_cfg"),
+        attn_impl=cfg.get("attn_impl", "fused"),
+        train_cfg=cfg.get("train_cfg"),
+    )
+    if cfg.get("vision_config") is not None:
+        common["vision_config"] = SamVisionConfig(**cfg["vision_config"])
+    if mtype in ("RSPrompterAnchor", "SAMSegMaskRCNN", "SAMDet"):
+        for key in ("rpn_strides", "roi_strides"):
+            if cfg.get(key) is not None:
+                common[key] = tuple(cfg[key])
+    samples = dict(num_samples=cfg.get("num_samples", 512),
+                   pos_fraction=cfg.get("pos_fraction", 0.25))
+    if mtype == "SAMDet":
+        return SAMDet(**common, **samples, resnet_depth=cfg.get("resnet_depth", 50))
+    common.update(
         select_layers=tuple(cfg.get("select_layers", _ARCH_SELECT_LAYERS[arch])),
         aggregator_type=cfg.get("aggregator_type", "multi"),
         aggregator_hidden=cfg.get("aggregator_hidden", 32),
-        with_sincos=cfg.get("with_sincos", True),
-        test_cfg=cfg.get("test_cfg"),
-        attn_impl=cfg.get("attn_impl", "fused"),
         lora_rank=peft.get("r", 0),
         lora_alpha=peft.get("lora_alpha", 32.0),
         # with LoRA the encoder runs under autograd: the optimizer's groups
         # freeze all of it but the adapters (JAX :96, :110)
         freeze_backbone=cfg.get("peft_config") is None and not cfg.get("train_backbone", False),
-        train_cfg=cfg.get("train_cfg"),
     )
-    if cfg.get("vision_config") is not None:
-        common["vision_config"] = SamVisionConfig(**cfg["vision_config"])
+    if mtype == "SAMSegMaskRCNN":
+        return SAMSegMaskRCNN(**common, **samples)
+    common.update(prompt_shape=tuple(cfg.get("prompt_shape", (100, 5))),
+                  with_sincos=cfg.get("with_sincos", True))
+    if mtype == "SAMSegMask2Former":
+        return SAMSegMask2Former(**common)
     if mtype == "RSPrompterQuery":
         if not cfg.get("decoder_plus", True):
             raise NotImplementedError("decoder_plus=False is not ported to torch yet")
         return RSPrompterQuery(**common)
-    for key in ("rpn_strides", "roi_strides"):
-        if cfg.get(key) is not None:
-            common[key] = tuple(cfg[key])
     return RSPrompterAnchor(
         **common,
         multimask_output=cfg.get("multimask_output", False),

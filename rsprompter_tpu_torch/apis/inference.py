@@ -7,7 +7,16 @@ with the BGR ImageNet mean, uint8 BGR batch -- with OpenCV's float
 INTER_LINEAR rebuilt in torch on the device (``ops.image``), since the
 card's machine has no OpenCV, and rounded to uint8 as JAX's
 ``PackDetInputs`` rounds it.
-Post-processing is the u8 mask chain, run on the device.
+Post-processing is the u8 mask chain, run on the device, for the families
+whose masks cover the whole frame; SAM-seg Mask R-CNN's 28^2 RoI masks are
+pasted into their boxes instead (``mask_mode`` 'paste', mmdet's
+``_do_paste_mask``), on the host. JAX's inferencer and test tool send those
+RoI maps through the full-frame chain, which stretches each over the whole
+image: a fault of the reference package the port does not share.
+
+With ``oracle`` set (SAM-det's ``oracle_predict``) a batch also carries each
+image's ground truth in batch-input pixels, ``max_gt`` slots an image, as
+JAX's test pipeline gives it.
 
 Entry points run on the card unless the caller passes ``device='cpu'``.
 """
@@ -27,8 +36,9 @@ from rsprompter_tpu_torch.apis.build import (
 )
 from rsprompter_tpu_torch.core.config import Config
 from rsprompter_tpu_torch.engine.checkpoint import load_config_sam
+from rsprompter_tpu_torch.models.roi_heads.mask_head import paste_masks_np
 from rsprompter_tpu_torch.ops.image import resize_bilinear_cv2
-from rsprompter_tpu_torch.ops.masks import finalize_masks, quantize_probs_u8
+from rsprompter_tpu_torch.ops.masks import finalize_masks, probs_to_f32, quantize_probs_u8
 
 # pad applied while the image is still BGR (reference test pipeline)
 PAD_VALUE_BGR = (0.406 * 255, 0.456 * 255, 0.485 * 255)
@@ -41,6 +51,12 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain versions on the CPU"
         )
     return device
+
+
+def mask_mode_of(model: torch.nn.Module) -> str:
+    """'paste' for a detector whose masks are RoI maps over their boxes
+    (SAM-seg Mask R-CNN), else 'fullframe'."""
+    return getattr(model, "mask_mode", "fullframe")
 
 
 def _target_size(h: int, w: int, crop):
@@ -80,6 +96,9 @@ class DetInferencer:
         if cfg["model"].get("bf16", False):
             set_compute_dtype(self.model, torch.bfloat16)
         self.model.to(self.device).eval()
+        self.mask_mode = mask_mode_of(self.model)
+        self.max_gt = cfg.get("max_gt", 100)
+        self.oracle = False  # oracle_predict: ground-truth boxes as prompts
 
     @classmethod
     def from_module(cls, model: torch.nn.Module, cfg: Config, batch_size: int = 2):
@@ -93,14 +112,22 @@ class DetInferencer:
         self.crop_size = tuple(cfg.get("crop_size", (1024, 1024)))
         self.batch_size = batch_size
         self.model = model
+        self.mask_mode = mask_mode_of(model)
+        self.max_gt = cfg.get("max_gt", 100)
+        self.oracle = False
         return self
 
-    def make_batch(self, imgs: Sequence[np.ndarray], metas: Optional[Sequence[Dict]] = None):
+    def make_batch(self, imgs: Sequence[np.ndarray], metas: Optional[Sequence[Dict]] = None,
+                   gts: Optional[Sequence[Dict]] = None):
         """HWC BGR images -> (batch dict on the device, per-slot metas).
 
         ``metas`` (the loader's, one per slot, padded slots marked
         ``img_id=-1``) are merged into the geometry metas; a padded slot
-        takes the last image's geometry, as JAX's ``collate_batch`` does."""
+        takes the last image's geometry, as JAX's ``collate_batch`` does.
+        ``gts`` (one raw sample per image: ``gt_bboxes`` at the original
+        size, ``gt_labels``, ``gt_ignore_flags``) add ``gt_bboxes`` in
+        batch-input pixels, ``gt_labels`` and ``gt_valid`` (not ignored),
+        ``max_gt`` slots an image."""
         th, tw = self.crop_size
         n = self.batch_size
         images = torch.empty((n, th, tw, 3), dtype=torch.uint8, device=self.device)
@@ -119,18 +146,41 @@ class DetInferencer:
         if metas is not None:
             out += [dict(out[-1]) for _ in range(len(metas) - len(out))]
             out = [dict(m, **given) for m, given in zip(out, metas)]
-        return dict(images=images, img_shape=img_shape.to(self.device)), out
+        batch = dict(images=images, img_shape=img_shape.to(self.device))
+        if gts is not None:
+            batch.update(self._gt_batch(gts, out))
+        return batch, out
 
-    def predict_batch(self, imgs: Sequence[np.ndarray], metas: Optional[Sequence[Dict]] = None):
+    def _gt_batch(self, gts: Sequence[Dict], metas: Sequence[Dict]) -> Dict[str, torch.Tensor]:
+        g_max = self.max_gt
+        boxes = np.zeros((self.batch_size, g_max, 4), np.float32)
+        labels = np.zeros((self.batch_size, g_max), np.int64)
+        valid = np.zeros((self.batch_size, g_max), bool)
+        for i, (gt, meta) in enumerate(zip(gts, metas)):
+            g = min(len(gt["gt_bboxes"]), g_max)
+            ws, hs = meta["scale_factor"]
+            boxes[i, :g] = gt["gt_bboxes"][:g] * np.array([ws, hs, ws, hs], np.float32)
+            labels[i, :g] = gt["gt_labels"][:g]
+            valid[i, :g] = ~np.asarray(gt["gt_ignore_flags"][:g], bool)
+        return {k: torch.as_tensor(v, device=self.device) for k, v in
+                dict(gt_bboxes=boxes, gt_labels=labels, gt_valid=valid).items()}
+
+    def predict_batch(self, imgs: Sequence[np.ndarray], metas: Optional[Sequence[Dict]] = None,
+                      gts: Optional[Sequence[Dict]] = None):
         """Up to ``batch_size`` images -> the padded ``(dets, probs_u8,
         metas)`` on the device: every slot's detections (``dets.valid`` marks
         the kept ones) and its uint8 mask probabilities at the decoder's
-        resolution, as JAX's ``tools/test.py`` hands them to ``CocoMetric``."""
+        resolution (full frame, or each detection's box in 'paste' mode), as
+        JAX's ``tools/test.py`` hands them to ``CocoMetric``. With ``oracle``
+        set, ``gts`` (``make_batch``'s) are the prompts."""
         for item in imgs:
             if not isinstance(item, np.ndarray):
                 raise TypeError("inference_detector takes HWC uint8 BGR numpy arrays")
-        batch, metas = self.make_batch(imgs, metas)
-        dets, probs = self.model.predict(batch)
+        if self.oracle and gts is None:
+            raise ValueError("oracle prediction needs the images' ground truth (gts)")
+        batch, metas = self.make_batch(imgs, metas, gts if self.oracle else None)
+        predict = self.model.oracle_predict if self.oracle else self.model.predict
+        dets, probs = predict(batch)
         return dets, quantize_probs_u8(probs), metas
 
     def __call__(self, inputs, return_masks: bool = True, score_thr: float = 0.0):
@@ -148,7 +198,11 @@ class DetInferencer:
                     scores=dets.scores[i][keep].cpu().numpy(),
                     labels=dets.labels[i][keep].cpu().numpy(),
                 )
-                if return_masks:
+                if return_masks and self.mask_mode == "paste":
+                    pred["masks"] = paste_masks_np(
+                        probs_to_f32(probs_u8[i][keep].cpu().numpy()), pred["bboxes"],
+                        *meta["ori_shape"])
+                elif return_masks:
                     masks = finalize_masks(
                         probs_u8[i][keep], meta["batch_input_shape"],
                         meta["ori_shape"], meta["scale_factor"],

@@ -35,7 +35,9 @@ A reference-trained mmengine ``.pth`` (the paper's weights) loads through
 reference wraps its HF modules one level deep and packs mmdet's
 ``MultiheadAttention`` qkv as ``attn.in_proj_*``; the port's modules take
 the reference's names otherwise (the query head's mmdet names included), so
-the map is the prefix revisions and the split. JAX's reordering of the
+the map is the prefix revisions and the split. A reference-trained SAM-det
+file (``detector.*``) has no map, in JAX either: it raises, and the port's
+own state_dict of SAM-det loads as for any family. JAX's reordering of the
 linears fed by a flattened conv map (``REFERENCE_FLATTEN_LINEARS`` :141,
 NCHW -> NHWC) is the identity here: the port flattens NCHW, as the
 reference does.
@@ -76,6 +78,9 @@ SAM_SUBTREE_PREFIXES: Dict[str, Dict[str, str]] = {
         "panoptic_head.no_mask_embed.": "prompt_encoder.no_mask_embed.",
         "panoptic_head.mask_embed_prompt.": "prompt_encoder.mask_embed.",
     },
+    "SAMSegMaskRCNN": {"backbone.": "vision_encoder."},
+    "SAMSegMask2Former": {"backbone.": "vision_encoder."},
+    "SAMDet": {"segmentor.": ""},  # the whole SAM, HF names one to one
 }
 TIED_KEY = "prompt_encoder.shared_embedding.positional_embedding"
 TIED_SOURCE = "shared_image_embedding.positional_embedding"
@@ -196,6 +201,20 @@ REFERENCE_PTH_REVISE_KEYS = (
 )
 
 
+# reference-trained files that no rule maps: SAM-det's Faster R-CNN half
+# (``detector.*``), for which JAX's map has no rule either
+UNMAPPED_REFERENCE_PREFIXES = ("detector.",)
+
+
+def is_reference_state_dict(state_dict: Mapping[str, Any]) -> bool:
+    """True for a reference-trained mmengine file: one whose names the
+    reference map renames (no name of the port's is renamed) or that holds
+    names no rule maps."""
+    renamed = split_packed_mha(revise_keys(state_dict))
+    return any(k not in renamed or k.startswith(UNMAPPED_REFERENCE_PREFIXES)
+               for k in state_dict)
+
+
 def revise_keys(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
     out = {}
     for k, v in state_dict.items():
@@ -229,6 +248,12 @@ def load_reference_checkpoint(model: nn.Module, state_dict: Mapping[str, Any],
     loader resizes). Returns (missing, unused): the model's names the file
     does not fill, the file's names the model does not have; with
     ``strict`` either raises, as ``load_state_dict(strict=True)`` does."""
+    unmapped = [k for k in state_dict if k.startswith(UNMAPPED_REFERENCE_PREFIXES)]
+    if unmapped:
+        raise NotImplementedError(
+            f"reference checkpoint: no map for {unmapped[:3]} (a reference-trained SAM-det "
+            "file; neither package maps its detector.* names); load the port's own "
+            "state_dict instead")
     sd = split_packed_mha(revise_keys(state_dict))
     own = model.state_dict(keep_vars=True)
     missing = [k for k in own if k not in sd]

@@ -178,7 +178,7 @@ class Runner:
         model = self.trainer.model
         inferencer = DetInferencer.from_module(model, self.trainer.cfg,
                                                batch_size=self.val_loader.batch_size)
-        metric = CocoMetric(num_classes=self.num_classes)
+        metric = CocoMetric(num_classes=self.num_classes, mask_mode=inferencer.mask_mode)
         model.eval()
         try:
             with torch.no_grad():

@@ -3,8 +3,10 @@
 The port's copy of ``rsprompter_tpu/evaluation/coco_metric.py`` (``CocoMetric``
 :23, ``_jsonable`` :148, ``from_jsonable`` :172, ``gt_from_raw_sample``
 :189); its ``--out`` dump keeps JAX's JSON layout, so either package's
-``from_jsonable`` reads the other's file. ``mask_mode='fullframe'`` only:
-``'paste'`` needs SAM-seg Mask R-CNN's mask head, not ported yet.
+``from_jsonable`` reads the other's file. ``mask_mode='fullframe'`` (the SAM
+heads' masks over the batch input) or ``'paste'`` (SAM-seg Mask R-CNN's RoI
+maps, each pasted into its box at the original size by the port's
+``paste_masks_np``, JAX :82-95).
 
 Behavior parity: reference ``mmdet/evaluation/metrics/coco_metric.py:23`` —
 ``process`` RLE-encodes predicted masks per image (:364-367), ``compute``
@@ -22,7 +24,8 @@ import numpy as np
 from rsprompter_tpu_torch.core.registry import METRICS
 from rsprompter_tpu_torch.evaluation.coco_eval import CocoEvaluator
 from rsprompter_tpu_torch.evaluation.rle import RLE, encode_masks
-from rsprompter_tpu_torch.ops.masks import finalize_masks_np
+from rsprompter_tpu_torch.models.roi_heads.mask_head import paste_masks_np
+from rsprompter_tpu_torch.ops.masks import finalize_masks_np, probs_to_f32
 
 
 @METRICS.register_module()
@@ -32,7 +35,7 @@ class CocoMetric:
         num_classes: int,
         metric: Sequence[str] = ("bbox", "segm"),
         mask_thr: float = 0.5,
-        mask_mode: str = "fullframe",  # SAM heads; 'paste' (FCN) raises
+        mask_mode: str = "fullframe",  # 'fullframe' (SAM heads) | 'paste' (FCN)
         dump_path: Optional[str] = None,
         classwise: bool = False,
         class_names: Optional[Sequence[str]] = None,
@@ -44,10 +47,9 @@ class CocoMetric:
         self.classwise = classwise
         self.class_names = list(class_names or [])
         self.mask_thr = mask_thr
-        if mask_mode != "fullframe":
-            raise NotImplementedError(
-                f"mask_mode={mask_mode!r} needs SAM-seg Mask R-CNN's mask head "
-                "(paste_masks_np), not ported yet (ROADMAP A6)")
+        if mask_mode not in ("fullframe", "paste"):
+            raise ValueError(f"mask_mode={mask_mode!r}: 'fullframe' or 'paste'")
+        self.mask_mode = mask_mode
         self.evaluators = {
             m: CocoEvaluator(num_classes, iou_type=m) for m in self.metrics
         }
@@ -68,7 +70,8 @@ class CocoMetric:
         """Consume one batch of padded predictions.
 
         dets: DetResult-like with numpy-convertible (B, N, ...) fields.
-        mask_probs: (B, N, S, S) sigmoid probs, u8 or float (fullframe).
+        mask_probs: (B, N, S, S) sigmoid probs, u8 or float: over the batch
+            input (fullframe) or over each detection's box (paste).
         gts: per-image GT dicts {bboxes (ori coords), labels, masks (binary),
              iscrowd, areas}.
         """
@@ -89,13 +92,19 @@ class CocoMetric:
             )
             if "segm" in self.metrics and mask_probs is not None:
                 ori_h, ori_w = meta["ori_shape"]
-                bin_masks = finalize_masks_np(
-                    mask_probs[i][keep],
-                    meta["batch_input_shape"],
-                    (ori_h, ori_w),
-                    meta["scale_factor"],
-                    thr=self.mask_thr,
-                )
+                if self.mask_mode == "fullframe":
+                    bin_masks = finalize_masks_np(
+                        mask_probs[i][keep],
+                        meta["batch_input_shape"],
+                        (ori_h, ori_w),
+                        meta["scale_factor"],
+                        thr=self.mask_thr,
+                    )
+                else:
+                    bin_masks = paste_masks_np(
+                        probs_to_f32(mask_probs[i][keep]), det_boxes, ori_h, ori_w,
+                        thr=self.mask_thr,
+                    )
                 det["masks"] = encode_masks(bin_masks)
             gt = gts[i] if gts is not None else dict(
                 bboxes=np.zeros((0, 4)), labels=np.zeros(0, np.int64)

@@ -49,7 +49,9 @@ def evaluate(inferencer, loader, metric) -> Dict[str, Any]:
             spans.append((torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True)))
             spans[-1][0].record()
-        dets, probs_u8, metas = inferencer.predict_batch([s["img"] for s in samples], metas)
+        oracle = {"gts": samples} if inferencer.oracle else {}  # GT boxes as prompts
+        dets, probs_u8, metas = inferencer.predict_batch([s["img"] for s in samples], metas,
+                                                         **oracle)
         if on_card:
             spans[-1][1].record()
         dets_np, probs_np = _to_host(dets), probs_u8.cpu().numpy()

@@ -33,6 +33,11 @@ points come in ``draws`` (JAX's key streams: per call ``li``, the match
 points from ``split(fold_in(rng, li))[0]``, the candidates and fill points
 from ``[1]``, shared by the two streams).
 
+With ``sam_prompting=False`` it is the stock Mask2Former head of SAM-seg
+Mask2Former (JAX :160-184, :223-231): a single ``cls_embed`` linear, the
+``mask_embed`` MLP's mask logits as the prediction and the attention
+source, and no SAM decoder (its loss is a later slice).
+
 Norms are flax's (eps 1e-6, fp32 output) and the head's MLPs stay fp32 as
 JAX builds them without ``dtype=``; the attention projections compute in the
 model's dtype.
@@ -149,14 +154,15 @@ def _mlp(dims: Sequence[int]) -> nn.Sequential:
 
 
 class Mask2FormerHead(nn.Module):
-    def __init__(self, decoder_config: SamMaskDecoderConfig, num_classes: int = 1,
+    def __init__(self, decoder_config: Optional[SamMaskDecoderConfig], num_classes: int = 1,
                  num_queries: int = 100, feat_channels: int = 128, out_channels: int = 256,
                  num_transformer_feat_level: int = 3, num_decoder_layers: int = 6,
                  num_heads: int = 8, feedforward_channels: int = 512,
                  per_pointset_point: int = 5, with_sincos: bool = True,
                  num_points: int = 12544, oversample_ratio: float = 3.0,
-                 importance_sample_ratio: float = 0.75):
+                 importance_sample_ratio: float = 0.75, sam_prompting: bool = True):
         super().__init__()
+        self.sam_prompting = sam_prompting
         self.num_classes = num_classes
         self.num_queries = num_queries
         self.feat_channels = feat_channels
@@ -177,14 +183,17 @@ class Mask2FormerHead(nn.Module):
         self.query_embed = nn.Embedding(num_queries, feat_channels)
         self.query_feat = nn.Embedding(num_queries, feat_channels)
         self.level_embed = nn.Embedding(num_transformer_feat_level, feat_channels)
-        self.cls_embed = _mlp((feat_channels, feat_channels, num_classes + 1))
-        num_sincos = 2 if with_sincos else 1
-        self.point_emb = _mlp((feat_channels, feat_channels // 2, feat_channels // 2,
-                               out_channels * num_sincos * per_pointset_point))
-        self.mask_decoder = SamMaskDecoder(decoder_config)
-        self.sam_mask_embed = SamMaskEmbedding(
-            SamPromptEncoderConfig(hidden_size=decoder_config.hidden_size)
-        )
+        if sam_prompting:
+            self.cls_embed = _mlp((feat_channels, feat_channels, num_classes + 1))
+            num_sincos = 2 if with_sincos else 1
+            self.point_emb = _mlp((feat_channels, feat_channels // 2, feat_channels // 2,
+                                   out_channels * num_sincos * per_pointset_point))
+            self.mask_decoder = SamMaskDecoder(decoder_config)
+            self.sam_mask_embed = SamMaskEmbedding(
+                SamPromptEncoderConfig(hidden_size=decoder_config.hidden_size)
+            )
+        else:
+            self.cls_embed = Fp32Linear(feat_channels, num_classes + 1)
         self.mask_embed = _mlp((feat_channels, feat_channels, feat_channels, out_channels))
 
     @property
@@ -294,7 +303,11 @@ class Mask2FormerHead(nn.Module):
         return cls_list, mask_list
 
     def predict(self, feats, image_embeddings, image_pe):
-        """(class logits (B, Q, C+1), mask logits (B, Q, 4h, 4w)) of the last layer."""
+        """(class logits (B, Q, C+1), mask logits (B, Q, 4h, 4w)) of the last
+        layer: the SAM decode's, or the stock head's mask-feature product."""
+        if not self.sam_prompting:
+            cls_list, _, plus_list = self.run_decoder(feats)
+            return cls_list[-1], plus_list[-1]
         cls_list, mask_list = self(feats, image_embeddings, image_pe, decode_last_only=True)
         return cls_list[-1], mask_list[-1]
 
@@ -305,6 +318,8 @@ class Mask2FormerHead(nn.Module):
         """gt_labels, gt_valid (B, G); gt_masks (B, G, H, W) at the batch
         input's resolution (any dtype, 0 / 1); ``draws`` as
         :meth:`draw_shapes`. Returns the 35 loss terms (module docstring)."""
+        if not self.sam_prompting:
+            raise NotImplementedError("the stock Mask2Former head's loss is not ported yet")
         cls_list, x_list, plus_list = self.run_decoder(feats)
         n_calls = len(cls_list)
         b, g = gt_labels.shape

@@ -131,6 +131,19 @@ def rpn_predict(
     return Proposals(out_boxes, out_scores, keep)
 
 
+def propose(rpn_head: RPNHead, anchor_generator: AnchorGenerator,
+            feats: Sequence[torch.Tensor], img_shapes: torch.Tensor,
+            test_cfg: Dict[str, Any]) -> Proposals:
+    """The two-stage detectors' test-time proposals: the RPN head on
+    ``feats``, then :func:`rpn_predict` with ``test_cfg['rpn']`` over the
+    defaults nms_pre 1000, max_per_img 1000, IoU 0.7."""
+    cls_scores, bbox_preds = rpn_head(feats)
+    rpn_cfg = dict(nms_pre=1000, max_per_img=1000, nms_iou_thr=0.7)
+    rpn_cfg.update(test_cfg.get("rpn", {}))
+    return rpn_predict(cls_scores, bbox_preds, anchor_generator.device_anchors(feats),
+                       img_shapes, rpn_cfg)
+
+
 def build_rpn_anchor_generator(cfg: Dict[str, Any]) -> AnchorGenerator:
     return AnchorGenerator(
         strides=cfg.get("strides", (4, 8, 16, 32, 64)),

@@ -29,6 +29,7 @@ import torch.nn as nn
 from rsprompter_tpu_torch.models.dense_heads.rpn_head import (
     RPNHead,
     build_rpn_anchor_generator,
+    propose,
     rpn_loss,
     rpn_predict,
 )
@@ -73,7 +74,6 @@ class RSPrompterAnchor(nn.Module):
         super().__init__()
         self.freeze_backbone = freeze_backbone
         self.train_cfg = dict(train_cfg or {})
-        self._anchors = {}  # (feature-map sizes, device) -> uploaded anchors
         vcfg = vision_config or sam_config(arch, image_size=image_size).vision_config
         decoder_cfg = sam_config("base").mask_decoder_config
         if vcfg.output_channels != decoder_cfg.hidden_size:
@@ -111,18 +111,6 @@ class RSPrompterAnchor(nn.Module):
         feats = self.neck_feature_spliter(self.neck_feature_aggregator(neck_in))
         return feats, image_embeddings, image_pe
 
-    def level_anchors(self, feats):
-        """Per-level anchors on the features' device, built and uploaded once
-        per feature-map shape."""
-        sizes = tuple(tuple(f.shape[1:3]) for f in feats)
-        key = (sizes, feats[0].device)
-        if key not in self._anchors:
-            self._anchors[key] = [
-                torch.as_tensor(a, device=feats[0].device)
-                for a in self.anchor_generator.grid_anchors(sizes)
-            ]
-        return self._anchors[key]
-
     def _rpn_cfgs(self):
         rpn_train = dict(pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3, num=256,
                          pos_fraction=0.5)
@@ -139,7 +127,7 @@ class RSPrompterAnchor(nn.Module):
         come from ``generator``. Returns the loss terms and ``acc``."""
         feats, image_embeddings, image_pe = self.extract_feat(batch["images"])
         cls_scores, bbox_preds = self.rpn_head(feats)
-        level_anchors = self.level_anchors(feats)
+        level_anchors = self.anchor_generator.device_anchors(feats)
         anchors = torch.cat(level_anchors, dim=0)
         rpn_train_cfg, rpn_proposal_cfg = self._rpn_cfgs()
         gt_bboxes, gt_valid = batch["gt_bboxes"], batch["gt_valid"]
@@ -168,13 +156,8 @@ class RSPrompterAnchor(nn.Module):
         """batch: images (B, H, W, 3) uint8 BGR (or normalised float) and
         img_shape (B, 2). Returns (DetResult, mask probs (B, N, S, S) fp32)."""
         feats, image_embeddings, image_pe = self.extract_feat(batch["images"])
-        cls_scores, bbox_preds = self.rpn_head(feats)
-        level_anchors = self.level_anchors(feats)
-        rpn_cfg = dict(nms_pre=1000, max_per_img=1000, nms_iou_thr=0.7)
-        rpn_cfg.update(self.test_cfg.get("rpn", {}))
-        proposals = rpn_predict(
-            cls_scores, bbox_preds, level_anchors, batch["img_shape"], rpn_cfg
-        )
+        proposals = propose(self.rpn_head, self.anchor_generator, feats, batch["img_shape"],
+                            self.test_cfg)
         return self.roi_head.predict(
             feats, proposals.boxes, proposals.valid, batch["img_shape"],
             image_embeddings, image_pe,

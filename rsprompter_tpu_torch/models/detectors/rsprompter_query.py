@@ -17,6 +17,11 @@ adapters and the optimizer's groups freeze the rest); the head's point
 draws come from one generator, or are given (``draws``, as the anchor's
 ``loss`` takes them). The module's train /
 eval mode is the neck's BatchNorms' (batch statistics in ``loss``).
+
+``SAMSegMask2Former`` (JAX :195-199, reference ``models.py:1248``) is the
+same pipeline with the stock Mask2Former head (``sam_prompting=False``):
+no SAM decoder, no shared positional embedding; its masks are the head's
+mask-feature products at a quarter of the input's resolution.
 """
 
 from __future__ import annotations
@@ -57,8 +62,10 @@ class RSPrompterQuery(nn.Module):
         attn_impl: str = "fused",
         lora_rank: int = 0,
         lora_alpha: float = 32.0,
+        sam_prompting: bool = True,
     ):
         super().__init__()
+        self.sam_prompting = sam_prompting
         self.num_classes = num_classes
         self.freeze_backbone = freeze_backbone
         tc = dict(train_cfg or {})
@@ -68,9 +75,10 @@ class RSPrompterQuery(nn.Module):
         if vcfg.output_channels != decoder_cfg.hidden_size:
             decoder_cfg = dataclasses.replace(decoder_cfg, hidden_size=vcfg.output_channels)
         self.backbone = SamVisionEncoder(vcfg, attn_impl, lora_rank, lora_alpha)
-        self.shared_image_embedding = SamPositionalEmbedding(
-            vcfg.output_channels // 2, scale=vcfg.output_channels // 2
-        )
+        if sam_prompting:
+            self.shared_image_embedding = SamPositionalEmbedding(
+                vcfg.output_channels // 2, scale=vcfg.output_channels // 2
+            )
         self.aggregator_type = aggregator_type
         self.neck_feature_aggregator = build_aggregator(
             aggregator_type, vcfg, aggregator_hidden, select_layers
@@ -82,15 +90,18 @@ class RSPrompterQuery(nn.Module):
             with_sincos=with_sincos, num_points=tc.get("num_points", 12544),
             oversample_ratio=tc.get("oversample_ratio", 3.0),
             importance_sample_ratio=tc.get("importance_sample_ratio", 0.75),
+            sam_prompting=sam_prompting,
         )
 
     def extract_feat(self, images: torch.Tensor):
         images = preprocess_images(images)
         with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze_backbone):
             image_embeddings, hidden_states = self.backbone(images)
-        image_pe = image_wide_positional_embeddings(
-            self.shared_image_embedding, image_embeddings.shape[1]
-        )
+        image_pe = None
+        if self.sam_prompting:
+            image_pe = image_wide_positional_embeddings(
+                self.shared_image_embedding, image_embeddings.shape[1]
+            )
         neck_in = (image_embeddings,) if self.aggregator_type == "pseudo" else hidden_states
         feats = self.neck_feature_spliter(self.neck_feature_aggregator(neck_in))
         return feats, image_embeddings, image_pe
@@ -125,3 +136,10 @@ class RSPrompterQuery(nn.Module):
         scale = batch["images"].shape[1] / mask_pred.shape[-2]
         return instance_postprocess(cls_pred, mask_pred, self.num_classes,
                                     self.max_per_image, scale_boxes=scale)
+
+
+class SAMSegMask2Former(RSPrompterQuery):
+    """The stock Mask2Former head on SAM features."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs, sam_prompting=False)

@@ -32,7 +32,10 @@ from rsprompter_tpu_torch.models.roi_heads.bbox_head import (
 )
 from rsprompter_tpu_torch.models.roi_heads.prompt_mask_head import RSPrompterAnchorMaskHead
 from rsprompter_tpu_torch.models.roi_heads.roi_extractor import extract_roi_feats
-from rsprompter_tpu_torch.models.roi_heads.standard_roi_head import sample_proposals_batch
+from rsprompter_tpu_torch.models.roi_heads.standard_roi_head import (
+    boxes_to_rois,
+    sample_proposals_batch,
+)
 from rsprompter_tpu_torch.models.sam.configs import SamMaskDecoderConfig
 from rsprompter_tpu_torch.ops.boxes import take_per_image
 from rsprompter_tpu_torch.ops.resize import resize
@@ -47,13 +50,6 @@ def add_extra_pe(feats: Sequence[torch.Tensor], num_feats: int) -> Tuple[torch.T
         pe_l = resize(pe, (1, f.shape[1], f.shape[2], pe.shape[-1]), "bilinear")
         out.append(f + pe_l.to(f.dtype))
     return tuple(out)
-
-
-def boxes_to_rois(boxes: torch.Tensor) -> torch.Tensor:
-    """(B, N, 4) -> (B*N, 5) with the batch index prepended."""
-    b, n, _ = boxes.shape
-    idx = torch.arange(b, dtype=boxes.dtype, device=boxes.device).repeat_interleave(n)
-    return torch.cat([idx[:, None], boxes.reshape(b * n, 4)], dim=1)
 
 
 class RSPrompterAnchorRoIPromptHead(nn.Module):

@@ -1,18 +1,33 @@
-"""Proposal sampling of the two-stage RoI heads (torch, batched).
+"""Two-stage RoI heads (torch, batched): proposal sampling and the
+standard bbox + mask head's predict.
 
-Counterpart of ``sample_proposals_batch`` in
-``rsprompter_tpu/models/roi_heads/standard_roi_head.py`` (:36): gt boxes are
-prepended as proposals, every proposal is assigned by max IoU (0.5 / 0.5 /
-0.5) and ``num`` are sampled with positives first. The rest of the JAX
-``StandardRoIHead`` (the Mask R-CNN family) is not ported.
+Counterpart of ``rsprompter_tpu/models/roi_heads/standard_roi_head.py``:
+
+* ``sample_proposals_batch`` (:36): gt boxes are prepended as proposals,
+  every proposal is assigned by max IoU (0.5 / 0.5 / 0.5) and ``num`` are
+  sampled with positives first;
+* ``StandardRoIHead.predict`` (:207-254), the head of SAM-det's detector
+  (``with_mask=False``) and of SAM-seg Mask R-CNN: 7^2 RoI features of the
+  proposals through ``Shared2FCBBoxHead`` and the per-class decode + NMS,
+  then 14^2 RoI features of the detections through ``FCNMaskHead``, the
+  detection's class channel (or the one channel of a class-agnostic head)
+  and a sigmoid. Its loss is the Mask R-CNN train step's.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn as nn
 
+from rsprompter_tpu_torch.models.roi_heads.bbox_head import (
+    DetResult,
+    Shared2FCBBoxHead,
+    bbox_head_predict,
+)
+from rsprompter_tpu_torch.models.roi_heads.mask_head import FCNMaskHead
+from rsprompter_tpu_torch.models.roi_heads.roi_extractor import extract_roi_feats
 from rsprompter_tpu_torch.models.task_modules.assigners import max_iou_assign
 from rsprompter_tpu_torch.models.task_modules.samplers import random_sample_padded
 from rsprompter_tpu_torch.ops.boxes import take_per_image
@@ -25,6 +40,13 @@ class SampledRois(NamedTuple):
     valid: torch.Tensor  # (B, num) bool
     is_pos: torch.Tensor  # (B, num) bool
     gt_inds: torch.Tensor  # (B, num) 1-based gt index of positives, else 0
+
+
+def boxes_to_rois(boxes: torch.Tensor) -> torch.Tensor:
+    """(B, N, 4) -> (B*N, 5) with the batch index prepended."""
+    b, n, _ = boxes.shape
+    idx = torch.arange(b, dtype=boxes.dtype, device=boxes.device).repeat_interleave(n)
+    return torch.cat([idx[:, None], boxes.reshape(b * n, 4)], dim=1)
 
 
 def sample_proposals_batch(
@@ -57,3 +79,62 @@ def sample_proposals_batch(
         take_per_image(boxes, sample.inds), labels, take_per_image(gt_bboxes, safe_gt),
         sample.valid, sample.is_pos, sample.gt_inds,
     )
+
+
+class StandardRoIHead(nn.Module):
+    def __init__(self, num_classes: int = 1,
+                 featmap_strides: Tuple[int, ...] = (4, 8, 16, 32),
+                 bbox_roi_size: int = 7, mask_roi_size: int = 14,
+                 roi_sampling_ratio: int = 0, with_mask: bool = True,
+                 class_agnostic_mask: bool = False, num_samples: int = 512,
+                 pos_fraction: float = 0.25,
+                 target_stds: Tuple[float, ...] = (0.1, 0.1, 0.2, 0.2),
+                 test_cfg: Any = None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.featmap_strides = tuple(featmap_strides)
+        self.bbox_roi_size = bbox_roi_size
+        self.mask_roi_size = mask_roi_size
+        self.roi_sampling_ratio = roi_sampling_ratio
+        self.class_agnostic_mask = class_agnostic_mask
+        self.num_samples = num_samples  # the train step's sampler
+        self.pos_fraction = pos_fraction
+        self.target_stds = tuple(target_stds)
+        self.test_cfg = dict(test_cfg or {})
+        self.bbox_head = Shared2FCBBoxHead(num_classes, roi_size=bbox_roi_size)
+        self.mask_head = (FCNMaskHead(num_classes, class_agnostic=class_agnostic_mask)
+                          if with_mask else None)
+
+    def _roi_feats(self, feats: Sequence[torch.Tensor], boxes: torch.Tensor, size: int):
+        return extract_roi_feats(
+            feats[: len(self.featmap_strides)], boxes_to_rois(boxes), (size, size),
+            self.featmap_strides, sampling_ratio=self.roi_sampling_ratio,
+        )
+
+    def predict(
+        self,
+        feats: Sequence[torch.Tensor],
+        proposals: torch.Tensor,  # (B, N, 4)
+        proposal_valid: torch.Tensor,  # (B, N)
+        img_shapes: torch.Tensor,  # (B, 2)
+    ) -> Tuple[DetResult, Optional[torch.Tensor]]:
+        """(detections (B, max_per_img, ...), mask probabilities (B,
+        max_per_img, 28, 28) fp32, or None without a mask head)."""
+        b, n, _ = proposals.shape
+        cls_logits, bbox_deltas = self.bbox_head(
+            self._roi_feats(feats, proposals, self.bbox_roi_size))
+        dets = bbox_head_predict(
+            cls_logits.reshape(b, n, -1), bbox_deltas.reshape(b, n, -1), proposals,
+            proposal_valid, img_shapes, self.num_classes, self.test_cfg, self.target_stds,
+        )
+        if self.mask_head is None:
+            return dets, None
+        logits = self.mask_head(self._roi_feats(feats, dets.boxes, self.mask_roi_size))
+        if self.class_agnostic_mask:
+            sel = logits[..., 0]
+        else:
+            lab = dets.labels.reshape(-1).clamp(0, self.num_classes - 1)
+            sel = torch.gather(logits, 3, lab[:, None, None, None].expand(
+                -1, logits.shape[1], logits.shape[2], 1))[..., 0]
+        s = sel.shape[-1]
+        return dets, torch.sigmoid(sel.float()).reshape(b, -1, s, s)

@@ -35,7 +35,11 @@ and the MLP follow the route (kernel A on ``'fused'``, which JAX keeps with
 LoRA, ``:437-451``). Kernels B and B' never run there.
 
 Weights are cast to the activations' dtype at each use, so fp32 master
-parameters train through bf16 kernels. ``impl='plain'`` runs either route
+parameters train through bf16 kernels. The kernels take bf16 only: on the
+card, an fp32 model's blocks (SAM-det's frozen segmentor) run in bf16 on
+the kernel route -- the patch embedding is cast before block 0, the neck's
+input and the hidden states back to fp32 -- where JAX runs its Pallas
+kernels in fp32. The plain versions, and every route on the CPU, keep fp32. ``impl='plain'`` runs either route
 through the plain forward versions under torch autograd (the oracle the GPU
 checks compare against, forward and gradients).
 
@@ -138,7 +142,7 @@ class SamVisionLayer(nn.Module):
             qkv = self._qkv(fm.window_partition(z, self.window_size), plain)
         x = x + self._attend(qkv, x.shape[:3], plain)
         if self.attn_impl == "flash":
-            return x + self.mlp(self.layer_norm2(x))
+            return x + self.mlp(self.layer_norm2(x)).to(x.dtype)
         b, h, w, c = x.shape
         x = x.reshape(-1, c).contiguous()
         dt = x.dtype
@@ -187,7 +191,7 @@ class SamVisionLayer(nn.Module):
             fw = qkv.new_zeros((n_img, nh, s, hw[1]))
         attn_fn = fa.relpos_attention_plain if plain else fa.relpos_attention
         o = attn_fn(qkv, fh.contiguous(), fw.contiguous(), hw)  # (N, n, S, d)
-        o = attn.proj(o.permute(0, 2, 1, 3).reshape(n_img, s, nh * d))
+        o = attn.proj(o.permute(0, 2, 1, 3).reshape(n_img, s, nh * d)).to(o.dtype)
         return fm.window_unpartition(o, tuple(grid), win)
 
 
@@ -246,7 +250,10 @@ class SamVisionEncoder(nn.Module):
                 pe = resize(pe.float(), (1, x.shape[1], x.shape[2], pe.shape[3]), "bicubic")
             x = x + pe.to(x.dtype)
         hidden_states = [x]
+        dt = x.dtype
+        if self.impl == "kernel" and x.is_cuda and dt == torch.float32:
+            x = x.to(torch.bfloat16)  # the kernels take bf16 only
         for layer in self.layers:
             x = layer(x, self.impl)
-            hidden_states.append(x)
-        return self.neck(x), tuple(hidden_states)
+            hidden_states.append(x.to(dt))
+        return self.neck(x.to(dt)), tuple(hidden_states)

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 class AnchorGenerator:
@@ -31,6 +32,7 @@ class AnchorGenerator:
             [int(b) for b in base_sizes] if base_sizes is not None else self.strides
         )
         self.center_offset = center_offset
+        self._uploaded = {}  # (feature-map sizes, device) -> per-level tensors
         self.base_anchors = [
             self._base_anchors(bs, stride)
             for bs, stride in zip(self.base_sizes, self.strides)
@@ -76,3 +78,13 @@ class AnchorGenerator:
         return [
             fh * fw * self.num_base_priors for (fh, fw) in featmap_sizes
         ]
+
+    def device_anchors(self, feats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Per-level anchors of NHWC feature maps on their device, built and
+        uploaded once per feature-map shape and device."""
+        sizes = tuple(tuple(f.shape[1:3]) for f in feats)
+        key = (sizes, feats[0].device)
+        if key not in self._uploaded:
+            self._uploaded[key] = [torch.as_tensor(a, device=feats[0].device)
+                                   for a in self.grid_anchors(sizes)]
+        return self._uploaded[key]

@@ -1,18 +1,26 @@
 """Evaluate a detector: COCO bbox and segm mAP of a config's test set.
 
     python -m rsprompter_tpu_torch.tools.test CONFIG [CHECKPOINT] \\
-        [--cfg-options k=v ...] [--classwise] [--out PATH] [--device cuda|cpu]
+        [--cfg-options k=v ...] [--classwise] [--out PATH] [--oracle] \\
+        [--device cuda|cpu]
 
 The port's counterpart of the JAX package's ``tools/test.py`` (``main``
-:84-228), for the detectors the port predicts (``RSPrompterAnchor``,
-``RSPrompterQuery`` on either ``attn_impl`` route). The model is built by
+:84-228), for every detector family (``RSPrompterAnchor``,
+``RSPrompterQuery`` on either ``attn_impl`` route, ``SAMDet``,
+``SAMSegMaskRCNN``, ``SAMSegMask2Former``). ``--oracle`` runs SAM-det's
+``oracle_predict``: the batch carries each image's ground-truth boxes, which
+prompt SAM at score 1. SAM-seg Mask R-CNN's RoI masks are pasted into their
+boxes (``CocoMetric(mask_mode='paste')``); JAX's tool builds its metric
+without ``mask_mode`` (:208) and so stretches each 28^2 map over the whole
+image, a fault of the reference package. The model is built by
 ``init_detector`` (seeded init, then the config's SAM file where it exists);
 a ``CHECKPOINT`` is the port's train checkpoint (``tools.train``'s
 ``WORK_DIR/ckpts/step_{n}`` or its ``state.pt``: parameters and BN
 buffers), or a file told by its keys: one whose names the reference map
-renames is a reference-trained mmengine file
-(``engine.checkpoint.load_reference_checkpoint``, strict), any other the
-port's own state_dict (``load_state_dict(strict=True)``).
+renames, or a SAM-det one with names it has no rule for, is a
+reference-trained mmengine file (``engine.checkpoint.load_reference_checkpoint``,
+strict; it raises for SAM-det), any other the port's own state_dict
+(``load_state_dict(strict=True)``).
 The config's ``test_dataloader`` (else ``val_dataloader``) dataset is read
 in order, ``val_dataloader.batch_size`` images a batch, the next batch
 decoded in a background thread; ``evaluation.loop.evaluate`` (the loop the
@@ -22,8 +30,9 @@ quantises it to uint8 and hands it to ``CocoMetric`` with the GT of
 JAX tool, then one line with the loop's throughput and where its time went.
 
 Runs on the card unless ``--device cpu`` is given. Not taken (argparse
-refuses them): ``--tta``, ``--oracle``, ``--show-dir``, ``--corruption`` /
-``--severity`` and the multi-device mesh (ROADMAP A6, A7).
+refuses them): ``--tta`` (JAX also refuses it beside ``--oracle``),
+``--show-dir``, ``--corruption`` / ``--severity`` and the multi-device mesh
+(ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -40,8 +49,8 @@ from rsprompter_tpu_torch.core.registry import DATASETS
 from rsprompter_tpu_torch.data import coco as _coco  # noqa: F401  (registers the datasets)
 from rsprompter_tpu_torch.data.loader import DataLoader
 from rsprompter_tpu_torch.engine.checkpoint import (
-    CKPT_FILE, load_reference_checkpoint, load_torch_checkpoint, restore_train_params, revise_keys,
-    split_packed_mha)
+    CKPT_FILE, is_reference_state_dict, load_reference_checkpoint, load_torch_checkpoint,
+    restore_train_params)
 from rsprompter_tpu_torch.evaluation.coco_metric import CocoMetric
 from rsprompter_tpu_torch.evaluation.loop import _to_host, evaluate  # noqa: F401
 
@@ -56,6 +65,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--out", default=None,
                    help="dump every (prediction, GT) pair as JSON in the JAX package's "
                         "layout, for offline re-evaluation")
+    p.add_argument("--oracle", action="store_true",
+                   help="SAM-det oracle mode: the ground-truth boxes, at score 1, prompt SAM")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return p.parse_args(argv)
 
@@ -67,15 +78,15 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> str:
     optimizer state is left, as JAX's ``restore_train_params`` path does;
     'reference' for a file whose names the reference map renames (the
     ``backbone.vision_encoder.`` wrapper, packed ``attn.in_proj_*``, a
-    ``module.`` prefix), which no name of the port's has; else 'port', where
+    ``module.`` prefix), which no name of the port's has, or that holds
+    SAM-det's unmapped ``detector.*`` (which raises); else 'port', where
     ``load_state_dict(strict=True)`` names any key the file lacks or has too
     many."""
     if os.path.isdir(path) or os.path.basename(path) == CKPT_FILE:
         model.load_state_dict(restore_train_params(path), strict=True)
         return "train"
     sd = load_torch_checkpoint(path)
-    renamed = split_packed_mha(revise_keys(sd))
-    if any(k not in renamed for k in sd):
+    if is_reference_state_dict(sd):
         load_reference_checkpoint(model, sd, strict=True)
         return "reference"
     model.load_state_dict(sd, strict=True)
@@ -94,12 +105,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if args.checkpoint:
         kind = load_checkpoint(inferencer.model, args.checkpoint)
         print(f"loaded {kind} checkpoint {args.checkpoint}")
+    if args.oracle:
+        if not hasattr(inferencer.model, "oracle_predict"):
+            raise SystemExit(f"--oracle: '{cfg['model']['type']}' has no oracle_predict "
+                             "(SAM-det has)")
+        inferencer.oracle = True
 
     ds_cfg = dict((cfg.get("test_dataloader") or cfg["val_dataloader"])["dataset"])
     dataset = DATASETS.build(ds_cfg)
     loader = DataLoader(dataset, batch_size=batch_size, prefetch=1)
     metric = CocoMetric(
-        num_classes=cfg["model"].get("num_classes", 1), dump_path=args.out,
+        num_classes=cfg["model"].get("num_classes", 1), mask_mode=inferencer.mask_mode,
+        dump_path=args.out,
         classwise=args.classwise, class_names=(dataset.metainfo or {}).get("classes"),
     )
     report = evaluate(inferencer, loader, metric)

@@ -26,9 +26,11 @@ flattened conv map (``shared_fcs_0`` and the anchor head's ``point_emb_4``)
 flatten NHWC in JAX and NCHW in the port, so their input columns are
 permuted.
 
-The query head's pixel decoder and transformer decoder take the reference's
-mmdet module names (``MODULE_RENAMES``): ``input_convs_0_conv`` ->
-``input_convs.0.conv`` beside ``input_convs.0.gn``, ``encoder_layers_0`` ->
+The query head's pixel decoder and transformer decoder, SAM-det's FPN and
+the FCN mask head take the reference's mmdet module names
+(``MODULE_RENAMES``): ``input_convs_0_conv`` -> ``input_convs.0.conv``
+beside ``input_convs.0.gn`` (FPN ``lateral_convs_0_conv`` /
+``fpn_convs_0_conv``, the mask head's ``convs_0_conv`` alike), ``encoder_layers_0`` ->
 ``encoder.layers.0``, ``transformer_decoder_layers_0`` ->
 ``transformer_decoder.layers.0``; the per-level ``level_encoding_i`` vectors
 stack into the rows of ``level_encoding.weight`` (an ``nn.Embedding``).
@@ -47,14 +49,14 @@ _LIST_SUFFIX = re.compile(r"^(.*?)((?:_\d+)+)$")
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
                "mean": "running_mean", "var": "running_var"}
 # flax path substrings whose 4-D kernels are ConvTranspose2d weights
-TRANSPOSE_CONV_HINTS = ("upscale_conv", "deconv", "fpn1_0", "fpn1_3", "fpn2_0")
+TRANSPOSE_CONV_HINTS = ("upscale_conv", "deconv", "fpn1_0", "fpn1_3", "fpn2_0", "upsample")
 # linears whose input is a flattened (C, H, W) conv map: name -> C (the
 # query head's point_emb_4 takes query vectors, not a map)
 FLATTEN_LINEARS = {"shared_fcs_0": 256, "point_emb_4": 256}
 FLATTEN_EXCEPT = "panoptic_head"
 # flax module name -> the mmdet module path of the query head
 MODULE_RENAMES = (
-    (re.compile(r"^(input|lateral|output)_convs_(\d+)_conv$"), r"\1_convs.\2.conv"),
+    (re.compile(r"^((?:input|lateral|output|fpn)_)?convs_(\d+)_conv$"), r"\1convs.\2.conv"),
     (re.compile(r"^(encoder|transformer_decoder)_layers_(\d+)$"), r"\1.layers.\2"),
     (re.compile(r"^transformer_decoder_post_norm$"), "transformer_decoder.post_norm"),
 )

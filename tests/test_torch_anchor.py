@@ -155,7 +155,13 @@ def test_port_import_loads_no_jax():
         "rsprompter_tpu_torch.models.dense_heads.pixel_decoder, "
         "rsprompter_tpu_torch.models.seg_heads.fusion_head, "
         "rsprompter_tpu_torch.models.sam.prompt_encoder, "
-        "rsprompter_tpu_torch.ops.msdeform_attn, rsprompter_tpu_torch.ops.sampling; "
+        "rsprompter_tpu_torch.ops.msdeform_attn, rsprompter_tpu_torch.ops.sampling, "
+        "rsprompter_tpu_torch.models.detectors.samdet, "
+        "rsprompter_tpu_torch.models.detectors.two_stage, "
+        "rsprompter_tpu_torch.models.backbones.resnet, rsprompter_tpu_torch.models.necks.fpn, "
+        "rsprompter_tpu_torch.models.roi_heads.mask_head, "
+        "rsprompter_tpu_torch.models.roi_heads.standard_roi_head, "
+        "rsprompter_tpu_torch.models.sam.sam, rsprompter_tpu_torch.tools.test; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rsprompter_tpu')]; "
         "assert not bad, bad"
     )

@@ -183,9 +183,12 @@ def test_safetensors_file_reads_as_the_bin(tmp_path):
 
 
 def test_other_families_and_shapes_raise():
+    """Every detector family has a SAM map now; a type without one raises,
+    as does a tensor of the wrong shape."""
     port = build_detector(dict(TINY["RSPrompterAnchor"]))
-    with pytest.raises(NotImplementedError):
-        ck.load_sam_pretrained(port, {}, "SAMSegMaskRCNN")
+    assert {"SAMDet", "SAMSegMaskRCNN", "SAMSegMask2Former"} <= set(ck.SAM_SUBTREE_PREFIXES)
+    with pytest.raises(NotImplementedError, match="no SAM checkpoint map"):
+        ck.load_sam_pretrained(port, {}, "CascadeRCNN")
     bad = {"vision_encoder.patch_embed.projection.bias": torch.zeros(5)}
     with pytest.raises(ValueError, match="shape mismatch"):
         ck.load_sam_pretrained(port, bad, "RSPrompterAnchor", verbose=False)

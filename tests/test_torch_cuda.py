@@ -392,3 +392,37 @@ def test_wrappers_record_their_backward_on_cuda(gen):
     torch.cuda.synchronize()
     assert sum(fa.RELPOS_ATTENTION_BWD.variant_launches.values()) == before + 1
     assert qkv.grad is not None and fh.grad is not None and fw.grad is not None
+
+
+ENCODER_TOL = 4e-2  # chip_smoke.py's limit: max|kernels - plain| / max|plain|
+
+
+def test_fp32_encoder_runs_the_bf16_kernels(gen):
+    """An fp32 model's encoder (SAM-det's segmentor) on the kernel route:
+    its blocks launch kernels A, B and C in bf16 (none raises on fp32
+    activations) and return fp32, within ``ENCODER_TOL`` of the plain fp32
+    encoder, which casts nothing. A 10 x 10 grid under window 4 pads each
+    windowed layer to 12 x 12."""
+    from rsprompter_tpu_torch.apis.build import init_random_weights
+    from rsprompter_tpu_torch.models.sam.configs import SamVisionConfig
+    from rsprompter_tpu_torch.models.sam.vision_encoder import SamVisionEncoder
+
+    cfg = SamVisionConfig(hidden_size=768, num_hidden_layers=2, num_attention_heads=12,
+                          global_attn_indexes=(1,), image_size=160, window_size=4)
+    enc = SamVisionEncoder(cfg)
+    init_random_weights(enc, 0)
+    enc.to("cuda").eval()
+    x = torch.randn(2, 160, 160, 3, generator=gen).to("cuda")
+    kernels = (fm.LN_MLP_RESIDUAL, fm.LN_QKV_HEADMAJOR, fa.RELPOS_ATTENTION)
+    before = [sum(k.variant_launches.values()) for k in kernels]
+    with torch.no_grad():
+        got = enc(x)
+        launched = [sum(k.variant_launches.values()) - b for k, b in zip(kernels, before)]
+        enc.impl = "plain"
+        ref = enc(x)
+    assert launched == [4, 2, 2], launched  # A: fc1 + fc2 a layer
+    for a, b in zip((got[0],) + got[1], (ref[0],) + ref[1]):
+        assert a.dtype == b.dtype == torch.float32
+        assert torch.isfinite(a).all()
+        err = (a - b).abs().max().item()
+        assert err <= ENCODER_TOL * b.abs().max().item(), err

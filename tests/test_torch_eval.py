@@ -396,9 +396,29 @@ def test_finalize_masks_np_matches_jax(n):
                                           jax_finalize(*args, thr=thr))
 
 
-def test_paste_mode_names_its_slice():
-    with pytest.raises(NotImplementedError, match="A6"):
-        CocoMetric(num_classes=1, mask_mode="paste")
+def test_paste_mode_names_its_slice(tmp_path):
+    """``mask_mode='paste'`` (SAM-seg Mask R-CNN's RoI maps) pastes each map
+    into its box at the original size, where the full-frame chain would
+    stretch it over the whole image; other modes raise."""
+    import json
+
+    from rsprompter_tpu_torch.evaluation.rle import RLE, decode_mask
+    from rsprompter_tpu_torch.models.roi_heads.bbox_head import DetResult
+
+    dump = tmp_path / "dump.json"
+    metric = CocoMetric(num_classes=1, mask_mode="paste", dump_path=str(dump))
+    sf = 64 / 60
+    meta = dict(img_id=0, ori_shape=(40, 60), batch_input_shape=(64, 64), scale_factor=(sf, sf))
+    box = np.array([[[8.0, 4.0, 24.0, 20.0]]], np.float32) * sf  # in the batch input
+    dets = DetResult(box, np.ones((1, 1), np.float32), np.zeros((1, 1), np.int64),
+                     np.ones((1, 1), bool))
+    metric.process([meta], dets, np.full((1, 1, 28, 28), 255, np.uint8))
+    metric.compute()
+    rle = json.loads(dump.read_text())["images"][0]["det"]["masks"][0]
+    ys, xs = np.nonzero(decode_mask(RLE.from_coco(rle)))
+    assert (xs.min(), ys.min(), xs.max(), ys.max()) == (8, 4, 23, 19)
+    with pytest.raises(ValueError, match="fullframe"):
+        CocoMetric(num_classes=1, mask_mode="roi")
 
 
 # --- the slice: the test tool on the CPU ----------------------------------
@@ -539,6 +559,6 @@ def test_tool_matches_jax_metric(coco_dir, tmp_path, capsys, monkeypatch):
 def test_tool_refuses_untaken_flags(tmp_path):
     from rsprompter_tpu_torch.tools import test as tool
 
-    for flag in (["--tta"], ["--oracle"], ["--show-dir", "x"], ["--corruption", "fog"]):
+    for flag in (["--tta"], ["--show-dir", "x"], ["--corruption", "fog"]):
         with pytest.raises(SystemExit):
             tool.parse_args(["cfg.py"] + flag)
