@@ -1,12 +1,14 @@
 """Model builder: reference-flavoured config dict -> torch detector.
 
 Counterpart of ``rsprompter_tpu/apis/build.py`` (:102-135) for every
-family: ``type='RSPrompterAnchor'`` and ``type='RSPrompterQuery'`` (predict
-and the train step each), ``'SAMDet'``, ``'SAMSegMaskRCNN'`` and
-``'SAMSegMask2Former'`` (predict). Keeps the key vocabulary
+family, predict and the train step each: ``type='RSPrompterAnchor'``,
+``'RSPrompterQuery'`` (with ``decoder_plus=False`` too, which JAX's builder
+drops), ``'SAMDet'``, ``'SAMSegMaskRCNN'`` and ``'SAMSegMask2Former'``.
+Keeps the key vocabulary
 (``hf_sam_pretrain_name``, ``prompt_shape``, ``num_classes``, ``train_cfg``,
 ``test_cfg``, ``bf16``, ``attn_impl``, ``train_backbone``,
-``decoder_freeze``, ``num_samples``, ``pos_fraction``, ``peft_config``,
+``decoder_freeze``, ``decoder_plus``, ``num_samples``, ``pos_fraction``,
+``peft_config``,
 ``aggregator_type``, ``mask_loss_resolution``, ``resnet_depth``, the
 tiny-model ``vision_config`` override -- SAM-det's segmentor takes it too,
 where JAX ignores it -- and the ``rpn_strides`` / ``roi_strides`` ladders),
@@ -106,9 +108,7 @@ def build_detector(model_cfg: Dict[str, Any]) -> nn.Module:
     if mtype == "SAMSegMask2Former":
         return SAMSegMask2Former(**common)
     if mtype == "RSPrompterQuery":
-        if not cfg.get("decoder_plus", True):
-            raise NotImplementedError("decoder_plus=False is not ported to torch yet")
-        return RSPrompterQuery(**common)
+        return RSPrompterQuery(**common, decoder_plus=cfg.get("decoder_plus", True))
     return RSPrompterAnchor(
         **common,
         multimask_output=cfg.get("multimask_output", False),
@@ -124,7 +124,9 @@ def freeze_paths_for(model_cfg: Dict[str, Any]) -> Tuple[List[str], List[str]]:
     the reference's freeze rules (JAX :155-177): the encoder unless
     ``train_backbone``, its LoRA adapters (``lora_a``, ``lora_b``) training
     under ``peft_config``; with ``decoder_freeze`` the shared PE, the SAM
-    mask decoder and ``no_mask_embed``."""
+    mask decoder and ``no_mask_embed``. SAM-det freezes its ``segmentor``
+    (the whole SAM) and nothing else: its ``backbone`` is the detector's
+    ResNet, which trains."""
     freeze: List[str] = []
     override: List[str] = []
     if not model_cfg.get("train_backbone", False):
@@ -134,6 +136,8 @@ def freeze_paths_for(model_cfg: Dict[str, Any]) -> Tuple[List[str], List[str]]:
     if model_cfg["type"] in ("RSPrompterAnchor", "RSPrompterQuery") and model_cfg.get(
             "decoder_freeze", True):
         freeze += ["shared_image_embedding", "mask_decoder", "no_mask_embed"]
+    if model_cfg["type"] == "SAMDet":
+        freeze = ["segmentor"]
     return freeze, override
 
 

@@ -5,7 +5,7 @@ Counterpart of ``rsprompter_tpu/engine/train_state.py`` (``total_loss`` :45,
 functional state; here the step is eager over the module's own parameters
 (updated in place) and BatchNorm statistics (updated by the forward in train
 mode), and the optimizer keeps its moments. ``build_trainer`` is the entry
-point: it builds the detector (RSPrompter-anchor or -query) from a config
+point: it builds the detector (any of the five families) from a config
 on the card, unless the caller asks for the CPU, with seeded random
 weights, the SAM subtrees from the config's ``hf_sam_pretrain_ckpt_path``
 where that file exists (``engine/checkpoint.py``), and fp32 master
@@ -89,10 +89,6 @@ class Trainer:
             cfg = Config.fromdict(config)
         self.cfg = cfg
         model_cfg = cfg["model"]
-        if model_cfg["type"] not in ("RSPrompterAnchor", "RSPrompterQuery"):
-            raise NotImplementedError(
-                f"training '{model_cfg['type']}' is not ported to torch yet"
-            )
         self.model = build_detector(model_cfg)
         init_random_weights(self.model, seed)
         load_config_sam(self.model, model_cfg)  # where the config's file exists

@@ -33,10 +33,20 @@ points come in ``draws`` (JAX's key streams: per call ``li``, the match
 points from ``split(fold_in(rng, li))[0]``, the candidates and fill points
 from ``[1]``, shared by the two streams).
 
+With ``decoder_plus=False`` (JAX :183-185, :253-259, :264-276) there is
+no plus stream: each call's SAM decode of every query, its dense prompt
+``no_mask_embed`` broadcast over the image, is that call's mask and the
+next attention mask's source. The decoder chain runs it without gradient;
+:meth:`loss` matches on those masks, then decodes the matched queries again
+with gradient (phase 2 above, the prompts being per query: exact), and
+takes the SAM stream's terms alone: 21 terms.
+
 With ``sam_prompting=False`` it is the stock Mask2Former head of SAM-seg
 Mask2Former (JAX :160-184, :223-231): a single ``cls_embed`` linear, the
 ``mask_embed`` MLP's mask logits as the prediction and the attention
-source, and no SAM decoder (its loss is a later slice).
+source, and no SAM decoder. Its loss (JAX :411-506 with one stream) matches
+on those masks and takes ``loss_cls``, ``loss_mask`` and ``loss_dice`` of
+each call on the matched queries' masks: 21 terms.
 
 Norms are flax's (eps 1e-6, fp32 output) and the head's MLPs stay fp32 as
 JAX builds them without ``dtype=``; the attention projections compute in the
@@ -160,9 +170,12 @@ class Mask2FormerHead(nn.Module):
                  num_heads: int = 8, feedforward_channels: int = 512,
                  per_pointset_point: int = 5, with_sincos: bool = True,
                  num_points: int = 12544, oversample_ratio: float = 3.0,
-                 importance_sample_ratio: float = 0.75, sam_prompting: bool = True):
+                 importance_sample_ratio: float = 0.75, sam_prompting: bool = True,
+                 decoder_plus: bool = True):
         super().__init__()
         self.sam_prompting = sam_prompting
+        # each call's SAM decode of every query drives the decoder chain
+        self.chain_decodes = sam_prompting and not decoder_plus
         self.num_classes = num_classes
         self.num_queries = num_queries
         self.feat_channels = feat_channels
@@ -189,12 +202,16 @@ class Mask2FormerHead(nn.Module):
             self.point_emb = _mlp((feat_channels, feat_channels // 2, feat_channels // 2,
                                    out_channels * num_sincos * per_pointset_point))
             self.mask_decoder = SamMaskDecoder(decoder_config)
-            self.sam_mask_embed = SamMaskEmbedding(
-                SamPromptEncoderConfig(hidden_size=decoder_config.hidden_size)
-            )
+            if decoder_plus:
+                self.sam_mask_embed = SamMaskEmbedding(
+                    SamPromptEncoderConfig(hidden_size=decoder_config.hidden_size)
+                )
+            else:
+                self.no_mask_embed = nn.Embedding(1, decoder_config.hidden_size)
         else:
             self.cls_embed = Fp32Linear(feat_channels, num_classes + 1)
-        self.mask_embed = _mlp((feat_channels, feat_channels, feat_channels, out_channels))
+        if not self.chain_decodes:
+            self.mask_embed = _mlp((feat_channels, feat_channels, feat_channels, out_channels))
 
     @property
     def num_head_calls(self) -> int:
@@ -209,14 +226,22 @@ class Mask2FormerHead(nn.Module):
                 "cand": (n, batch_size * max_gt, k_cand, 2),
                 "rand": (n, batch_size * max_gt, k_rand, 2)}
 
-    def _forward_head(self, decoder_out, mask_feature, attn_hw):
-        """-> (class logits (B, Q, C+1), post-normed queries (B, Q, C), plus
-        mask logits (B, Q, H4, W4) fp32, next attention mask)."""
+    def _forward_head(self, decoder_out, mask_feature, attn_hw, image_embeddings, image_pe):
+        """-> (class logits (B, Q, C+1), post-normed queries (B, Q, C), mask
+        logits fp32, next attention mask). The masks are the mask-feature
+        product's (B, Q, H4, W4), or with ``decoder_plus=False`` the SAM
+        decode's of every query (B, Q, 4h, 4w), without gradient."""
         x = self.transformer_decoder.post_norm(decoder_out)
-        mask_plus = torch.einsum(
-            "bqc,bhwc->bqhw", self.mask_embed(x).float(), mask_feature.float()
-        )
-        return self.cls_embed(x), x, mask_plus, self._next_attn_mask(mask_plus, attn_hw)
+        if self.chain_decodes:
+            with torch.no_grad():
+                mask = self._decode(self._sparse_prompts(x),
+                                    self._dense_prompts(None, image_embeddings),
+                                    image_embeddings, image_pe)
+        else:
+            mask = torch.einsum(
+                "bqc,bhwc->bqhw", self.mask_embed(x).float(), mask_feature.float()
+            )
+        return self.cls_embed(x), x, mask, self._next_attn_mask(mask, attn_hw)
 
     @staticmethod
     def _next_attn_mask(mask_plus: torch.Tensor, attn_hw: Tuple[int, int]) -> torch.Tensor:
@@ -237,9 +262,14 @@ class Mask2FormerHead(nn.Module):
             pts = torch.sin(pts[..., ::2]) + pts[..., 1::2]
         return pts
 
-    def _dense_prompts(self, mask_plus: torch.Tensor) -> torch.Tensor:
+    def _dense_prompts(self, mask_plus: Optional[torch.Tensor],
+                       image_embeddings: torch.Tensor) -> torch.Tensor:
         """Plus masks (B, N, H4, W4) -> dense prompts (B, N, h, w, C_sam); no
-        gradient reaches the masks (JAX's stop_gradient, :248)."""
+        gradient reaches the masks (JAX's stop_gradient, :248). Without the
+        plus stream: ``no_mask_embed`` over the image, (B, h, w, C_sam)."""
+        if self.chain_decodes:
+            b, h, w, _ = image_embeddings.shape
+            return self.no_mask_embed.weight.reshape(1, 1, 1, -1).expand(b, h, w, -1)
         b, n, h4, w4 = mask_plus.shape
         dense = self.sam_mask_embed(mask_plus.detach().reshape(b * n, h4, w4, 1))
         return dense.reshape(b, n, *dense.shape[1:])
@@ -253,10 +283,12 @@ class Mask2FormerHead(nn.Module):
         )
         return masks[:, :, 0]
 
-    def run_decoder(self, feats: Sequence[torch.Tensor]):
+    def run_decoder(self, feats: Sequence[torch.Tensor],
+                    image_embeddings: Optional[torch.Tensor] = None,
+                    image_pe: Optional[torch.Tensor] = None):
         """The pixel decoder, then the query decoder chain. Returns, one
-        entry per head call, class logits, post-normed queries and plus
-        masks."""
+        entry per head call, class logits, post-normed queries and masks
+        (:meth:`_forward_head`'s)."""
         b = feats[0].shape[0]
         mask_feature, memorys = self.pixel_decoder(feats)  # memorys low -> high res
         dev = mask_feature.device
@@ -271,13 +303,14 @@ class Mask2FormerHead(nn.Module):
         query_feat = self.query_feat.weight[None].expand(b, -1, -1)
         query_pos = self.query_embed.weight[None].expand(b, -1, -1)
 
-        cls_list, x_list, plus_list = [], [], []
+        cls_list, x_list, mask_list = [], [], []
 
         def head(qf, hw_idx):
-            cls_pred, x, mask_plus, am = self._forward_head(qf, mask_feature, mem_hw[hw_idx])
+            cls_pred, x, mask, am = self._forward_head(qf, mask_feature, mem_hw[hw_idx],
+                                                       image_embeddings, image_pe)
             cls_list.append(cls_pred)
             x_list.append(x)
-            plus_list.append(mask_plus)
+            mask_list.append(mask)
             return am
 
         attn_mask = head(query_feat, 0)
@@ -285,20 +318,22 @@ class Mask2FormerHead(nn.Module):
             lvl = i % self.num_levels
             query_feat = layer(query_feat, query_pos, mem_tokens[lvl], mem_pos[lvl], attn_mask)
             attn_mask = head(query_feat, (i + 1) % self.num_levels)
-        return cls_list, x_list, plus_list
+        return cls_list, x_list, mask_list
 
     def forward(self, feats: Sequence[torch.Tensor], image_embeddings: torch.Tensor,
                 image_pe: torch.Tensor, decode_last_only: bool = False):
         """Returns (cls_list, mask_list), one entry per head call, each
         call's SAM decode over all its queries; with ``decode_last_only``
-        every mask_list entry but the last is None."""
-        cls_list, x_list, plus_list = self.run_decoder(feats)
+        (the plus stream's) every mask_list entry but the last is None."""
+        cls_list, x_list, chain_masks = self.run_decoder(feats, image_embeddings, image_pe)
+        if self.chain_decodes:  # each call's SAM decode of every query already
+            return cls_list, chain_masks
         mask_list: List[Optional[torch.Tensor]] = [None] * len(cls_list)
         for i in range(len(cls_list)):
             if decode_last_only and i < len(cls_list) - 1:
                 continue
             mask_list[i] = self._decode(self._sparse_prompts(x_list[i]),
-                                        self._dense_prompts(plus_list[i]),
+                                        self._dense_prompts(chain_masks[i], image_embeddings),
                                         image_embeddings, image_pe)
         return cls_list, mask_list
 
@@ -317,34 +352,38 @@ class Mask2FormerHead(nn.Module):
              image_pe: torch.Tensor, draws: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """gt_labels, gt_valid (B, G); gt_masks (B, G, H, W) at the batch
         input's resolution (any dtype, 0 / 1); ``draws`` as
-        :meth:`draw_shapes`. Returns the 35 loss terms (module docstring)."""
-        if not self.sam_prompting:
-            raise NotImplementedError("the stock Mask2Former head's loss is not ported yet")
-        cls_list, x_list, plus_list = self.run_decoder(feats)
+        :meth:`draw_shapes`. Returns the 35 loss terms of the plus stream's
+        head, or the 21 of one stream (module docstring)."""
+        cls_list, x_list, mask_list = self.run_decoder(feats, image_embeddings, image_pe)
         n_calls = len(cls_list)
         b, g = gt_labels.shape
         q = self.num_queries
         cls_all = torch.stack(cls_list)  # (L, B, Q, C+1)
-        plus_all = torch.stack(plus_list)  # (L, B, Q, H4, W4)
+        mask_all = torch.stack(mask_list)  # (L, B, Q, h, w)
         matched = hungarian_match_batched(
-            self._match_cost(cls_all, plus_all, gt_labels, gt_masks, gt_valid,
+            self._match_cost(cls_all, mask_all, gt_labels, gt_masks, gt_valid,
                              draws["match"]),
             gt_valid,
         )  # (L, B, G)
         safe_q = matched.clamp(0, q - 1)
         li = torch.arange(n_calls, device=safe_q.device)[:, None, None]
         bi = torch.arange(b, device=safe_q.device)[None, :, None]
-        # the matched queries' prompts, every call on one decode's point-batch axis
-        x_m = torch.stack(x_list)[li, bi, safe_q]  # (L, B, G, C)
-        plus_m = plus_all[li, bi, safe_q]  # (L, B, G, H4, W4)
-        h4, w4 = plus_m.shape[-2:]
-        sparse = self._sparse_prompts(x_m.transpose(0, 1).reshape(b, n_calls * g, -1))
-        dense = self._dense_prompts(plus_m.transpose(0, 1).reshape(b, n_calls * g, h4, w4))
-        sam = self._decode(sparse, dense, image_embeddings, image_pe)  # (B, L*G, 4h, 4w)
-        sam = sam.reshape(b, n_calls, g, *sam.shape[-2:]).transpose(0, 1)
+        mask_m = mask_all[li, bi, safe_q]  # (L, B, G, h, w)
+        streams = [] if self.sam_prompting else [("", mask_m)]
+        if self.sam_prompting:
+            # the matched queries' prompts, every call on one decode's point-batch axis
+            x_m = torch.stack(x_list)[li, bi, safe_q]  # (L, B, G, C)
+            sparse = self._sparse_prompts(x_m.transpose(0, 1).reshape(b, n_calls * g, -1))
+            plus_m = (None if self.chain_decodes else
+                      mask_m.transpose(0, 1).reshape(b, n_calls * g, *mask_m.shape[-2:]))
+            dense = self._dense_prompts(plus_m, image_embeddings)
+            sam = self._decode(sparse, dense, image_embeddings, image_pe)  # (B, L*G, 4h, 4w)
+            streams.append(("", sam.reshape(b, n_calls, g, *sam.shape[-2:]).transpose(0, 1)))
+            if not self.chain_decodes:
+                streams.append(("_plus", mask_m))
 
         per_call = {"loss_cls": self._cls_loss(cls_all, matched, gt_labels, gt_valid)}
-        for suffix, masks in (("", sam), ("_plus", plus_m)):
+        for suffix, masks in streams:
             loss_mask, loss_dice = self._mask_losses(masks, matched, gt_masks, gt_valid,
                                                      draws["cand"], draws["rand"])
             per_call[f"loss_mask{suffix}"] = loss_mask
@@ -357,11 +396,11 @@ class Mask2FormerHead(nn.Module):
         return losses
 
     @torch.no_grad()
-    def _match_cost(self, cls_all, plus_all, gt_labels, gt_masks, gt_valid, points):
+    def _match_cost(self, cls_all, mask_all, gt_labels, gt_masks, gt_valid, points):
         """(L, B, Q, G) cost: every prediction and GT of an image sampled at
         the same points ``points`` (L, B, P, 2); invalid GT cost 1e8."""
         n_calls = cls_all.shape[0]
-        pred_pts = sample_mask_points_shared(plus_all, points)  # (L, B, Q, P)
+        pred_pts = sample_mask_points_shared(mask_all, points)  # (L, B, Q, P)
         gt_pts = sample_mask_points_shared(
             gt_masks[None].expand(n_calls, *gt_masks.shape), points)
         gt_pts = (gt_pts >= 0.5).float()

@@ -6,11 +6,15 @@ Counterpart of ``rsprompter_tpu/models/dense_heads/rpn_head.py``: a shared
 positives and takes sigmoid CE plus smooth L1 as one masked reduction;
 proposals by per-level top-k -> decode -> clip -> global top-k ->
 level-separated NMS, padded to ``max_per_img`` with a validity mask.
+:func:`propose` (test time) and :func:`two_stage_loss` (the train step: the
+RPN's loss and the proposals of its detached outputs, with
+``rpn_train_cfgs``, JAX's ``_rpn_cfgs``, then the RoI head's loss) serve the
+three two-stage detectors.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Sequence
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -142,6 +146,50 @@ def propose(rpn_head: RPNHead, anchor_generator: AnchorGenerator,
     rpn_cfg.update(test_cfg.get("rpn", {}))
     return rpn_predict(cls_scores, bbox_preds, anchor_generator.device_anchors(feats),
                        img_shapes, rpn_cfg)
+
+
+def rpn_train_cfgs(train_cfg: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """(the RPN sampler's config, the train proposals' config): the
+    defaults of JAX's ``_rpn_cfgs`` under ``train_cfg['rpn']`` and
+    ``train_cfg['rpn_proposal']``."""
+    rpn_train = dict(pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3, num=256,
+                     pos_fraction=0.5)
+    rpn_train.update(train_cfg.get("rpn", {}))
+    rpn_proposal = dict(nms_pre=2000, max_per_img=1000, nms_iou_thr=0.7)
+    rpn_proposal.update(train_cfg.get("rpn_proposal", {}))
+    return rpn_train, rpn_proposal
+
+
+def two_stage_loss(rpn_head: RPNHead, anchor_generator: AnchorGenerator, roi_head: nn.Module,
+                   feats: Sequence[torch.Tensor], batch: Dict[str, torch.Tensor],
+                   train_cfg: Dict[str, Any], generator: Optional[torch.Generator],
+                   draws: Optional[Dict[str, torch.Tensor]], *roi_extra: Any,
+                   ) -> Dict[str, torch.Tensor]:
+    """The two-stage detectors' train step on their features: the RPN's
+    loss terms, its proposals from the detached outputs (JAX's
+    stop-gradient), then ``roi_head.loss`` on them, ``roi_extra`` passed
+    before its draws. ``draws`` {'rpn': (3, B, P), 'roi': (3, B, G + N)} are
+    the samplers' uniforms; without them they come from ``generator``."""
+    b, g = batch["gt_valid"].shape
+
+    def draw(name: str, n: int) -> torch.Tensor:
+        if draws is not None:
+            return draws[name]
+        return torch.rand((3, b, n), generator=generator, device=feats[0].device)
+
+    cls_scores, bbox_preds = rpn_head(feats)
+    level_anchors = anchor_generator.device_anchors(feats)
+    anchors = torch.cat(level_anchors, dim=0)
+    sampler_cfg, proposal_cfg = rpn_train_cfgs(train_cfg)
+    losses = rpn_loss(cls_scores, bbox_preds, anchors, batch["gt_bboxes"], batch["gt_valid"],
+                      draw("rpn", anchors.shape[0]), sampler_cfg)
+    proposals = rpn_predict([s.detach() for s in cls_scores], [d.detach() for d in bbox_preds],
+                            level_anchors, batch["img_shape"], proposal_cfg)
+    losses.update(roi_head.loss(
+        feats, proposals.boxes, proposals.valid, batch["gt_bboxes"], batch["gt_labels"],
+        batch["gt_valid"], batch.get("gt_masks"), *roi_extra,
+        draw("roi", g + proposals.boxes.shape[1])))
+    return losses
 
 
 def build_rpn_anchor_generator(cfg: Dict[str, Any]) -> AnchorGenerator:

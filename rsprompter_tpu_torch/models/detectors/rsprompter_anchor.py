@@ -30,8 +30,7 @@ from rsprompter_tpu_torch.models.dense_heads.rpn_head import (
     RPNHead,
     build_rpn_anchor_generator,
     propose,
-    rpn_loss,
-    rpn_predict,
+    two_stage_loss,
 )
 from rsprompter_tpu_torch.models.necks.rsfpn import RSSimpleFPN, build_aggregator
 from rsprompter_tpu_torch.models.preprocess import preprocess_images
@@ -111,14 +110,6 @@ class RSPrompterAnchor(nn.Module):
         feats = self.neck_feature_spliter(self.neck_feature_aggregator(neck_in))
         return feats, image_embeddings, image_pe
 
-    def _rpn_cfgs(self):
-        rpn_train = dict(pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3, num=256,
-                         pos_fraction=0.5)
-        rpn_train.update(self.train_cfg.get("rpn", {}))
-        rpn_proposal = dict(nms_pre=2000, max_per_img=1000, nms_iou_thr=0.7)
-        rpn_proposal.update(self.train_cfg.get("rpn_proposal", {}))
-        return rpn_train, rpn_proposal
-
     def loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
              draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """batch: images, img_shape, gt_bboxes (B, G, 4), gt_labels, gt_valid
@@ -126,30 +117,8 @@ class RSPrompterAnchor(nn.Module):
         'roi': (3, B, G + N)} are the samplers' uniforms; without them they
         come from ``generator``. Returns the loss terms and ``acc``."""
         feats, image_embeddings, image_pe = self.extract_feat(batch["images"])
-        cls_scores, bbox_preds = self.rpn_head(feats)
-        level_anchors = self.anchor_generator.device_anchors(feats)
-        anchors = torch.cat(level_anchors, dim=0)
-        rpn_train_cfg, rpn_proposal_cfg = self._rpn_cfgs()
-        gt_bboxes, gt_valid = batch["gt_bboxes"], batch["gt_valid"]
-        b, g = gt_valid.shape
-
-        def draw(name, n):
-            if draws is not None:
-                return draws[name]
-            return torch.rand((3, b, n), generator=generator, device=anchors.device)
-
-        losses = rpn_loss(cls_scores, bbox_preds, anchors, gt_bboxes, gt_valid,
-                          draw("rpn", anchors.shape[0]), rpn_train_cfg)
-        proposals = rpn_predict(
-            [s.detach() for s in cls_scores], [d.detach() for d in bbox_preds],
-            level_anchors, batch["img_shape"], rpn_proposal_cfg,
-        )
-        losses.update(self.roi_head.loss(
-            feats, proposals.boxes, proposals.valid, gt_bboxes, batch["gt_labels"],
-            gt_valid, batch["gt_masks"], image_embeddings, image_pe,
-            draw("roi", g + proposals.boxes.shape[1]),
-        ))
-        return losses
+        return two_stage_loss(self.rpn_head, self.anchor_generator, self.roi_head, feats, batch,
+                              self.train_cfg, generator, draws, image_embeddings, image_pe)
 
     @torch.no_grad()
     def predict(self, batch: Dict[str, torch.Tensor]):

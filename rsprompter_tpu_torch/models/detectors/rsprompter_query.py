@@ -10,7 +10,8 @@ the image-wide Fourier PE -> the Mask2Former query head prompting the SAM
 mask decoder -> the fusion head's top-k instances. Attribute names mirror
 the JAX module's parameter tree.
 
-``loss`` (JAX :144) returns the head's 35 loss terms for one batch: with
+``loss`` (JAX :144) returns the head's 35 loss terms for one batch (21
+with ``decoder_plus=False``, whose head has no plus stream): with
 ``freeze_backbone`` the encoder runs without gradient (JAX's stop-gradient
 on its outputs; the peft configs leave it off, so the gradient reaches the
 adapters and the optimizer's groups freeze the rest); the head's point
@@ -21,7 +22,8 @@ eval mode is the neck's BatchNorms' (batch statistics in ``loss``).
 ``SAMSegMask2Former`` (JAX :195-199, reference ``models.py:1248``) is the
 same pipeline with the stock Mask2Former head (``sam_prompting=False``):
 no SAM decoder, no shared positional embedding; its masks are the head's
-mask-feature products at a quarter of the input's resolution.
+mask-feature products at a quarter of the input's resolution, and its loss
+the head's 21 terms.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ class RSPrompterQuery(nn.Module):
         lora_rank: int = 0,
         lora_alpha: float = 32.0,
         sam_prompting: bool = True,
+        decoder_plus: bool = True,
     ):
         super().__init__()
         self.sam_prompting = sam_prompting
@@ -90,7 +93,7 @@ class RSPrompterQuery(nn.Module):
             with_sincos=with_sincos, num_points=tc.get("num_points", 12544),
             oversample_ratio=tc.get("oversample_ratio", 3.0),
             importance_sample_ratio=tc.get("importance_sample_ratio", 0.75),
-            sam_prompting=sam_prompting,
+            sam_prompting=sam_prompting, decoder_plus=decoder_plus,
         )
 
     def extract_feat(self, images: torch.Tensor):
@@ -116,7 +119,7 @@ class RSPrompterQuery(nn.Module):
         head = self.panoptic_head
         if draws is None:
             b, g = batch["gt_valid"].shape
-            draws = {k: torch.rand(shape, generator=generator, device=image_pe.device)
+            draws = {k: torch.rand(shape, generator=generator, device=image_embeddings.device)
                      for k, shape in head.draw_shapes(b, g).items()}
         return head.loss(feats, batch["gt_labels"], batch["gt_masks"], batch["gt_valid"],
                          image_embeddings, image_pe, draws)

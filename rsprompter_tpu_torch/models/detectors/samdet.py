@@ -11,11 +11,16 @@ axis; padded slots prompt the box [0, 0, 1, 1] (JAX :123) and are masked by
 at score 1 instead: the paper's upper bound for the SAM half.
 
 Both return (DetResult, sigmoid probabilities of the 256^2 full-frame
-masks). The model computes in fp32 (the config has no ``bf16``); on the card
-the segmentor's encoder blocks run the bf16 kernels
+masks). ``loss`` (JAX :90-117) trains the detector alone: the RPN and bbox
+terms of one batch (the samplers' draws as the anchor detector takes them;
+``gt_masks`` may be absent), and the segmentor never runs in it (the
+optimizer freezes ``segmentor``, ``apis/build.py``). The ResNet's frozen
+BatchNorms keep their running statistics and train their scale and bias,
+as JAX's do. The model computes in fp32 (the config has no ``bf16``); on
+the card the segmentor's encoder blocks run the bf16 kernels
 (``models/sam/vision_encoder.py``), and the convolutions run in TF32 or not
 as the caller sets ``torch.backends.cudnn.allow_tf32``: the port flips no
-global flag. The detector's loss is a later slice.
+global flag.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from rsprompter_tpu_torch.models.dense_heads.rpn_head import (
     RPNHead,
     build_rpn_anchor_generator,
     propose,
+    two_stage_loss,
 )
 from rsprompter_tpu_torch.models.necks.fpn import FPN
 from rsprompter_tpu_torch.models.preprocess import preprocess_images
@@ -93,9 +99,22 @@ class SAMDet(nn.Module):
             pos_fraction=pos_fraction, test_cfg=self.test_cfg.get("rcnn"))
         self.segmentor = SamModel(sam_config_for(arch, image_size, vision_config), attn_impl)
 
+    def detector_feats(self, images: torch.Tensor):
+        """ResNet + FPN: the five feature levels of the detector."""
+        return self.neck(self.backbone(preprocess_images(images)))
+
+    def loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+             draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """The detector's loss terms and ``acc``. batch: images, img_shape,
+        gt_bboxes (B, G, 4), gt_labels and gt_valid (B, G); ``draws`` as
+        :meth:`RSPrompterAnchor.loss` takes them."""
+        return two_stage_loss(self.rpn_head, self.anchor_generator, self.roi_head,
+                              self.detector_feats(batch["images"]), batch, self.train_cfg,
+                              generator, draws)
+
     def detect(self, images: torch.Tensor, img_shapes: torch.Tensor) -> DetResult:
         """The detector half: (B, max_per_img) boxes in batch-input pixels."""
-        feats = self.neck(self.backbone(preprocess_images(images)))
+        feats = self.detector_feats(images)
         proposals = propose(self.rpn_head, self.anchor_generator, feats, img_shapes,
                             self.test_cfg)
         dets, _ = self.roi_head.predict(feats, proposals.boxes, proposals.valid, img_shapes)

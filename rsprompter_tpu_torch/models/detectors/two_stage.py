@@ -9,8 +9,12 @@ states (or the pseudo aggregator over its image embeddings,
 with the FCN mask head. ``predict`` (JAX :160-175) returns the detections and
 each one's 28^2 mask probabilities; they are pasted into their boxes on the
 host (``roi_heads.mask_head.paste_masks_np``; the metric's and the
-inferencer's ``paste`` mode). Attribute names mirror the JAX module's
-parameter tree. The loss is a later slice.
+inferencer's ``paste`` mode). ``loss`` (JAX :134-160) returns the RPN, bbox
+and FCN mask losses of one batch, the encoder without gradient where
+``freeze_backbone`` is set (JAX's stop-gradient; with LoRA it runs under
+autograd and the optimizer trains its adapters alone), the samplers' draws
+as the anchor detector takes them. Attribute names mirror the JAX module's
+parameter tree.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from rsprompter_tpu_torch.models.dense_heads.rpn_head import (
     RPNHead,
     build_rpn_anchor_generator,
     propose,
+    two_stage_loss,
 )
 from rsprompter_tpu_torch.models.necks.rsfpn import RSSimpleFPN, build_aggregator
 from rsprompter_tpu_torch.models.preprocess import preprocess_images
@@ -78,6 +83,16 @@ class SAMSegMaskRCNN(nn.Module):
             image_embeddings, hidden_states = self.backbone(preprocess_images(images))
         neck_in = (image_embeddings,) if self.aggregator_type == "pseudo" else hidden_states
         return self.neck_feature_spliter(self.neck_feature_aggregator(neck_in))
+
+    def loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+             draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        """batch: images, img_shape, gt_bboxes (B, G, 4), gt_labels, gt_valid
+        (B, G) and gt_masks (B, G, H, W) 0 / 1. ``draws`` {'rpn': (3, B, P),
+        'roi': (3, B, G + N)} are the samplers' uniforms; without them they
+        come from ``generator``. Returns the loss terms and ``acc``."""
+        return two_stage_loss(self.rpn_head, self.anchor_generator, self.roi_head,
+                              self.extract_feat(batch["images"]), batch, self.train_cfg,
+                              generator, draws)
 
     @torch.no_grad()
     def predict(self, batch: Dict[str, torch.Tensor]):

@@ -27,15 +27,10 @@ from rsprompter_tpu_torch.models.losses import mask_cross_entropy
 from rsprompter_tpu_torch.models.roi_heads.bbox_head import (
     DetResult,
     Shared2FCBBoxHead,
-    bbox_head_loss,
     bbox_head_predict,
 )
 from rsprompter_tpu_torch.models.roi_heads.prompt_mask_head import RSPrompterAnchorMaskHead
-from rsprompter_tpu_torch.models.roi_heads.roi_extractor import extract_roi_feats
-from rsprompter_tpu_torch.models.roi_heads.standard_roi_head import (
-    boxes_to_rois,
-    sample_proposals_batch,
-)
+from rsprompter_tpu_torch.models.roi_heads.standard_roi_head import SampledBBoxLoss
 from rsprompter_tpu_torch.models.sam.configs import SamMaskDecoderConfig
 from rsprompter_tpu_torch.ops.boxes import take_per_image
 from rsprompter_tpu_torch.ops.resize import resize
@@ -52,7 +47,7 @@ def add_extra_pe(feats: Sequence[torch.Tensor], num_feats: int) -> Tuple[torch.T
     return tuple(out)
 
 
-class RSPrompterAnchorRoIPromptHead(nn.Module):
+class RSPrompterAnchorRoIPromptHead(SampledBBoxLoss, nn.Module):
     def __init__(self, decoder_config: SamMaskDecoderConfig, num_classes: int = 1,
                  featmap_strides: Tuple[int, ...] = (4, 8, 16, 32),
                  bbox_roi_size: int = 7, mask_roi_size: int = 14,
@@ -83,16 +78,6 @@ class RSPrompterAnchorRoIPromptHead(nn.Module):
             multimask_output=multimask_output,
         )
 
-    def _roi_feats(self, feats, boxes, size):
-        return extract_roi_feats(
-            feats[: len(self.featmap_strides)], boxes_to_rois(boxes), (size, size),
-            self.featmap_strides, sampling_ratio=self.roi_sampling_ratio,
-        )
-
-    @property
-    def num_mask_slots(self) -> int:
-        return max(int(self.num_samples * self.pos_fraction), 1)
-
     def _mask_logits(self, feats, boxes, image_embeddings, image_pe):
         """boxes (B, R, 4) -> SAM low-res mask logits (B, R, S, S)."""
         b, r, _ = boxes.shape
@@ -119,20 +104,8 @@ class RSPrompterAnchorRoIPromptHead(nn.Module):
         if self.with_extra_pe:
             feats = add_extra_pe(feats, num_feats=feats[0].shape[-1] // 2)
         b = proposals.shape[0]
-        smp = sample_proposals_batch(
-            rand, proposals, proposal_valid, gt_bboxes, gt_labels, gt_valid,
-            num=self.num_samples, pos_fraction=self.pos_fraction,
-        )
-        cls_logits, bbox_deltas = self.bbox_head(
-            self._roi_feats(feats, smp.boxes, self.bbox_roi_size)
-        )
-        flat_labels = smp.labels.reshape(-1)
-        flat_labels = torch.where(flat_labels >= 0, flat_labels, self.num_classes)
-        losses = bbox_head_loss(
-            cls_logits, bbox_deltas, smp.boxes.reshape(-1, 4), flat_labels,
-            smp.matched_gt.reshape(-1, 4), smp.valid.reshape(-1), smp.is_pos.reshape(-1),
-            self.num_classes, self.target_stds,
-        )
+        smp, losses = self.sampled_bbox_loss(feats, proposals, proposal_valid, gt_bboxes,
+                                             gt_labels, gt_valid, rand)
 
         # mask branch on the packed positive slots; gradients reach point_emb
         # through the decoder even when the decoder's parameters are frozen

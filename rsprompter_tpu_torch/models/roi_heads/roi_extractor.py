@@ -4,9 +4,10 @@ Counterpart of ``rsprompter_tpu/models/roi_heads/roi_extractor.py``: level by
 ``floor(log2(sqrt(wh) / 56))``, then mmcv RoIAlign (``aligned=True``) on that
 level. ``sampling_ratio=0`` is mmcv's adaptive rule, ``ceil(bin)`` samples per
 bin, exact up to ``max_adaptive_ratio`` (bins stay <= 4 with FPN level
-mapping). The pyramid is flattened into one (B * sum HW, C) table so the
-whole extraction is one gather of the bilinear corner grid plus two per-axis
-weighted contractions.
+mapping); the border rule is the single-level RoIAlign's
+(``ops/roi_align.py``). The pyramid is flattened into one (B * sum HW, C)
+table so the whole extraction is one gather of the bilinear corner grid plus
+two per-axis weighted contractions.
 """
 
 from __future__ import annotations
@@ -16,21 +17,14 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from rsprompter_tpu_torch.ops.roi_align import axis_corners
+
 
 def map_roi_levels(rois: torch.Tensor, num_levels: int, finest_scale: int = 56) -> torch.Tensor:
     """rois (R, 5) -> level index (R,) int64."""
     scale = torch.sqrt((rois[:, 3] - rois[:, 1]) * (rois[:, 4] - rois[:, 2]))
     lvl = torch.floor(torch.log2(scale / finest_scale + 1e-6))
     return lvl.clamp(0, num_levels - 1).long()
-
-
-def _axis_corners(vs: torch.Tensor, lim: torch.Tensor):
-    inside = (vs > -1.0) & (vs < lim)
-    vc = vs.clamp(min=0.0)
-    lo = torch.minimum(torch.floor(vc), lim - 1)
-    hi = torch.minimum(lo + 1, lim - 1)
-    frac = (vc - lo).clamp(0.0, 1.0)
-    return lo, hi, frac, inside
 
 
 def extract_roi_feats(
@@ -92,8 +86,8 @@ def extract_roi_feats(
         my = torch.ones((r, out_h * s), device=dev)
         mx = torch.ones((r, out_w * s), device=dev)
 
-    y_lo, y_hi, ly, ins_y = _axis_corners(ys, lvl_h[:, None])
-    x_lo, x_hi, lx, ins_x = _axis_corners(xs, lvl_w[:, None])
+    y_lo, y_hi, ly, ins_y = axis_corners(ys, lvl_h[:, None])
+    x_lo, x_hi, lx, ins_x = axis_corners(xs, lvl_w[:, None])
     n_y, n_x = ys.shape[1], xs.shape[1]
 
     base = batch_idx * flat.shape[1] + lvl_start  # (R,)

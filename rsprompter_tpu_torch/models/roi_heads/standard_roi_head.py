@@ -1,22 +1,27 @@
 """Two-stage RoI heads (torch, batched): proposal sampling and the
-standard bbox + mask head's predict.
+standard bbox + mask head's loss and predict.
 
 Counterpart of ``rsprompter_tpu/models/roi_heads/standard_roi_head.py``:
 
 * ``sample_proposals_batch`` (:36): gt boxes are prepended as proposals,
   every proposal is assigned by max IoU (0.5 / 0.5 / 0.5) and ``num`` are
   sampled with positives first;
-* ``StandardRoIHead.predict`` (:207-254), the head of SAM-det's detector
-  (``with_mask=False``) and of SAM-seg Mask R-CNN: 7^2 RoI features of the
-  proposals through ``Shared2FCBBoxHead`` and the per-class decode + NMS,
-  then 14^2 RoI features of the detections through ``FCNMaskHead``, the
-  detection's class channel (or the one channel of a class-agnostic head)
-  and a sigmoid. Its loss is the Mask R-CNN train step's.
+* ``StandardRoIHead``, the head of SAM-det's detector (``with_mask=False``)
+  and of SAM-seg Mask R-CNN. ``loss`` (:117-180): ``num_samples`` RoIs
+  sampled per image (positives packed first), 7^2 RoI features through
+  ``Shared2FCBBoxHead`` and its loss; with the mask head, the first
+  ``num_mask_slots`` slots' 14^2 RoI features through ``FCNMaskHead``
+  against their matched GT masks cropped to 28^2 (``mask_targets_from_rois``,
+  a fixed 2 x 2 samples a bin, where the features take the adaptive rule of
+  ``roi_sampling_ratio=0``). ``predict`` (:207-254): the proposals' bbox
+  head and the per-class decode + NMS, then 14^2 RoI features of the
+  detections through the mask head, the detection's class channel (or the
+  one channel of a class-agnostic head) and a sigmoid.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -24,9 +29,14 @@ import torch.nn as nn
 from rsprompter_tpu_torch.models.roi_heads.bbox_head import (
     DetResult,
     Shared2FCBBoxHead,
+    bbox_head_loss,
     bbox_head_predict,
 )
-from rsprompter_tpu_torch.models.roi_heads.mask_head import FCNMaskHead
+from rsprompter_tpu_torch.models.roi_heads.mask_head import (
+    FCNMaskHead,
+    fcn_mask_loss,
+    mask_targets_from_rois,
+)
 from rsprompter_tpu_torch.models.roi_heads.roi_extractor import extract_roi_feats
 from rsprompter_tpu_torch.models.task_modules.assigners import max_iou_assign
 from rsprompter_tpu_torch.models.task_modules.samplers import random_sample_padded
@@ -81,7 +91,45 @@ def sample_proposals_batch(
     )
 
 
-class StandardRoIHead(nn.Module):
+class SampledBBoxLoss:
+    """What the standard and the prompt RoI heads share: RoI features of
+    boxes, the mask branch's slots, and the sampling + bbox head loss of the
+    train step. The head sets ``featmap_strides``, ``roi_sampling_ratio``,
+    ``bbox_roi_size``, ``num_samples``, ``pos_fraction``, ``num_classes``,
+    ``target_stds`` and ``bbox_head``."""
+
+    def _roi_feats(self, feats: Sequence[torch.Tensor], boxes: torch.Tensor, size: int):
+        return extract_roi_feats(
+            feats[: len(self.featmap_strides)], boxes_to_rois(boxes), (size, size),
+            self.featmap_strides, sampling_ratio=self.roi_sampling_ratio,
+        )
+
+    @property
+    def num_mask_slots(self) -> int:
+        """The mask branch's slots: the first ``num_samples * pos_fraction``
+        (positives are packed first)."""
+        return max(int(self.num_samples * self.pos_fraction), 1)
+
+    def sampled_bbox_loss(self, feats, proposals, proposal_valid, gt_bboxes, gt_labels,
+                          gt_valid, rand) -> Tuple[SampledRois, Dict[str, torch.Tensor]]:
+        """Sample ``num_samples`` RoIs an image (the GT added as proposals),
+        then the bbox head's loss on their 7^2 features."""
+        smp = sample_proposals_batch(
+            rand, proposals, proposal_valid, gt_bboxes, gt_labels, gt_valid,
+            num=self.num_samples, pos_fraction=self.pos_fraction,
+        )
+        cls_logits, bbox_deltas = self.bbox_head(
+            self._roi_feats(feats, smp.boxes, self.bbox_roi_size))
+        flat_labels = smp.labels.reshape(-1)
+        flat_labels = torch.where(flat_labels >= 0, flat_labels, self.num_classes)
+        return smp, bbox_head_loss(
+            cls_logits, bbox_deltas, smp.boxes.reshape(-1, 4), flat_labels,
+            smp.matched_gt.reshape(-1, 4), smp.valid.reshape(-1), smp.is_pos.reshape(-1),
+            self.num_classes, self.target_stds,
+        )
+
+
+class StandardRoIHead(SampledBBoxLoss, nn.Module):
     def __init__(self, num_classes: int = 1,
                  featmap_strides: Tuple[int, ...] = (4, 8, 16, 32),
                  bbox_roi_size: int = 7, mask_roi_size: int = 14,
@@ -105,11 +153,32 @@ class StandardRoIHead(nn.Module):
         self.mask_head = (FCNMaskHead(num_classes, class_agnostic=class_agnostic_mask)
                           if with_mask else None)
 
-    def _roi_feats(self, feats: Sequence[torch.Tensor], boxes: torch.Tensor, size: int):
-        return extract_roi_feats(
-            feats[: len(self.featmap_strides)], boxes_to_rois(boxes), (size, size),
-            self.featmap_strides, sampling_ratio=self.roi_sampling_ratio,
+    def loss(
+        self,
+        feats: Sequence[torch.Tensor],
+        proposals: torch.Tensor,  # (B, N, 4), no gradient
+        proposal_valid: torch.Tensor,  # (B, N)
+        gt_bboxes: torch.Tensor,  # (B, G, 4)
+        gt_labels: torch.Tensor,  # (B, G)
+        gt_valid: torch.Tensor,  # (B, G)
+        gt_masks: Optional[torch.Tensor],  # (B, G, H, W) 0 / 1; unused without a mask head
+        rand: torch.Tensor,  # (3, B, G + N) sampler draws
+    ) -> Dict[str, torch.Tensor]:
+        smp, losses = self.sampled_bbox_loss(feats, proposals, proposal_valid, gt_bboxes,
+                                             gt_labels, gt_valid, rand)
+        if self.mask_head is None:
+            return losses
+        m = self.num_mask_slots
+        boxes = smp.boxes[:, :m]
+        logits = self.mask_head(self._roi_feats(feats, boxes, self.mask_roi_size))
+        size = 2 * self.mask_roi_size  # the mask head's deconv doubles its input
+        targets = mask_targets_from_rois(gt_masks, boxes_to_rois(boxes),
+                                         smp.gt_inds[:, :m].reshape(-1), (size, size))
+        losses["loss_mask"] = fcn_mask_loss(
+            logits, targets, smp.labels[:, :m].reshape(-1).clamp(min=0),
+            (smp.is_pos[:, :m] & smp.valid[:, :m]).reshape(-1), self.class_agnostic_mask,
         )
+        return losses
 
     def predict(
         self,

@@ -161,7 +161,10 @@ def test_port_import_loads_no_jax():
         "rsprompter_tpu_torch.models.backbones.resnet, rsprompter_tpu_torch.models.necks.fpn, "
         "rsprompter_tpu_torch.models.roi_heads.mask_head, "
         "rsprompter_tpu_torch.models.roi_heads.standard_roi_head, "
-        "rsprompter_tpu_torch.models.sam.sam, rsprompter_tpu_torch.tools.test; "
+        "rsprompter_tpu_torch.models.sam.sam, rsprompter_tpu_torch.tools.test, "
+        "rsprompter_tpu_torch.ops.roi_align, rsprompter_tpu_torch.tools.train, "
+        "rsprompter_tpu_torch.models.dense_heads.rpn_head, "
+        "rsprompter_tpu_torch.models.task_modules.samplers; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'rsprompter_tpu')]; "
         "assert not bad, bad"
     )

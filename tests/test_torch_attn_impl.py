@@ -28,7 +28,8 @@ import torch
 from rsprompter_tpu.models.sam.configs import SamVisionConfig as JaxVisionConfig
 from rsprompter_tpu.models.sam.vision_encoder import SamVisionEncoder as JaxEncoder
 from rsprompter_tpu.ops.fused_mlp import fused_qkv_pair
-from rsprompter_tpu_torch.apis.build import build_detector
+from rsprompter_tpu.apis.build import freeze_paths_for as jax_freeze_paths_for
+from rsprompter_tpu_torch.apis.build import build_detector, freeze_paths_for
 from rsprompter_tpu_torch.engine.train_state import build_trainer
 from rsprompter_tpu_torch.models.sam.configs import SamVisionConfig
 from rsprompter_tpu_torch.models.sam.vision_encoder import SamVisionEncoder
@@ -180,12 +181,19 @@ def test_unknown_attn_impl_raises(attn_impl):
         build_detector(cfg)
 
 
-@pytest.mark.parametrize("model,match", [
-    (dict(type="SAMDet"), "training 'SAMDet'"),
-    (dict(type="SAMSegMaskRCNN"), "training 'SAMSegMaskRCNN'"),
-    (dict(type="SAMSegMask2Former"), "training 'SAMSegMask2Former'"),
+@pytest.mark.parametrize("model,freeze", [
+    (dict(type="SAMDet"), ["segmentor"]),
+    (dict(type="SAMSegMaskRCNN"), ["backbone"]),
+    (dict(type="SAMSegMask2Former"), ["backbone"]),
 ], ids=["samdet", "samseg_maskrcnn", "samseg_mask2former"])
-def test_build_trainer_raises_for_later_slices(model, match):
-    """The trainer refuses SAMDet and the SAM-seg baselines (a later slice)."""
-    with pytest.raises(NotImplementedError, match=match):
-        build_trainer({"model": dict(model, vision_config=ODD_KW)}, device="cpu")
+def test_build_trainer_builds_the_sam_baselines(model, freeze):
+    """The trainer builds SAM-det and the SAM-seg baselines on the CPU, its
+    optimizer on ``freeze_paths_for``'s pair (JAX's rules): SAM-det freezes
+    its SAM alone and trains its ResNet (``backbone``), the SAM-seg
+    baselines freeze their SAM encoder."""
+    cfg = dict(model, vision_config=ODD_KW, image_size=64)
+    trainer = build_trainer({"model": cfg}, device="cpu")
+    assert freeze_paths_for(cfg) == jax_freeze_paths_for(cfg) == (freeze, [])
+    frozen = {n for n, _ in trainer.optimizer.frozen}
+    assert frozen == {n for n, _ in trainer.model.named_parameters()
+                      if n.startswith(freeze[0] + ".")} != set()

@@ -263,6 +263,24 @@ def test_warmup_cosine_schedule_matches_optax(step):
 
 
 def test_freeze_paths_match_jax():
+    """Every family, with and without ``peft_config`` and ``train_backbone``
+    (and the anchor and query variants with and without ``decoder_freeze``):
+    the port's (freeze, override) equal to JAX's. SAM-det freezes its SAM
+    (``segmentor``) whatever the keys, and trains its ResNet."""
+    peft = dict(r=4, lora_alpha=8, target_modules=["qkv"])
+    families = ("RSPrompterAnchor", "RSPrompterQuery", "SAMDet", "SAMSegMaskRCNN",
+                "SAMSegMask2Former")
+    checked = set()
+    for mtype in families:
+        for extra in ({}, dict(peft_config=peft), dict(train_backbone=True),
+                      dict(train_backbone=False), dict(decoder_freeze=False),
+                      dict(peft_config=peft, decoder_freeze=False)):
+            cfg = dict(type=mtype, **extra)
+            want = jax_freeze_paths_for(cfg)
+            assert freeze_paths_for(cfg) == want, (cfg, want)
+            checked.add((mtype, tuple(want[0]), tuple(want[1])))
+    assert ("SAMDet", ("segmentor",), ()) in checked
+    assert ("SAMSegMaskRCNN", ("backbone",), ("lora_a", "lora_b")) in checked
     for cfg in (dict(TINY), dict(TINY, train_backbone=False, decoder_freeze=True)):
         freeze, override = jax_freeze_paths_for(cfg)
         assert override == [] and freeze_paths_for(cfg) == (freeze, override)
