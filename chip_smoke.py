@@ -165,7 +165,21 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    through ``inference_detector``, then 2 steps with phase 10's gates and
    gradient check); then ``tools.train`` on Mask R-CNN over phase 9's PNGs
    (one epoch of 2 steps, a checkpoint, a validation with paste) and
-   ``tools.test`` on its checkpoint, which must read the same keys.
+   ``tools.test`` on its checkpoint, which must read the same keys;
+15. the ViT-L and ViT-H widths: kernels A, B (and its row pass) and C at
+   ViT-L's (C 1024, 16 heads of 64) and ViT-H's (C 1280, 16 heads of 80)
+   shapes at 1024^2, batch 2, against their plain versions with phase 2's
+   times and tolerance; each encoder (fp32 parameters, seeded; its blocks
+   through the bf16 kernels) against plain fp32 within ``ENCODER_TOL``,
+   with the launches of one forward, the path kernel C took for the
+   windows and the global grid (the windows must take the window path at
+   both head dims), and the rel-pos tables zeroed moving plain by more than
+   twice the tolerance; then RSPrompter-anchor predict at ViT-H 1024^2,
+   batch 2 (``rsprompter_anchor-nwpu.py`` with ``hf_sam_pretrain_name``
+   ``facebook/sam-vit-huge``, seeded weights) through ``init_detector`` /
+   ``inference_detector`` on phase 3's images, with phase 13's gates: A 32,
+   B and C 28 window + 4 global launches a forward, every output finite,
+   ms/batch, ``model.predict`` alone, peak memory, a profiled forward.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -254,6 +268,208 @@ def compare(name: str, got, ref) -> float:
 # ---------------------------------------------------------------------------
 
 
+# the TPU kernels that A, B and C replace (at head dim 80, JAX runs XLA
+# attention and its own qkv projection: those rows generalise the hd-64 kernels)
+REPLACES = {
+    "mlp": "rsprompter_tpu/ops/fused_mlp.py:54",
+    "qkv/global": "rsprompter_tpu/ops/fused_mlp.py:143",
+    "qkv/window": "rsprompter_tpu/ops/fused_mlp.py:604",
+    "attention/global": "rsprompter_tpu/ops/fused_vit_attention.py:472",
+    "attention/window": "rsprompter_tpu/ops/fused_vit_attention.py:421",
+}
+
+
+def _replaces(key: str, d: int = 64) -> str:
+    return REPLACES[key] + ("" if d == 64 else " (no TPU kernel at head dim 80: JAX runs XLA)")
+
+
+def mlp_row(rnd, dev, t: int, c: int, tag: str = "", launches_alone: bool = False) -> dict:
+    """Kernel A at x (t, c), M = 4 c, against its plain version, with the
+    kernel, plain, composed-library and bound times; ``launches_alone`` also
+    logs its three launches' times."""
+    import torch
+
+    from rsprompter_tpu_torch.ops import fused_mlp as fm
+
+    mlp = 4 * c
+    x = rnd(t, c)
+    ln_w, ln_b = 1 + rnd(c, scale=0.1, dtype=torch.float32), rnd(c, scale=0.1, dtype=torch.float32)
+    w1, b1 = rnd(mlp, c, scale=0.02), rnd(mlp, scale=0.02)
+    w2, b2 = rnd(c, mlp, scale=0.02), rnd(c, scale=0.02)
+    args = (x, ln_w, ln_b, w1, b1, w2, b2, 1e-6)
+    got = fm.ln_mlp_residual(*args)
+    torch.cuda.synchronize()
+    ref = fm.ln_mlp_residual_plain(*[a.float() if torch.is_tensor(a) else a for a in args])
+    err = compare(f"ln_mlp_residual{tag}", got, ref)
+    flops = 4.0 * t * c * mlp
+    nbytes = 2 * t * c * 2 + 2 * c * mlp * 2 + (mlp + c) * 2 + 2 * c * 4
+    b_ms, b_by = bound_ms(flops, nbytes)
+    if launches_alone:  # the row pass, fc1 + GELU, fc2 + residual
+        z, hid, out = torch.empty_like(x), torch.empty((t, mlp), dtype=x.dtype, device=dev), \
+            torch.empty_like(x)
+        parts = {
+            "row pass": lambda: fm.LN_ROWS.launch(fm.ptr(x), fm.ptr(ln_w), fm.ptr(ln_b),
+                                                  fm.ptr(z), 1, 1, t, c, 0, 1e-6,
+                                                  variant="check"),
+            "fc1": lambda: fm.LN_MLP_RESIDUAL.launch(fm.ptr(z), fm.ptr(w1), fm.ptr(b1),
+                                                     fm._NULL, fm.ptr(hid), t, mlp, c, 0,
+                                                     variant="check"),
+            "fc2": lambda: fm.LN_MLP_RESIDUAL.launch(fm.ptr(hid), fm.ptr(w2), fm.ptr(b2),
+                                                     fm.ptr(x), fm.ptr(out), t, c, mlp, 1,
+                                                     variant="check"),
+        }
+        log("kernel A's launches alone (ms): " + ", ".join(
+            f"{k} {cuda_time_ms(f):.4f}" for k, f in parts.items()))
+        del z, hid, out
+    ln_wb, ln_bb = ln_w.to(x.dtype), ln_b.to(x.dtype)
+    F = torch.nn.functional
+
+    def library_a():  # composed of bf16 PyTorch calls: LN -> fc1 -> exact GELU -> fc2 + residual
+        z = F.layer_norm(x, (c,), ln_wb, ln_bb, 1e-6)
+        return x + F.linear(F.gelu(F.linear(z, w1, b1), approximate="none"), w2, b2)
+
+    torch.testing.assert_close(library_a().float(), ref, atol=TOL * ref.abs().max().item(), rtol=0)
+    return dict(
+        name=f"ln_mlp_residual{tag}", kernel=fm.LN_MLP_RESIDUAL, variant="fc1",
+        route="cuda", source="rsprompter_tpu_torch/csrc/ln_mlp_residual.cu",
+        replaces=_replaces("mlp"),
+        shape=f"x ({t}, {c}) bf16, W1 {c}x{mlp}, W2 {mlp}x{c}",
+        max_abs_err=err,
+        ms=cuda_time_ms(lambda: fm.ln_mlp_residual(*args)),
+        plain_ms=cuda_time_ms(lambda: fm.ln_mlp_residual_plain(*args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(library_a),
+    )
+
+
+def qkv_rows(rnd, dev, bsz: int, grid: int, c: int, heads: int, win: int,
+             tag: str = "") -> list:
+    """Kernel B's row pass alone and kernel B (row pass + GEMM) on x (bsz,
+    grid, grid, c) with ``heads`` heads of c / heads, global and windowed,
+    each against its plain version."""
+    import torch
+
+    from rsprompter_tpu_torch.ops import fused_mlp as fm
+
+    F = torch.nn.functional
+    d = c // heads
+    t = bsz * grid * grid
+    rows = []
+    xg = rnd(bsz, grid, grid, c)
+    ln_w, ln_b = 1 + rnd(c, scale=0.1, dtype=torch.float32), rnd(c, scale=0.1, dtype=torch.float32)
+    ln_wb, ln_bb = ln_w.to(xg.dtype), ln_b.to(xg.dtype)
+    wq, bq = rnd(3 * c, c, scale=0.02), rnd(3 * c, scale=0.02)
+    for variant, window in (("global", 0), ("window", win)):
+        replaces = _replaces(f"qkv/{variant}", d)
+        # the row pass alone (LN, window partition, zero pad into z)
+        n_img, s = fm._qkv_rows(xg, 3 * heads, window)
+        z = torch.empty((n_img * s, c), dtype=torch.bfloat16, device=dev)
+
+        def row_pass(z=z, window=window):
+            fm.LN_ROWS.launch(fm.ptr(xg), fm.ptr(ln_w), fm.ptr(ln_b), fm.ptr(z), bsz, grid,
+                              grid, c, window, 1e-6, variant="check")
+
+        row_pass()
+        torch.cuda.synchronize()
+        err = compare(f"ln_rows/{variant}{tag}", z,
+                      fm.ln_rows_plain(xg.float(), ln_w, ln_b, window, 1e-6))
+        b_ms, b_by = bound_ms(0.0, xg.numel() * 2 + z.numel() * 2 + 2 * c * 4)
+        rows.append(dict(
+            name=f"ln_rows/{variant}{tag}", kernel=fm.LN_ROWS, variant=variant, route="cuda",
+            source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor.cu", replaces=replaces,
+            shape=f"x ({bsz}, {grid}, {grid}, {c}) -> z {tuple(z.shape)} bf16",
+            max_abs_err=err, ms=cuda_time_ms(row_pass),
+            plain_ms=cuda_time_ms(lambda window=window: fm.ln_rows_plain(
+                xg, ln_w, ln_b, window, 1e-6)),
+            bound_ms=b_ms, bound_by=b_by,
+            # global: one call (LN); window: LN, then the partition and pad
+            library_ms=cuda_time_ms(lambda window=window: fm.window_partition(
+                F.layer_norm(xg, (c,), ln_wb, ln_bb, 1e-6), window).contiguous()),
+        ))
+        del z
+        a = (xg, ln_w, ln_b, wq, bq, 3 * heads, window, 1e-6)
+        got = fm.ln_qkv_headmajor(*a)
+        torch.cuda.synchronize()
+        ref = fm.ln_qkv_headmajor_plain(*[v.float() if torch.is_tensor(v) else v for v in a])
+        err = compare(f"ln_qkv_headmajor/{variant}{tag}", got, ref)
+
+        def library_b(window=window, shape=got.shape):
+            # composed of bf16 PyTorch calls: LN -> window partition and zero
+            # pad (window layers) -> qkv -> head-major copy
+            z = fm.window_partition(F.layer_norm(xg, (c,), ln_wb, ln_bb, 1e-6), window)
+            return F.linear(z, wq, bq).reshape(shape[0], shape[2], shape[1], d).permute(
+                0, 2, 1, 3).contiguous()
+
+        torch.testing.assert_close(library_b().float(), ref, atol=TOL * ref.abs().max().item(),
+                                   rtol=0)
+        flops = 2.0 * t * c * 3 * c
+        nbytes = t * c * 2 + 3 * c * c * 2 + 3 * c * 2 + 2 * c * 4 + got.numel() * 2
+        b_ms, b_by = bound_ms(flops, nbytes)
+        rows.append(dict(
+            name=f"ln_qkv_headmajor/{variant}{tag}", kernel=fm.LN_QKV_HEADMAJOR,
+            variant=variant, route="cuda",
+            source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor.cu", replaces=replaces,
+            shape=f"x ({bsz}, {grid}, {grid}, {c}) -> {tuple(got.shape)} bf16",
+            max_abs_err=err,
+            ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor(*a)),
+            plain_ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor_plain(*a)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(library_b),
+        ))
+        del got, ref
+    return rows
+
+
+def attention_rows(rnd, bsz: int, grid: int, heads: int, d: int, win: int,
+                   tag: str = "") -> list:
+    """Kernel C on qkv of ``heads`` heads of ``d``, at the global grid and
+    the windows of a batch of ``bsz``, against its plain version; the
+    library call is SDPA with the bias materialised in bf16."""
+    import torch
+
+    from rsprompter_tpu_torch.ops import fused_vit_attention as fa
+
+    rows = []
+    n_win = bsz * (-(-grid // win)) ** 2
+    for variant, n_img, hw in (("global", bsz, (grid, grid)), ("window", n_win, (win, win))):
+        s = hw[0] * hw[1]
+        qkv = rnd(n_img, 3 * heads, s, d)
+        fh = rnd(n_img, heads, s, hw[0], scale=0.5)
+        fw = rnd(n_img, heads, s, hw[1], scale=0.5)
+        got = fa.relpos_attention(qkv, fh, fw, hw)
+        torch.cuda.synchronize()
+        ref = fa.relpos_attention_plain(qkv.float(), fh.float(), fw.float(), hw)
+        err = compare(f"relpos_attention/{variant}{tag}", got, ref)
+        del ref
+        q, k, v = qkv[:, :heads], qkv[:, heads : 2 * heads], qkv[:, 2 * heads :]
+        bias = (fh[..., :, None] + fw[..., None, :]).reshape(n_img, heads, s, s)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=bias))
+        del bias
+        flops = 4.0 * n_img * heads * s * s * d
+        nbytes = qkv.numel() * 2 + fh.numel() * 2 + fw.numel() * 2 + got.numel() * 2
+        b_ms, b_by = bound_ms(flops, nbytes)
+        rows.append(dict(
+            name=f"relpos_attention/{variant}{tag}", kernel=fa.RELPOS_ATTENTION,
+            variant=variant, route="cuda",
+            source="rsprompter_tpu_torch/csrc/relpos_attention.cu",
+            replaces=_replaces(f"attention/{variant}", d),
+            shape=f"qkv {tuple(qkv.shape)} bf16, factors h={hw[0]} w={hw[1]}, "
+                  f"{fa.relpos_attention_route(hw, d)} path",
+            max_abs_err=err,
+            ms=cuda_time_ms(lambda: fa.relpos_attention(qkv, fh, fw, hw)),
+            plain_ms=cuda_time_ms(lambda: fa.relpos_attention_plain(qkv, fh, fw, hw)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        ))
+    return rows
+
+
+def log_rows(rows, what: str = "max|plain|") -> None:
+    for r in rows:
+        log(f"kernel {r['name']}: {r['shape']}; max_abs_err {r['max_abs_err']:.4g} "
+            f"(tol {TOL} x {what}); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+
+
 def kernel_phase(dev):
     import torch
 
@@ -265,152 +481,13 @@ def kernel_phase(dev):
     def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
 
-    rows = []
-    bsz, grid, c, heads, mlp, win = 2, 64, 768, 12, 3072, 14
+    bsz, grid, c, heads, win = 2, 64, 768, 12, 14
     t = bsz * grid * grid
-
-    # --- kernel A: ln_mlp_residual ------------------------------------------
-    x = rnd(t, c)
-    ln_w, ln_b = 1 + rnd(c, scale=0.1, dtype=torch.float32), rnd(c, scale=0.1, dtype=torch.float32)
-    w1, b1 = rnd(mlp, c, scale=0.02), rnd(mlp, scale=0.02)
-    w2, b2 = rnd(c, mlp, scale=0.02), rnd(c, scale=0.02)
-    args = (x, ln_w, ln_b, w1, b1, w2, b2, 1e-6)
-    got = fm.ln_mlp_residual(*args)
-    torch.cuda.synchronize()
-    ref = fm.ln_mlp_residual_plain(*[a.float() if torch.is_tensor(a) else a for a in args])
-    err = compare("ln_mlp_residual", got, ref)
-    plain_args = args
-    flops = 4.0 * t * c * mlp
-    nbytes = 2 * t * c * 2 + 2 * c * mlp * 2 + (mlp + c) * 2 + 2 * c * 4
-    b_ms, b_by = bound_ms(flops, nbytes)
-    # its three launches alone: the row pass, fc1 + GELU, fc2 + residual
-    z, hid, out = torch.empty_like(x), torch.empty((t, mlp), dtype=x.dtype, device=dev), \
-        torch.empty_like(x)
-    parts = {
-        "row pass": lambda: fm.LN_ROWS.launch(fm.ptr(x), fm.ptr(ln_w), fm.ptr(ln_b), fm.ptr(z),
-                                              1, 1, t, c, 0, 1e-6, variant="check"),
-        "fc1": lambda: fm.LN_MLP_RESIDUAL.launch(fm.ptr(z), fm.ptr(w1), fm.ptr(b1), fm._NULL,
-                                                 fm.ptr(hid), t, mlp, c, 0, variant="check"),
-        "fc2": lambda: fm.LN_MLP_RESIDUAL.launch(fm.ptr(hid), fm.ptr(w2), fm.ptr(b2),
-                                                 fm.ptr(x), fm.ptr(out), t, c, mlp, 1,
-                                                 variant="check"),
-    }
-    log("kernel A's launches alone (ms): " + ", ".join(
-        f"{k} {cuda_time_ms(f):.4f}" for k, f in parts.items()))
-    del z, hid, out
-    ln_wb, ln_bb = ln_w.to(x.dtype), ln_b.to(x.dtype)
-    F = torch.nn.functional
-
-    def library_a():  # composed of bf16 PyTorch calls: LN -> fc1 -> exact GELU -> fc2 + residual
-        z = F.layer_norm(x, (c,), ln_wb, ln_bb, 1e-6)
-        return x + F.linear(F.gelu(F.linear(z, w1, b1), approximate="none"), w2, b2)
-
-    torch.testing.assert_close(library_a().float(), ref, atol=TOL * ref.abs().max().item(), rtol=0)
-    rows.append(dict(
-        name="ln_mlp_residual", kernel=fm.LN_MLP_RESIDUAL, variant="fc1",
-        route="cuda", source="rsprompter_tpu_torch/csrc/ln_mlp_residual.cu",
-        replaces="rsprompter_tpu/ops/fused_mlp.py:54",
-        shape=f"x ({t}, {c}) bf16, W1 {c}x{mlp}, W2 {mlp}x{c}",
-        max_abs_err=err,
-        ms=cuda_time_ms(lambda: fm.ln_mlp_residual(*args)),
-        plain_ms=cuda_time_ms(lambda: fm.ln_mlp_residual_plain(*plain_args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(library_a),
-    ))
-
-    # --- kernel B: ln_qkv_headmajor (row pass + GEMM), global and window ---
-    xg = rnd(bsz, grid, grid, c)
+    rows = [mlp_row(rnd, dev, t, c, launches_alone=True)]
+    rows += qkv_rows(rnd, dev, bsz, grid, c, heads, win)
+    rows += attention_rows(rnd, bsz, grid, heads, 64, win)
+    # K12' below reuses kernel B's weights
     wq, bq = rnd(3 * c, c, scale=0.02), rnd(3 * c, scale=0.02)
-    for variant, window, replaces in (
-        ("global", 0, "rsprompter_tpu/ops/fused_mlp.py:143"),
-        ("window", win, "rsprompter_tpu/ops/fused_mlp.py:604"),
-    ):
-        # the row pass alone (LN, window partition, zero pad into z)
-        n_img, s = fm._qkv_rows(xg, 3 * heads, window)
-        z = torch.empty((n_img * s, c), dtype=torch.bfloat16, device=dev)
-
-        def row_pass(z=z, window=window):
-            fm.LN_ROWS.launch(fm.ptr(xg), fm.ptr(ln_w), fm.ptr(ln_b), fm.ptr(z), bsz, grid,
-                              grid, c, window, 1e-6, variant="check")
-
-        row_pass()
-        torch.cuda.synchronize()
-        err = compare(f"ln_rows/{variant}", z,
-                      fm.ln_rows_plain(xg.float(), ln_w, ln_b, window, 1e-6))
-        b_ms, b_by = bound_ms(0.0, xg.numel() * 2 + z.numel() * 2 + 2 * c * 4)
-        rows.append(dict(
-            name=f"ln_rows/{variant}", kernel=fm.LN_ROWS, variant=variant, route="cuda",
-            source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor.cu", replaces=replaces,
-            shape=f"x ({bsz}, {grid}, {grid}, {c}) -> z {tuple(z.shape)} bf16",
-            max_abs_err=err, ms=cuda_time_ms(row_pass),
-            plain_ms=cuda_time_ms(lambda window=window: fm.ln_rows_plain(
-                xg, ln_w, ln_b, window, 1e-6)),
-            bound_ms=b_ms, bound_by=b_by,
-            # global: one call (LN); window: LN, then the partition and pad
-            library_ms=cuda_time_ms(lambda window=window: fm.window_partition(
-                F.layer_norm(xg, (c,), ln_wb, ln_bb, 1e-6), window).contiguous()),
-        ))
-        a = (xg, ln_w, ln_b, wq, bq, 3 * heads, window, 1e-6)
-        got = fm.ln_qkv_headmajor(*a)
-        torch.cuda.synchronize()
-        ref = fm.ln_qkv_headmajor_plain(*[v.float() if torch.is_tensor(v) else v for v in a])
-        err = compare(f"ln_qkv_headmajor/{variant}", got, ref)
-
-        def library_b(window=window, shape=got.shape):
-            # composed of bf16 PyTorch calls: LN -> window partition and zero
-            # pad (window layers) -> qkv -> head-major copy
-            z = fm.window_partition(F.layer_norm(xg, (c,), ln_wb, ln_bb, 1e-6), window)
-            return F.linear(z, wq, bq).reshape(shape[0], shape[2], shape[1], 64).permute(
-                0, 2, 1, 3).contiguous()
-
-        torch.testing.assert_close(library_b().float(), ref, atol=TOL * ref.abs().max().item(),
-                                   rtol=0)
-        flops = 2.0 * t * c * 3 * c
-        nbytes = t * c * 2 + 3 * c * c * 2 + 3 * c * 2 + 2 * c * 4 + got.numel() * 2
-        b_ms, b_by = bound_ms(flops, nbytes)
-        rows.append(dict(
-            name=f"ln_qkv_headmajor/{variant}", kernel=fm.LN_QKV_HEADMAJOR,
-            variant=variant, route="cuda",
-            source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor.cu",
-            replaces=replaces,
-            shape=f"x ({bsz}, {grid}, {grid}, {c}) -> {tuple(got.shape)} bf16",
-            max_abs_err=err,
-            ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor(*a)),
-            plain_ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor_plain(*a)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(library_b),
-        ))
-
-    # --- kernel C: relpos_attention, global and window ----------------------
-    for variant, n_img, hw, replaces in (
-        ("global", bsz, (grid, grid), "rsprompter_tpu/ops/fused_vit_attention.py:472"),
-        ("window", bsz * 25, (win, win), "rsprompter_tpu/ops/fused_vit_attention.py:421"),
-    ):
-        s = hw[0] * hw[1]
-        qkv = rnd(n_img, 3 * heads, s, 64)
-        fh = rnd(n_img, heads, s, hw[0], scale=0.5)
-        fw = rnd(n_img, heads, s, hw[1], scale=0.5)
-        got = fa.relpos_attention(qkv, fh, fw, hw)
-        torch.cuda.synchronize()
-        ref = fa.relpos_attention_plain(qkv.float(), fh.float(), fw.float(), hw)
-        err = compare(f"relpos_attention/{variant}", got, ref)
-        q, k, v = qkv[:, :heads], qkv[:, heads : 2 * heads], qkv[:, 2 * heads :]
-        bias = (fh[..., :, None] + fw[..., None, :]).reshape(n_img, heads, s, s)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=bias))
-        del bias
-        flops = 4.0 * n_img * heads * s * s * 64
-        nbytes = qkv.numel() * 2 + fh.numel() * 2 + fw.numel() * 2 + got.numel() * 2
-        b_ms, b_by = bound_ms(flops, nbytes)
-        rows.append(dict(
-            name=f"relpos_attention/{variant}", kernel=fa.RELPOS_ATTENTION,
-            variant=variant, route="cuda",
-            source="rsprompter_tpu_torch/csrc/relpos_attention.cu",
-            replaces=replaces,
-            shape=f"qkv {tuple(qkv.shape)} bf16, factors h={hw[0]} w={hw[1]}",
-            max_abs_err=err,
-            ms=cuda_time_ms(lambda: fa.relpos_attention(qkv, fh, fw, hw)),
-            plain_ms=cuda_time_ms(lambda: fa.relpos_attention_plain(qkv, fh, fw, hw)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-        ))
 
     # --- K10': kernel C on the 'flash' route, at K3's and K5's shapes --------
     flash_replaces = {"global": "rsprompter_tpu/ops/flash_attention.py:37",
@@ -486,10 +563,7 @@ def kernel_phase(dev):
         ))
     for r in rows:
         r.setdefault("path", "anchor_predict")
-        log(f"kernel {r['name']}: {r['shape']}; max_abs_err {r['max_abs_err']:.4g} "
-            f"(tol {TOL} x max|plain|); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    log_rows(rows)
     return rows
 
 
@@ -716,11 +790,7 @@ def backward_kernel_phase(dev, bsz: int = 4, grid: int = 32,
         k12_backward_check(rnd, c, heads, win, n_win)
     for r in rows:
         r["path"] = path
-        log(f"kernel {r['name']}: {r['shape']}; max_abs_err {r['max_abs_err']:.4g} "
-            f"(tol {TOL} x max|plain| per output); kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    log_rows(rows, "max|plain| per output")
     return rows
 
 
@@ -2838,7 +2908,9 @@ def sam_baseline_predict(name: str, config: str, kernels, iters: int, imgs, prof
     if not all(torch.isfinite(t.float()).all() for t in (dets.boxes, dets.scores, probs)):
         raise AssertionError(f"{name}: non-finite predict outputs")
     ms = statistics.median(times)
-    log(f"{name}: predict through inference_detector, ViT-B 1024^2, batch 2, {dtype}: "
+    width = enc.config.hidden_size
+    vit = {768: "ViT-B", 1024: "ViT-L", 1280: "ViT-H"}.get(width, f"ViT C={width}")
+    log(f"{name}: predict through inference_detector, {vit} 1024^2, batch 2, {dtype}: "
         f"{ms:.2f} ms/batch median of {iters} ({', '.join(f'{t:.2f}' for t in times)}), "
         f"{2e3 / ms:.3f} images/s, peak memory {peak_gb:.2f} GiB; model.predict alone "
         f"{statistics.median(model_ms):.2f} ms median of 3; detections per image "
@@ -3473,6 +3545,136 @@ def maskrcnn_train_tool(config: str, sam_file: str, tmp: str, eval_sizes, device
         f"{time.time() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the ViT-L and ViT-H widths
+# ---------------------------------------------------------------------------
+
+WIDE_PATHS = {"large": "vit_l_encoder", "huge": "vit_h_predict"}  # where each arch's rows count
+WIDE_PREDICT_NAME = "facebook/sam-vit-huge"
+
+
+def wide_kernel_rows(dev) -> list:
+    """Kernels A, B (with its row pass) and C at ViT-L's (C 1024, 16 heads of
+    64) and ViT-H's (C 1280, 16 heads of 80) widths, 1024^2, batch 2, each
+    against its plain version; each arch's rows count launches on its path
+    (``WIDE_PATHS``)."""
+    import torch
+
+    from rsprompter_tpu_torch.models.sam.configs import sam_config
+
+    g = torch.Generator(device="cpu").manual_seed(2)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    rows = []
+    bsz, grid, win = 2, 64, 14
+    for arch, path in WIDE_PATHS.items():
+        v = sam_config(arch).vision_config
+        c, heads = v.hidden_size, v.num_attention_heads
+        tag = f"@vit-{arch[0]}"
+        arch_rows = [mlp_row(rnd, dev, bsz * grid * grid, c, tag)]
+        arch_rows += qkv_rows(rnd, dev, bsz, grid, c, heads, win, tag)
+        arch_rows += attention_rows(rnd, bsz, grid, heads, c // heads, win, tag)
+        for r in arch_rows:
+            r["path"] = path
+        rows += arch_rows
+        torch.cuda.empty_cache()
+    log_rows(rows)
+    return rows
+
+
+def wide_encoder_check(arch: str, kernels, dev, seed: int = 0) -> dict:
+    """The arch's SAM encoder (fp32 parameters, seeded; its blocks run the
+    bf16 kernels) at 1024^2, batch 2: the launches of one forward, which
+    path kernel C took for the windows and the global grid, the kernels
+    against plain fp32 within ``ENCODER_TOL`` over the neck and every hidden
+    state, and plain with the rel-pos tables zeroed moved by more than twice
+    that. Returns the forward's launch counts."""
+    import torch
+
+    from rsprompter_tpu_torch.apis.build import init_random_weights
+    from rsprompter_tpu_torch.models.sam.configs import sam_config
+    from rsprompter_tpu_torch.models.sam.vision_encoder import SamVisionEncoder
+    from rsprompter_tpu_torch.ops import fused_vit_attention as fa
+
+    vcfg = sam_config(arch).vision_config
+    enc = SamVisionEncoder(vcfg)
+    init_random_weights(enc, seed)
+    enc.to(dev).eval()
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(2, vcfg.image_size, vcfg.image_size, 3, generator=g).to(dev)
+    tables = [p for n, p in enc.named_parameters() if n.endswith(("rel_pos_h", "rel_pos_w"))]
+    with torch.no_grad():
+        for k in kernels:
+            k.reset_counts()
+        out_k = enc(x)
+        torch.cuda.synchronize()
+        counts = {k.name: dict(k.variant_launches) for k in kernels}
+        kernel_ms = cuda_time_ms(lambda: enc(x), warmup=1, iters=3, repeat=1)
+        enc.impl = "plain"
+        out_p = enc(x)
+        saved = [t.clone() for t in tables]
+        for t in tables:
+            t.zero_()
+        out_nobias = enc(x)
+        for t, v in zip(tables, saved):
+            t.copy_(v)
+        enc.impl = "kernel"
+    check_launches(f"ViT-{arch} encoder", counts, frozen_forward_launches(enc, 1))
+    if not all(torch.isfinite(a).all() for a in (out_k[0],) + out_k[1]):
+        raise AssertionError(f"ViT-{arch} encoder through the kernels: non-finite output")
+    worst = worst_rel_diff(out_k, out_p)
+    bias_effect = worst_rel_diff(out_nobias, out_p)
+    d = vcfg.hidden_size // vcfg.num_attention_heads
+    grid = vcfg.image_size // vcfg.patch_size
+    win = vcfg.window_size
+    log(f"ViT-{arch} encoder (C {vcfg.hidden_size}, {vcfg.num_hidden_layers} layers, "
+        f"{vcfg.num_attention_heads} heads of {d}), 1024^2, batch 2: launches of one forward "
+        f"{counts}; kernel C took its {fa.relpos_attention_route((win, win), d)} path for "
+        f"the {win}x{win} windows and its {fa.relpos_attention_route((grid, grid), d)} path "
+        f"for the {grid}x{grid} grid; kernels (bf16 inside) vs plain fp32: worst "
+        f"max|diff|/max|plain| {worst:.4g} over neck + {len(out_k[1])} hidden states (tol "
+        f"{ENCODER_TOL}); rel-pos tables zeroed (plain): {bias_effect:.4g}; forward "
+        f"{kernel_ms:.2f} ms through the kernels")
+    if fa.relpos_attention_route((win, win), d) != "window":
+        raise AssertionError(f"ViT-{arch}: kernel C's windows did not take its window path")
+    if worst > ENCODER_TOL:
+        raise AssertionError(f"ViT-{arch} encoder: kernels vs plain {worst:.4g} > {ENCODER_TOL}")
+    if bias_effect < 2 * ENCODER_TOL:
+        raise AssertionError(f"ViT-{arch} encoder: the rel-pos bias moves the output by "
+                             f"{bias_effect:.4g} only")
+    del enc, out_k, out_p, out_nobias
+    torch.cuda.empty_cache()
+    return counts
+
+
+def widths_phase(kernels, iters: int, dev, profile_dir: str = "") -> dict:
+    """Phase 15: the ViT-L and ViT-H encoders against plain fp32, then
+    RSPrompter-anchor predict at ViT-H 1024^2, batch 2 (``hf_sam_pretrain_name``
+    overridden, seeded weights, phase 3's images) through ``init_detector`` /
+    ``inference_detector``: phase 13's gates (timing, A 32, B and C 28 + 4
+    launches a forward, finite outputs, ``model.predict`` alone, peak memory,
+    a profiled forward). Returns the launch counts of each path."""
+    from rsprompter_tpu_torch.core.config import Config
+
+    t_phase = time.time()
+    paths = {}
+    for arch, path in WIDE_PATHS.items():
+        counts = wide_encoder_check(arch, kernels, dev)
+        if path.endswith("_encoder"):
+            paths[path] = counts
+    cfg = Config.fromfile(CONFIG)
+    cfg["model"]["hf_sam_pretrain_name"] = WIDE_PREDICT_NAME
+    cfg["model"]["hf_sam_pretrain_ckpt_path"] = None  # seeded weights: no ViT-H file
+    counts = sam_baseline_predict("anchor_vit_h", cfg, kernels, iters, synthetic_images(0),
+                                  profile_dir, "cuda")
+    paths[WIDE_PATHS["huge"]] = counts
+    log(f"anchor_vit_h: launches over {iters} forwards {counts}")
+    log(f"phase 15: {time.time() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10,
@@ -3524,6 +3726,8 @@ def main() -> int:
                                                           args.profile_dir, dev=dev)
     paths.update(baseline_paths)
     rows += baseline_rows
+    rows += wide_kernel_rows(dev)
+    paths.update(widths_phase(kernels, args.iters, dev, args.profile_dir))
     out = []
     for r in rows:
         name, variant = r["kernel"].name, r["variant"]

@@ -1,5 +1,6 @@
-// Kernel B: LayerNorm -> qkv projection -> head-major bf16 (N, 3n, S, 64),
+// Kernel B: LayerNorm -> qkv projection -> head-major bf16 (N, 3n, S, d),
 // and kernel K12', the same projection of tokens that are already normalised.
+// Heads of d = 64 (ViT-B, ViT-L) or 80 (ViT-H) columns.
 //
 // Replaces three TPU kernels: rsprompter_tpu/ops/fused_mlp.py:_ln_qkv_kernel
 // (fused_ln_qkv, the global layers), :_strip_qkv_kernel
@@ -19,17 +20,19 @@
 //    pad), normalises it with fp32 statistics and writes z in bf16 (JAX's
 //    first rounding point) in the windows' row order. The padded grid never
 //    exists apart from z itself, which is one pass at device-memory speed.
-//  * rsp_qkv_headmajor, a pure GEMM z (M, C) x W^T (C, heads3*64) that
+//  * rsp_qkv_headmajor, a pure GEMM z (M, C) x W^T (C, heads3*d) that
 //    serves kernel B and K12' alike. A block owns a 128 x 256 output tile
-//    (four heads) and walks only K, in 64-wide slices: one producer warp
-//    keeps a 4-stage ring of z and W slices in flight by TMA (128-byte
-//    swizzle, completion on mbarriers), and two consumer warpgroups each run
-//    wgmma.m64n256k16 (bf16 in, fp32 accumulators in registers) on 64 rows,
-//    keeping one product group in flight while the next slice lands. The
+//    (four heads of 64, 3.2 of 80) and walks only K, in 64-wide slices:
+//    one producer warp keeps a 4-stage ring of z and W slices in flight by
+//    TMA (128-byte swizzle, completion on mbarriers), and two consumer
+//    warpgroups each run wgmma.m64n256k16 (bf16 in, fp32 accumulators in
+//    registers) on 64 rows, keeping one product group in flight while the
+//    next slice lands. The
 //    epilogue rounds the product to bf16, adds the bias and rounds again (as
 //    JAX does), stages the tile in shared memory, and writes each token's
-//    128-byte head rows with 16-byte coalesced stores. Rows past M and
-//    columns past heads3*64 read zeros from TMA and are not stored.
+//    head rows (128 or 160 bytes) with 16-byte coalesced stores: an
+//    8-column chunk never straddles two heads, as 8 divides d. Rows past M
+//    and columns past heads3*d read zeros from TMA and are not stored.
 // The previous design walked all 36 heads x 12 K-slices inside each 32-row
 // block (432 dependent mma.sync steps, the whole 3.5 MB weight streamed from
 // L2 by each of 256-307 blocks): latency bound at 5.8-6.8% of its bound.
@@ -138,7 +141,7 @@ static_assert(2 * 64 * OSTRIDE * 2 <= STAGES * STAGE_BYTES, "staging fits the ri
 __global__ void __launch_bounds__(THREADS, 1) qkv_gemm_kernel(
     const __grid_constant__ CUtensorMap zmap, const __grid_constant__ CUtensorMap wmap,
     const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int S, int K,
-    int heads3) {
+    int heads3, int d) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (rsp::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
@@ -200,7 +203,7 @@ __global__ void __launch_bounds__(THREADS, 1) qkv_gemm_kernel(
     const int lane = tid % 32;
     const int g = lane / 4;
     const int t = lane % 4;
-    const int ncols = heads3 * 64;
+    const int ncols = heads3 * d;
     bf16* stg = reinterpret_cast<bf16*>(smem) + wg * 64 * OSTRIDE;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
@@ -221,11 +224,12 @@ __global__ void __launch_bounds__(THREADS, 1) qkv_gemm_kernel(
       const int r = i / (BN / 8);
       const int ch = i % (BN / 8);
       const int m = m0 + wg * 64 + r;
-      const int head = (n0 + ch * 8) / 64;
+      const int col = n0 + ch * 8;
+      const int head = col / d;
       if (m < M && head < heads3) {
         const int n = m / S;
         const int s = m % S;
-        bf16* dst = out + (((size_t)n * heads3 + head) * S + s) * 64 + (ch % 8) * 8;
+        bf16* dst = out + (((size_t)n * heads3 + head) * S + s) * d + (col - head * d);
         *reinterpret_cast<uint4*>(dst) =
             *reinterpret_cast<const uint4*>(stg + r * OSTRIDE + ch * 8);
       }
@@ -263,15 +267,15 @@ extern "C" int rsp_ln_rows(const void* x, const void* gamma, const void* beta, v
 }
 
 // The GEMM of kernel B and K12': x (N*S, C) -> head-major x.W^T + b
-// (N, heads3, S, 64).
+// (N, heads3, S, d), d = 64 or 80.
 extern "C" int rsp_qkv_headmajor(const void* x, const void* w, const void* bias,
-                                 void* out, int N, int S, int C, int heads3,
+                                 void* out, int N, int S, int C, int heads3, int d,
                                  void* stream) {
-  if (C % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (C % BK != 0 || (d != 64 && d != 80)) return static_cast<int>(cudaErrorInvalidValue);
   const int M = N * S;
   CUtensorMap zmap, wmap;
   const cuuint64_t zdims[2] = {(cuuint64_t)C, (cuuint64_t)M};
-  const cuuint64_t wdims[2] = {(cuuint64_t)C, (cuuint64_t)heads3 * 64};
+  const cuuint64_t wdims[2] = {(cuuint64_t)C, (cuuint64_t)heads3 * d};
   const cuuint64_t strides[1] = {(cuuint64_t)C * 2};
   const cuuint32_t zbox[2] = {BK, BM};
   const cuuint32_t wbox[2] = {BK, BN};
@@ -281,9 +285,9 @@ extern "C" int rsp_qkv_headmajor(const void* x, const void* w, const void* bias,
   cudaError_t err = cudaFuncSetAttribute(
       qkv_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((heads3 * 64 + BN - 1) / BN, (M + BM - 1) / BM);
+  const dim3 grid((heads3 * d + BN - 1) / BN, (M + BM - 1) / BM);
   qkv_gemm_kernel<<<grid, THREADS, GEMM_SMEM, static_cast<cudaStream_t>(stream)>>>(
       zmap, wmap, static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, S, C,
-      heads3);
+      heads3, d);
   return static_cast<int>(cudaGetLastError());
 }

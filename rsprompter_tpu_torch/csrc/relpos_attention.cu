@@ -9,15 +9,29 @@
 // _global_kernel (K11). One exact online softmax in fp32 serves all of them;
 // the TPU's +-60 logit clamp is not carried over (PARITY.md deviation 8).
 //
-// Inputs: qkv (N, 3n, S, 64) bf16 head-major (q heads, then k, then v), the
-// factors fh (N, n, S, h) and fw (N, n, S, w) bf16 from the torch einsum.
-// Output: (N, n, S, 64) bf16, and, when the caller asks for it (the
-// backward does), the fp32 row log-sum-exp (N, n, S) of the biased scores
-// in natural-log units.
+// Inputs: qkv (N, 3n, S, d) bf16 head-major (q heads, then k, then v), with
+// head dim d = 64 (ViT-B, ViT-L) or 80 (ViT-H), the factors fh (N, n, S, h)
+// and fw (N, n, S, w) bf16 from the torch einsum. Output: (N, n, S, d)
+// bf16, and, when the caller asks for it (the backward does), the fp32 row
+// log-sum-exp (N, n, S) of the biased scores in natural-log units.
 //
-// Bound on the H100 at ViT-B, batch 2: a global layer is 103 GFLOP (about
-// 104 us at 989 TFLOP/s, operations-bound); a windowed layer is 5.9 GFLOP but
-// moves about 67 MB (about 20 us at 3.35 TB/s, bytes-bound).
+// Bound on the H100 at 1024^2, batch 2: a global layer is 103 GFLOP at
+// ViT-B, 137 at ViT-L, 172 at ViT-H (about 104, 139 and 174 us at 989
+// TFLOP/s, operations-bound); a windowed layer moves about 67, 89 and 109 MB
+// (about 20, 27 and 33 us at 3.35 TB/s, bytes-bound).
+//
+// Head dim 80: a row of 80 bf16 is 160 bytes, wider than one 128-byte
+// swizzle row. Each head is held in shared memory as two 64-column chunks,
+// each its own TMA box with 128-byte swizzle: the second box starts at
+// column 64 and reads zeros past column 80, so no padded copy of qkv
+// exists in device memory. Q K^T walks K in five 16-deep steps (four in
+// the first chunk, one in the second) and P V is one wgmma of N = 80 whose
+// B descriptor steps from the first chunk to the second by its leading
+// byte offset, as the MN-major operands of kernel A' do. This was chosen
+// over having kernel B write heads padded to 128 columns: that would move
+// 1.6x the bytes through qkv and would still need two swizzle rows a head.
+// The cost is shared memory (the second chunk is 75% zeros): the window
+// path holds one unit stage where d = 64 holds two.
 //
 // Design, FlashAttention-3 style: Q, K and V arrive by TMA (128-byte swizzle,
 // mbarriers; rows past S read zeros) issued by one producer thread; consumer
@@ -49,12 +63,17 @@
 //   hulls. Every key is in one tile of N = 200 at 14 x 14 (64 or 128 for
 //   smaller S): an exact single-pass softmax, 196 x 200 scores where
 //   256 x 256 were computed, and warps whose 16 rows all lie past S skip
-//   it. The bias is one more product, as in kernel C': with F = [fh | fw |
+//   it. The bias is one more product, as in kernel C': with F = [hi | lo |
 //   0] (64 columns, spread from the raw rows in shared memory, two threads
-//   a row) and E[key, f] = 1 / scale where f == key / w or f == h + key % w
-//   (8 at d = 64, exact in bf16; built once per block), Q K^T + F E^T is
-//   the biased score over the scale, so a score costs one fma and one exp2
-//   and no lookup. Two earlier versions were slower: one that loaded each
+//   a row; hi and lo the bf16 high and low halves of [fh | fw] / scale
+//   taken in fp32: hi alone is exact at d = 64, where 1 / scale = 8, and
+//   hi + lo keeps about 16 bits at d = 80) and E[key, f] = 1 where f ==
+//   key / w or f == h + key % w, in both halves (built once per block),
+//   Q K^T + F E^T is the biased score over the scale, so a score costs one
+//   fma and one exp2 and no lookup. (E's entries were 1 / scale before,
+//   exact only where that is a power of two: at d = 80 every window would
+//   have taken the global path; hi alone rounds the bias once more, which
+//   read 2.5e-3 in a 2.1 row log-sum-exp.) Two earlier versions were slower: one that loaded each
 //   tile's factor rows into registers a tile ahead (their latency still sat
 //   on every tile's path), and one that wrote F to device memory in a
 //   second launch (one more launch's host time a call, where the
@@ -71,10 +90,40 @@ using rsp::bf16;
 
 namespace {
 
-constexpr int D = 64;
-constexpr int QTILE = 64 * D * 2;  // one warpgroup's Q tile, 8 KB
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr int QCHUNK = 64 * 128;  // 64 rows of one 64-column chunk, 8 KB
+
+// A head of D = 64 or 80 columns is held in shared memory as DC 64-column
+// chunks of 128-byte swizzled rows (an 80-wide row is 160 bytes, wider than
+// one swizzle row): TMA loads each chunk as its own box, and the columns
+// past D read zeros.
+template <int D>
+struct Head {
+  static_assert(D == 64 || D == 80, "head dim 64 or 80");
+  static constexpr int DC = (D + 63) / 64;
+  static constexpr int QT = DC * QCHUNK;  // one warpgroup's 64-query tile
+};
+
+// Descriptor of the k-th 16-deep K slice of a K-major tile stored as
+// 64-column chunks `chunk` bytes apart.
+__device__ __forceinline__ uint64_t kslice_desc(const unsigned char* tile, int chunk, int k) {
+  return rsp::sw128_desc(tile + (k / 4) * chunk + 32 * (k % 4));
+}
+
+// O += P V over one 16-key slice: P from registers, V's rows (keys) at `v`
+// as 64-column chunks `chunk` bytes apart, read N-major.
+template <int D>
+__device__ __forceinline__ void pv_k16(float (&o)[D / 2], const uint32_t (&p)[4],
+                                       const unsigned char* v, int chunk) {
+  if constexpr (D == 64) rsp::wgmma_m64n64k16_rs_nmajor(o, p, rsp::sw128_desc(v));
+  else rsp::wgmma_m64n80k16_rs_nmajor(o, p, rsp::sw128_desc_mn(v, chunk));
+}
+
+// The 16-byte chunk c of row r in a swizzled tile of 64-column chunks.
+__device__ __forceinline__ unsigned char* row_chunk(unsigned char* tile, int r, int c) {
+  return tile + (c / 8) * QCHUNK + r * 128 + (((c % 8) ^ (r & 7)) << 4);
+}
 
 // The global path's block: NWG = 2 consumer warpgroups of 64 queries each,
 // then the producer; BK = 128 keys per tile through a K / V ring of two
@@ -82,7 +131,11 @@ constexpr float LN2 = 0.6931471805599453f;
 // Q K^T and the last tile's P V, which needs about 180 registers: the
 // producer is a whole warpgroup that hands its registers to the consumers
 // (setmaxnreg).
+template <int D_>
 struct LongTile {
+  static constexpr int D = D_;
+  static constexpr int DC = Head<D>::DC;
+  static constexpr int QT = Head<D>::QT;
   static constexpr int NWG = 2;
   static constexpr int BK = 128;
   static constexpr int BQ = 64 * NWG;
@@ -94,9 +147,10 @@ struct LongTile {
   static constexpr int ENTRY_REGS = 65536 / THREADS / 8 * 8;
   static_assert(NWG * (CONSUMER_REGS - ENTRY_REGS) <= ENTRY_REGS - 24,
                 "register rebalance exceeds what the producer frees");
-  static constexpr int KVTILE = BK * D * 2;
+  static constexpr int KVCHUNK = BK * 128;  // one 64-column chunk of a K or V tile
+  static constexpr int KVTILE = DC * KVCHUNK;
   static constexpr int OFF_Q = 0;
-  static constexpr int OFF_RING = OFF_Q + NWG * QTILE;           // K, V per stage
+  static constexpr int OFF_RING = OFF_Q + NWG * QT;              // K, V per stage
   static constexpr int OFF_BAR = OFF_RING + STAGES * 2 * KVTILE;  // q, full[], empty[]
   static constexpr int OFF_FACT = OFF_BAR + 128;                  // fp32 factor rows
 };
@@ -132,7 +186,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const bf16* src, int n, i
 // One consumer warpgroup: 64 query rows against every key tile.
 template <int WF, class T>
 __device__ __forceinline__ void consume(unsigned char* smem, const Args& a, int wg) {
-  constexpr int BK = T::BK, STAGES = T::STAGES, KVTILE = T::KVTILE;
+  constexpr int BK = T::BK, STAGES = T::STAGES, KVTILE = T::KVTILE, D = T::D;
   uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + T::OFF_BAR);
   uint64_t* full = qbar + 1;
   uint64_t* empty = full + STAGES;
@@ -172,11 +226,11 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Args& a, int 
   }
   rsp::named_sync(2 + wg, 128);
   rsp::mbar_wait(qbar, 0);
-  const unsigned char* qt = smem + T::OFF_Q + wg * QTILE;
+  const unsigned char* qt = smem + T::OFF_Q + wg * T::QT;
 
-  float o[32];
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float sc[BK / 2];
   uint32_t pa[BK / 16][4];
   float m0 = -INFINITY, m1 = -INFINITY;  // running max (log2 units), rows rl0, rl1
@@ -192,9 +246,8 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Args& a, int 
     rsp::fence_regs(sc);
     rsp::wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k) {
-      rsp::wgmma_m64n128k16_ss(sc, rsp::sw128_desc(qt + 32 * k), rsp::sw128_desc(kt + 32 * k));
-    }
+    for (int k = 0; k < D / 16; ++k)
+      rsp::wgmma_m64n128k16_ss(sc, kslice_desc(qt, QCHUNK, k), kslice_desc(kt, T::KVCHUNK, k));
     rsp::wgmma_commit();
   };
   // O += P V of key tile `it`, P from registers (one wgmma group)
@@ -203,8 +256,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Args& a, int 
     rsp::fence_regs(o);
     rsp::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-      rsp::wgmma_m64n64k16_rs_nmajor(o, pa[kk], rsp::sw128_desc(vt + kk * 2048));
+    for (int kk = 0; kk < BK / 16; ++kk) pv_k16<D>(o, pa[kk], vt + kk * 2048, T::KVCHUNK);
     rsp::wgmma_commit();
   };
   // biased scores, new running max and p = exp2(s - max) in sc; returns the
@@ -316,7 +368,7 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Args& a, int 
 
   auto rescale = [&](float a0, float a1) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       o[4 * j] *= a0;
       o[4 * j + 1] *= a0;
       o[4 * j + 2] *= a1;
@@ -360,23 +412,23 @@ __device__ __forceinline__ void consume(unsigned char* smem, const Args& a, int 
   }
   // stage the normalised rows in this warpgroup's Q tile (16-byte chunks
   // swizzled by row), then store them 16 bytes a thread
-  unsigned char* st = smem + T::OFF_Q + wg * QTILE;
+  unsigned char* st = smem + T::OFF_Q + wg * T::QT;
   rsp::fence_async_shared();
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    *reinterpret_cast<uint32_t*>(st + rl0 * 128 + ((j ^ (rl0 & 7)) * 16) + 4 * t) =
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(row_chunk(st, rl0, j) + 4 * t) =
         rsp::pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-    *reinterpret_cast<uint32_t*>(st + rl1 * 128 + ((j ^ (rl1 & 7)) * 16) + 4 * t) =
+    *reinterpret_cast<uint32_t*>(row_chunk(st, rl1, j) + 4 * t) =
         rsp::pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
   rsp::named_sync(2 + wg, 128);
   bf16* ob = a.out + (size_t)plane_f * S * D;
-  for (int i = tid; i < 64 * 8; i += 128) {
-    const int r = i / 8;
-    const int c = i % 8;
+  for (int i = tid; i < 64 * (D / 8); i += 128) {
+    const int r = i / (D / 8);
+    const int c = i % (D / 8);
     if (qbase + r < S)
       *reinterpret_cast<uint4*>(ob + (size_t)(qbase + r) * D + c * 8) =
-          *reinterpret_cast<const uint4*>(st + r * 128 + ((c ^ (r & 7)) * 16));
+          *reinterpret_cast<const uint4*>(row_chunk(st, r, c));
   }
 }
 
@@ -409,16 +461,22 @@ __global__ void __launch_bounds__(T::THREADS, 1) relpos_attention_kernel(
       const int plane_q = blockIdx.z * 3 * nh + blockIdx.y;
       const int q0 = blockIdx.x * T::BQ;
       const int ntiles = (args.S + T::BK - 1) / T::BK;
-      rsp::mbar_expect_tx(qbar, T::NWG * QTILE);
+      rsp::mbar_expect_tx(qbar, T::NWG * T::QT);
       for (int i = 0; i < T::NWG; ++i)
-        rsp::tma_load_3d(smem + T::OFF_Q + i * QTILE, &qmap, qbar, 0, q0 + 64 * i, plane_q);
+        for (int c = 0; c < T::DC; ++c)
+          rsp::tma_load_3d(smem + T::OFF_Q + i * T::QT + c * QCHUNK, &qmap, qbar, 64 * c,
+                           q0 + 64 * i, plane_q);
       for (int it = 0; it < ntiles; ++it) {
         const int s = it % STAGES;
         if (it >= STAGES) rsp::mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
         rsp::mbar_expect_tx(&full[s], 2 * T::KVTILE);
         unsigned char* kt = smem + T::OFF_RING + s * 2 * T::KVTILE;
-        rsp::tma_load_3d(kt, &kvmap, &full[s], 0, it * T::BK, plane_q + nh);
-        rsp::tma_load_3d(kt + T::KVTILE, &kvmap, &full[s], 0, it * T::BK, plane_q + 2 * nh);
+        for (int c = 0; c < T::DC; ++c) {
+          rsp::tma_load_3d(kt + c * T::KVCHUNK, &kvmap, &full[s], 64 * c, it * T::BK,
+                           plane_q + nh);
+          rsp::tma_load_3d(kt + T::KVTILE + c * T::KVCHUNK, &kvmap, &full[s], 64 * c,
+                           it * T::BK, plane_q + 2 * nh);
+        }
       }
     }
   } else {
@@ -427,15 +485,21 @@ __global__ void __launch_bounds__(T::THREADS, 1) relpos_attention_kernel(
   }
 }
 
+// The tensor map of qkv (N, 3n, S, D): boxes of one 64-column chunk by
+// `rows` tokens of one head plane.
+bool qkv_map(CUtensorMap* map, const void* qkv, int D, int S, int planes, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  return rsp::make_tensor_map(map, qkv, 3, dims, strides, box);
+}
+
 template <int WF, class T>
 int launch(const void* qkv, const Args& args, int N, cudaStream_t stream) {
   CUtensorMap qmap, kvmap;
-  const cuuint64_t dims[3] = {D, (cuuint64_t)args.S, (cuuint64_t)N * 3 * args.nh};
-  const cuuint64_t strides[2] = {D * 2, (cuuint64_t)args.S * D * 2};
-  const cuuint32_t qbox[3] = {D, 64, 1};
-  const cuuint32_t kvbox[3] = {D, T::BK, 1};
-  if (!rsp::make_tensor_map(&qmap, qkv, 3, dims, strides, qbox) ||
-      !rsp::make_tensor_map(&kvmap, qkv, 3, dims, strides, kvbox))
+  const int planes = N * 3 * args.nh;
+  if (!qkv_map(&qmap, qkv, T::D, args.S, planes, 64) ||
+      !qkv_map(&kvmap, qkv, T::D, args.S, planes, T::BK))
     return static_cast<int>(cudaErrorNotSupported);
   const int smem = 1024 + T::OFF_FACT + T::NWG * 64 * (args.h + (WF > 0 ? 0 : args.w)) * 4;
   cudaError_t err = cudaFuncSetAttribute(
@@ -459,9 +523,10 @@ constexpr int SMEM_LIMIT = 232448;  // the most shared memory a block may use
 // runs) by 1-D bulk copies of their 16-byte-aligned hulls. Every key of an
 // item is in one tile of BN (S rounded up to 64, 128 or 200, the score
 // products' N); BNP = BN rounded up to 16 is the P V product's depth.
-template <int BN_>
+template <int BN_, int D_>
 struct Win {
   static constexpr int BN = BN_;
+  static constexpr int D = D_;
   static constexpr int BNP = (BN + 15) / 16 * 16;
   static constexpr int NWG = 2;
   static constexpr int THREADS = NWG * 128 + 128;
@@ -469,14 +534,20 @@ struct Win {
   static constexpr int ENTRY_REGS = 65536 / THREADS / 8 * 8;
   static_assert(NWG * (CONSUMER_REGS - ENTRY_REGS) <= ENTRY_REGS - PRODUCER_REGS,
                 "register rebalance exceeds what the producer frees");
-  static constexpr int UST = 2;            // unit stages
-  static constexpr int KVT = BNP * D * 2;  // a K, V or E tile
+  static constexpr int DC = Head<D>::DC;
+  static constexpr int QT = Head<D>::QT;
+  // unit stages: two at d = 64; an 80-wide head's K and V take two chunks
+  // each, and only one stage fits in shared memory
+  static constexpr int UST = D == 64 ? 2 : 1;
+  static constexpr int KVCHUNK = BNP * 128;  // a 64-column chunk of K or V, and E
+  static constexpr int KVT = DC * KVCHUNK;   // a K or V tile
+  static constexpr int QF = QT + QCHUNK;     // a warpgroup's Q tile, then its F tile
   // a stage: K, V, then per warpgroup its Q tile (later its output's
   // staging) and its F tile, then per warpgroup its raw factor rows
   static constexpr int OFF_K = 0, OFF_V = KVT, OFF_QF = 2 * KVT;
-  static constexpr int OFF_RAW = 2 * KVT + NWG * 2 * QTILE;
+  static constexpr int OFF_RAW = 2 * KVT + NWG * QF;
   static constexpr int OFF_E = 0;  // the group matrix E, built once
-  static constexpr int OFF_RING = OFF_E + KVT;
+  static constexpr int OFF_RING = OFF_E + KVCHUNK;
   // the ring's stage size and the block's shared memory at `raw` bytes of
   // raw factor rows per warpgroup (stages stay 1024-byte aligned for TMA)
   static constexpr int stage(int raw) { return (OFF_RAW + NWG * raw + 1023) / 1024 * 1024; }
@@ -491,7 +562,8 @@ struct WinArgs {
   int nh, S, h, w, units, rt, pairs;  // rt: 64-query tiles per item
   int raw, stage;                     // bytes: raw rows per warpgroup, one stage
   float c;                            // scale * log2 e
-  float inv_scale;                    // E's entries
+  float inv_scale;                    // F's factor: 1 / scale
+  int lo;  // the column of F's low half (h + w), 0 where 2 (h + w) > 64
 };
 
 // 2^x on the special-function unit, subnormal results flushed to zero (a p
@@ -502,13 +574,14 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// S = Q K^T + F E^T over the whole key tile: D x N products, 4 k steps each
-template <int BN>
-__device__ __forceinline__ void scores(float (&sc)[BN / 2], const unsigned char* a,
-                                       const unsigned char* b) {
+// sc += A B^T over the whole key tile, K / 16 steps (A: 64 rows, B: the
+// keys; both K-major, in 64-column chunks `ca` and `cb` bytes apart)
+template <int BN, int K>
+__device__ __forceinline__ void scores(float (&sc)[BN / 2], const unsigned char* a, int ca,
+                                       const unsigned char* b, int cb) {
 #pragma unroll
-  for (int k = 0; k < D / 16; ++k) {
-    const uint64_t da = rsp::sw128_desc(a + 32 * k), db = rsp::sw128_desc(b + 32 * k);
+  for (int k = 0; k < K / 16; ++k) {
+    const uint64_t da = kslice_desc(a, ca, k), db = kslice_desc(b, cb, k);
     if constexpr (BN == 200) rsp::wgmma_m64n200k16_ss(sc, da, db);
     else if constexpr (BN == 128) rsp::wgmma_m64n128k16_ss(sc, da, db);
     else rsp::wgmma_m64n64k16_ss(sc, da, db);
@@ -528,9 +601,9 @@ __device__ __forceinline__ Hull hull(const bf16* p, int n) {
 }
 
 // One consumer warpgroup: its query tile of every unit the block walks.
-template <int BN>
+template <class W>
 __device__ __forceinline__ void window_consume(unsigned char* smem, const WinArgs& a, int wg) {
-  using W = Win<BN>;
+  constexpr int BN = W::BN, D = W::D;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + W::OFF_RING + W::UST * a.stage);
   uint64_t* empty = full + W::UST;
   const int S = a.S, h = a.h, w = a.w;
@@ -554,10 +627,13 @@ __device__ __forceinline__ void window_consume(unsigned char* smem, const WinArg
     if (rt < a.rt) {
       const int q0 = 64 * rt;
       const int rows = min(64, S - q0);
-      unsigned char* qt = st + W::OFF_QF + 2 * wg * QTILE;  // Q, then the output's staging
-      unsigned char* fs = qt + QTILE;
-      // F = [fh | fw | 0] from the raw rows (two threads a row: fh, fw);
-      // the columns past h + w keep the zeros they started with
+      unsigned char* qt = st + W::OFF_QF + wg * W::QF;  // Q, then the output's staging
+      unsigned char* fs = qt + W::QT;
+      // F = [hi | lo | 0] from the raw rows (two threads a row: fh, fw):
+      // hi = bf16(v), lo = bf16(v - hi) of v = [fh | fw] / scale in fp32,
+      // so F E^T sums the bias over the scale to about 16 bits (at d = 64,
+      // where 1 / scale = 8, hi is exact and lo zero); the columns past
+      // them keep the zeros they started with
       {
         const size_t row0 = (size_t)item * S + q0;
         const bf16* ph = a.fh + row0 * h;
@@ -573,8 +649,15 @@ __device__ __forceinline__ void window_consume(unsigned char* smem, const WinArg
         if (r < rows) {
           for (int i = 0; i < fac; ++i) {
             const int f = (is_w ? h : 0) + i;
+            const float v = rsp::to_f(src[i]) * a.inv_scale;
+            const bf16 hi = rsp::to_bf(v);
             *reinterpret_cast<bf16*>(fs + r * 128 + (((f >> 3) ^ (r & 7)) << 4) + (f & 7) * 2) =
-                src[i];
+                hi;
+            if (a.lo) {
+              const int fl = f + a.lo;
+              *reinterpret_cast<bf16*>(fs + r * 128 + (((fl >> 3) ^ (r & 7)) << 4) +
+                                       (fl & 7) * 2) = rsp::to_bf(v - rsp::to_f(hi));
+            }
           }
         }
         rsp::fence_async_shared();
@@ -585,8 +668,8 @@ __device__ __forceinline__ void window_consume(unsigned char* smem, const WinArg
       for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
       rsp::fence_regs(sc);
       rsp::wgmma_fence();
-      scores<BN>(sc, qt, st + W::OFF_K);  // Q K^T
-      scores<BN>(sc, fs, es);             // + F E^T: the bias over the scale
+      scores<BN, D>(sc, qt, QCHUNK, st + W::OFF_K, W::KVCHUNK);  // Q K^T
+      scores<BN, 64>(sc, fs, QCHUNK, es, W::KVCHUNK);  // + F E^T: the bias over the scale
       rsp::wgmma_commit();
       rsp::wgmma_wait<0>();
       rsp::fence_regs(sc);
@@ -645,14 +728,14 @@ __device__ __forceinline__ void window_consume(unsigned char* smem, const WinArg
         pa[i / 2][(i % 2) * 2 + 1] = on ? rsp::pack_bf16(sc[4 * k + 2], sc[4 * k + 3]) : 0u;
       }
 
-      float o[32];
+      float o[D / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] = 0.f;
+      for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
       rsp::fence_regs(o);
       rsp::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < W::BNP / 16; ++kk)
-        rsp::wgmma_m64n64k16_rs_nmajor(o, pa[kk], rsp::sw128_desc(st + W::OFF_V + kk * 2048));
+        pv_k16<D>(o, pa[kk], st + W::OFF_V + kk * 2048, W::KVCHUNK);
       rsp::wgmma_commit();
       rsp::wgmma_wait<0>();
       rsp::fence_regs(o);
@@ -668,21 +751,21 @@ __device__ __forceinline__ void window_consume(unsigned char* smem, const WinArg
         const float inv0 = 1.f / l0, inv1 = 1.f / l1;
         rsp::fence_async_shared();
 #pragma unroll
-        for (int j8 = 0; j8 < 8; ++j8) {
-          *reinterpret_cast<uint32_t*>(qt + rl0 * 128 + ((j8 ^ (rl0 & 7)) * 16) + 4 * t) =
+        for (int j8 = 0; j8 < D / 8; ++j8) {
+          *reinterpret_cast<uint32_t*>(row_chunk(qt, rl0, j8) + 4 * t) =
               rsp::pack_bf16(o[4 * j8] * inv0, o[4 * j8 + 1] * inv0);
-          *reinterpret_cast<uint32_t*>(qt + rl1 * 128 + ((j8 ^ (rl1 & 7)) * 16) + 4 * t) =
+          *reinterpret_cast<uint32_t*>(row_chunk(qt, rl1, j8) + 4 * t) =
               rsp::pack_bf16(o[4 * j8 + 2] * inv1, o[4 * j8 + 3] * inv1);
         }
       }
       rsp::named_sync(2 + wg, 128);
       bf16* ob = a.out + plane * D;
-      for (int i = tid; i < 64 * 8; i += 128) {
-        const int r = i / 8;
-        const int cc = i % 8;
+      for (int i = tid; i < 64 * (D / 8); i += 128) {
+        const int r = i / (D / 8);
+        const int cc = i % (D / 8);
         if (q0 + r < S)
           *reinterpret_cast<uint4*>(ob + (size_t)(q0 + r) * D + cc * 8) =
-              *reinterpret_cast<const uint4*>(qt + r * 128 + ((cc ^ (r & 7)) * 16));
+              *reinterpret_cast<const uint4*>(row_chunk(qt, r, cc));
       }
     }
     rsp::fence_async_shared();  // the staging writes, before TMA refills the stage
@@ -690,11 +773,11 @@ __device__ __forceinline__ void window_consume(unsigned char* smem, const WinArg
   }
 }
 
-template <int BN>
-__global__ void __launch_bounds__(Win<BN>::THREADS, 1) window_kernel(
+template <class W>
+__global__ void __launch_bounds__(W::THREADS, 1) window_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kvmap,
     const WinArgs args) {
-  using W = Win<BN>;
+  constexpr int BN = W::BN;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (rsp::smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + W::OFF_RING + W::UST * args.stage);
@@ -706,10 +789,11 @@ __global__ void __launch_bounds__(Win<BN>::THREADS, 1) window_kernel(
     }
     rsp::mbar_fence_init();
   }
-  // E (keys x 64) once per block: 1 / scale at f = key / w and f = h + key % w
-  // for the keys before S, zeros elsewhere; and the F tiles zeroed, so the
-  // columns past h + w never hold a stale NaN for E's zeros to multiply
-  const int S = args.S, h = args.h, w = args.w;
+  // E (keys x 64) once per block: 1 at f = key / w and f = h + key % w for
+  // the keys before S, and again lo columns on (F's low half), zeros
+  // elsewhere; and the F tiles zeroed, so the columns past F's never hold a
+  // stale NaN for E's zeros to multiply
+  const int S = args.S, h = args.h, w = args.w, lo = args.lo;
   for (int i = threadIdx.x; i < BN * 8; i += W::THREADS) {
     const int key = i / 8;
     const int c = (i % 8) * 8;
@@ -717,16 +801,19 @@ __global__ void __launch_bounds__(Win<BN>::THREADS, 1) window_kernel(
     const int fb = key < S ? h + key % w : -1;
     __align__(16) bf16 v[8];
 #pragma unroll
-    for (int u = 0; u < 8; ++u)
-      v[u] = rsp::to_bf(c + u == fa || c + u == fb ? args.inv_scale : 0.f);
+    for (int u = 0; u < 8; ++u) {
+      const int f = c + u;
+      const bool on = f == fa || f == fb || (lo && key < S && (f - lo == fa || f - lo == fb));
+      v[u] = rsp::to_bf(on ? 1.f : 0.f);
+    }
     *reinterpret_cast<uint4*>(smem + W::OFF_E + key * 128 + (((c / 8) ^ (key & 7)) << 4)) =
         *reinterpret_cast<const uint4*>(v);
   }
   for (int s = 0; s < W::UST; ++s)
     for (int j = 0; j < W::NWG; ++j) {
       uint4* f = reinterpret_cast<uint4*>(smem + W::OFF_RING + s * args.stage + W::OFF_QF +
-                                          (2 * j + 1) * QTILE);
-      for (int i = threadIdx.x; i < QTILE / 16; i += W::THREADS) f[i] = make_uint4(0, 0, 0, 0);
+                                          j * W::QF + W::QT);
+      for (int i = threadIdx.x; i < QCHUNK / 16; i += W::THREADS) f[i] = make_uint4(0, 0, 0, 0);
     }
   rsp::fence_async_shared();
   __syncthreads();
@@ -734,7 +821,7 @@ __global__ void __launch_bounds__(Win<BN>::THREADS, 1) window_kernel(
   const int wg = threadIdx.x / 128;
   if (wg < W::NWG) {
     rsp::setmaxnreg_inc<W::CONSUMER_REGS>();
-    window_consume<BN>(smem, args, wg);
+    window_consume<W>(smem, args, wg);
     return;
   }
   rsp::setmaxnreg_dec<W::PRODUCER_REGS>();
@@ -752,7 +839,7 @@ __global__ void __launch_bounds__(Win<BN>::THREADS, 1) window_kernel(
     const int plane_q = (item / nh) * 3 * nh + item % nh;
     const int tiles = min(2, args.rt - 2 * pair);
     Hull hh[2], hw[2];
-    uint32_t bytes = 2 * W::KVT + tiles * QTILE;
+    uint32_t bytes = 2 * W::KVT + tiles * W::QT;
     for (int j = 0; j < tiles; ++j) {
       const int q0 = 64 * (2 * pair + j);
       const int rows = min(64, S - q0);
@@ -762,11 +849,16 @@ __global__ void __launch_bounds__(Win<BN>::THREADS, 1) window_kernel(
       bytes += hh[j].bytes + hw[j].bytes;
     }
     rsp::mbar_expect_tx(&full[s], bytes);
-    rsp::tma_load_3d(st + W::OFF_K, &kvmap, &full[s], 0, 0, plane_q + nh);
-    rsp::tma_load_3d(st + W::OFF_V, &kvmap, &full[s], 0, 0, plane_q + 2 * nh);
+    for (int c = 0; c < W::DC; ++c) {
+      rsp::tma_load_3d(st + W::OFF_K + c * W::KVCHUNK, &kvmap, &full[s], 64 * c, 0,
+                       plane_q + nh);
+      rsp::tma_load_3d(st + W::OFF_V + c * W::KVCHUNK, &kvmap, &full[s], 64 * c, 0,
+                       plane_q + 2 * nh);
+    }
     for (int j = 0; j < tiles; ++j) {
-      rsp::tma_load_3d(st + W::OFF_QF + 2 * j * QTILE, &qmap, &full[s], 0,
-                       64 * (2 * pair + j), plane_q);
+      for (int c = 0; c < W::DC; ++c)
+        rsp::tma_load_3d(st + W::OFF_QF + j * W::QF + c * QCHUNK, &qmap, &full[s], 64 * c,
+                         64 * (2 * pair + j), plane_q);
       unsigned char* raw = st + W::OFF_RAW + j * args.raw;
       rsp::bulk_load(raw, hh[j].start, hh[j].bytes, &full[s]);
       rsp::bulk_load(raw + hh[j].bytes, hw[j].start, hw[j].bytes, &full[s]);
@@ -774,21 +866,17 @@ __global__ void __launch_bounds__(Win<BN>::THREADS, 1) window_kernel(
   }
 }
 
-template <int BN>
+template <class W>
 int launch_window(const void* qkv, WinArgs args, int N, cudaStream_t stream) {
-  using W = Win<BN>;
   // raw rows per warpgroup: two hulls, each at most 2 * 64 * (h or w) + 30
   // bytes, rounded to 16
   args.raw = 128 * (args.h + args.w) + 64;
   args.stage = W::stage(args.raw);
   const int smem = W::smem(args.raw);
   CUtensorMap qmap, kvmap;
-  const cuuint64_t dims[3] = {D, (cuuint64_t)args.S, (cuuint64_t)N * 3 * args.nh};
-  const cuuint64_t strides[2] = {D * 2, (cuuint64_t)args.S * D * 2};
-  const cuuint32_t qbox[3] = {D, 64, 1};
-  const cuuint32_t kvbox[3] = {D, W::BNP, 1};
-  if (!rsp::make_tensor_map(&qmap, qkv, 3, dims, strides, qbox) ||
-      !rsp::make_tensor_map(&kvmap, qkv, 3, dims, strides, kvbox))
+  const int planes = N * 3 * args.nh;
+  if (!qkv_map(&qmap, qkv, W::D, args.S, planes, 64) ||
+      !qkv_map(&kvmap, qkv, W::D, args.S, planes, W::BNP))
     return static_cast<int>(cudaErrorNotSupported);
   // once per device: the shared-memory opt-in (the most any h + w needs)
   // and the SM count (the grid)
@@ -797,7 +885,7 @@ int launch_window(const void* qkv, WinArgs args, int N, cudaStream_t stream) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || dev >= 64) return static_cast<int>(err ? err : cudaErrorInvalidValue);
   if (sms[dev] == 0) {
-    if ((err = cudaFuncSetAttribute(window_kernel<BN>,
+    if ((err = cudaFuncSetAttribute(window_kernel<W>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     SMEM_LIMIT)) != cudaSuccess ||
         (err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev)) !=
@@ -805,36 +893,59 @@ int launch_window(const void* qkv, WinArgs args, int N, cudaStream_t stream) {
       return static_cast<int>(err);
   }
   const int grid = args.units < sms[dev] ? args.units : sms[dev];
-  window_kernel<BN><<<grid, W::THREADS, smem, stream>>>(qmap, kvmap, args);
+  window_kernel<W><<<grid, W::THREADS, smem, stream>>>(qmap, kvmap, args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Whether a grid of S = h x w keys takes the window path at head dim D:
+// windows and small grids, the bias as the product F E^T (F scaled by
+// 1 / scale, E of ones), where the shared memory that h + w asks for fits
+// and, at d = 80, F's high and low halves fit its 64 columns (h + w <= 32);
+// larger S (up to 256) and the rest take the global path.
+template <int D>
+bool window_path(int S, int h, int w) {
+  return S <= 200 && h + w <= (D == 64 ? 64 : 32) &&
+         (S <= 128 || Win<200, D>::smem(128 * (h + w) + 64) <= SMEM_LIMIT);
+}
+
+template <int D>
+int dispatch(const void* qkv, const Args& args, float scale, int N, cudaStream_t st) {
+  const int S = args.S, h = args.h, w = args.w, nh = args.nh;
+  if (window_path<D>(S, h, w)) {
+    const int rt = (S + 63) / 64, pairs = (rt + 1) / 2;
+    const WinArgs wa{args.fh, args.fw, args.out, args.lse, nh, S, h, w, N * nh * pairs,
+                     rt, pairs, 0, 0, args.scale_log2, 1.f / scale,
+                     2 * (h + w) <= 64 ? h + w : 0};
+    if (S <= 64) return launch_window<Win<64, D>>(qkv, wa, N, st);
+    if (S <= 128) return launch_window<Win<128, D>>(qkv, wa, N, st);
+    return launch_window<Win<200, D>>(qkv, wa, N, st);
+  }
+  if (w == 64) return launch<64, LongTile<D>>(qkv, args, N, st);
+  if (w == 32) return launch<32, LongTile<D>>(qkv, args, N, st);
+  return launch<0, LongTile<D>>(qkv, args, N, st);
 }
 
 }  // namespace
 
+// qkv (N, 3 nh, S, d) with d = 64 or 80 -> out (N, nh, S, d); lse (N, nh,
+// S) fp32 when not null.
 extern "C" int rsp_relpos_attention(const void* qkv, const void* fh,
                                     const void* fw, void* out, void* lse,
-                                    int N, int nh, int S, int h, int w,
+                                    int N, int nh, int S, int h, int w, int d,
                                     float scale, void* stream) {
-  if (h > 64 || w > 64 || h * w != S) return static_cast<int>(cudaErrorInvalidValue);
+  if (h > 64 || w > 64 || h * w != S || (d != 64 && d != 80))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args args{static_cast<const bf16*>(fh), static_cast<const bf16*>(fw),
                   static_cast<bf16*>(out), static_cast<float*>(lse), nh, S, h, w,
                   scale * LOG2E};
   auto st = static_cast<cudaStream_t>(stream);
-  // windows and small grids: the bias as the product F E^T, which needs E's
-  // entries 1 / scale exact in bf16 (a power of two; 8 at d = 64) and the
-  // shared memory that h + w asks for; larger S (up to 256) and the rest
-  // take the global path
-  int ex;
-  if (S <= 200 && h + w <= 64 && frexpf(1.f / scale, &ex) == 0.5f) {
-    const int rt = (S + 63) / 64, pairs = (rt + 1) / 2;
-    const WinArgs wa{args.fh, args.fw, args.out, args.lse, nh, S, h, w, N * nh * pairs,
-                     rt, pairs, 0, 0, scale * LOG2E, 1.f / scale};
-    const int raw = 128 * (h + w) + 64;
-    if (S <= 64) return launch_window<64>(qkv, wa, N, st);
-    if (S <= 128) return launch_window<128>(qkv, wa, N, st);
-    if (Win<200>::smem(raw) <= SMEM_LIMIT) return launch_window<200>(qkv, wa, N, st);
-  }
-  if (w == 64) return launch<64, LongTile>(qkv, args, N, st);
-  if (w == 32) return launch<32, LongTile>(qkv, args, N, st);
-  return launch<0, LongTile>(qkv, args, N, st);
+  return d == 64 ? dispatch<64>(qkv, args, scale, N, st)
+                 : dispatch<80>(qkv, args, scale, N, st);
+}
+
+// The path rsp_relpos_attention takes for a grid of S = h x w keys at head
+// dim d: 1 the window path, 0 the global one, -1 a shape it refuses.
+extern "C" int rsp_relpos_attention_route(int S, int h, int w, int d) {
+  if (h > 64 || w > 64 || h * w != S || (d != 64 && d != 80)) return -1;
+  return (d == 64 ? window_path<64>(S, h, w) : window_path<80>(S, h, w)) ? 1 : 0;
 }

@@ -15,7 +15,14 @@ The config key ``attn_impl`` picks the block's route, as in JAX
   MLP + residual. Each is a ``torch.autograd.Function`` whose backward is
   the matching backward kernel (A', B', C'); the rel-pos factor einsum stays
   in torch autograd, which gives the tables their gradients and q its extra
-  term, as JAX keeps ``rel_factors_pair``'s vjp outside its kernel.
+  term, as JAX keeps ``rel_factors_pair``'s vjp outside its kernel. The
+  route takes every SAM width: ViT-B (C 768, 12 heads of 64), ViT-L (C
+  1024, 16 heads of 64) and ViT-H (C 1280, 16 heads of 80). At head dim 80
+  JAX's ``'fused'`` block runs XLA attention (its Pallas attention and LN +
+  qkv kernels take 64 only) beside its MLP kernel; the port runs kernels B
+  and C there too, the same LN1 -> qkv -> rel-pos attention judged at the
+  module boundary. The backwards A', B', C' take ViT-B's widths, so a
+  ViT-L/H block on the card predicts and does not yet train.
 * ``'flash'`` (JAX's non-fused block, ``vision_encoder.py:355-369`` and
   ``:452-456``): plain LN1, the explicit window partition zero-padded after
   LN1, kernel K12' (``ops.fused_mlp.qkv_headmajor``) for qkv, the rel-pos

@@ -9,7 +9,9 @@ ViT-B layer at batch 2). It is three launches: kernel B's row pass
 wgmma GEMMs of one entry point, fc1 with its bias and GELU and fc2 with its
 bias and the residual (counted as ``LN_MLP_RESIDUAL`` variants ``fc1`` and
 ``fc2``); the (T, 4C) hidden activation goes through device memory in bf16,
-at the rounding point JAX's kernel has (see the source note). Its backward
+at the rounding point JAX's kernel has (see the source note). It takes the
+SAM widths C = 768, 1024 and 1280 (ViT-B, ViT-L, ViT-H) with M = 4 C
+(``MLP_WIDTHS``). Its backward
 A' (``csrc/ln_mlp_residual_bwd.cu``) replaces ``_mlp_bwd_kernel``: one
 entry point, counted once per call as ``LN_MLP_RESIDUAL_BWD``, that makes
 six device launches, its five products on kernel A's TMA + wgmma mainloop
@@ -23,16 +25,19 @@ the qkv product, written head-major (N, 3n, S, d). It is two launches: the
 row pass ``ln_rows`` (LN, window partition and zero pad into z, counted as
 ``LN_ROWS``) and the wgmma GEMM that K12' is too (counted as
 ``LN_QKV_HEADMAJOR`` when kernel B launches it). Tensor-core bound (29 GFLOP
-per layer). Its backward B' (``csrc/ln_qkv_headmajor_bwd.cu``) replaces
+per ViT-B layer). It takes heads of d = 64 or 80 (``QKV_HEAD_DIMS``: ViT-H's
+16 heads of 80; JAX's LN + qkv kernels take 64 only and XLA computes the
+projection there). Its backward B' (``csrc/ln_qkv_headmajor_bwd.cu``) replaces
 ``_ln_qkv_bwd_kernel`` and ``_strip_qkv_bwd_kernel``: one entry point,
 counted once per call as ``LN_QKV_HEADMAJOR_BWD``, that makes five device
 launches (a copy of dy to token-major rows, then A''s row kernels around one
-launch of both products on the same mainloop) and takes C a multiple of 256.
+launch of both products on the same mainloop) and takes C a multiple of 256
+and heads of 64; A' takes C = 768 (``MLP_BWD_WIDTHS``).
 
 Kernel K12', ``qkv_headmajor`` (the same GEMM), replaces
 ``_qkv_pair_kernel`` (``fused_qkv_pair``): flat tokens (N*S, C) -> x.W + b
-head-major (N, 3n, S, d). The encoder's ``'flash'`` route runs it. Its
-backward is plain torch products on every device, as JAX's
+head-major (N, 3n, S, 64), heads of 64 only. The encoder's ``'flash'``
+route runs it. Its backward is plain torch products on every device, as JAX's
 ``_qkv_pair_bwd_vjp`` leaves it to XLA.
 
 The public functions are ``torch.autograd.Function``s: their forward is the
@@ -81,12 +86,17 @@ LN_ROWS = CudaKernel(
 # kernel B's GEMM and K12' are one entry point, counted apart by call site
 LN_QKV_HEADMAJOR = CudaKernel(
     "ln_qkv_headmajor", "ln_qkv_headmajor.cu", "rsp_qkv_headmajor",
-    [_P] * 4 + [_I] * 4 + [_P],
+    [_P] * 4 + [_I] * 5 + [_P],
 )
 QKV_HEADMAJOR = CudaKernel(
     "qkv_headmajor", "ln_qkv_headmajor.cu", "rsp_qkv_headmajor",
-    [_P] * 4 + [_I] * 4 + [_P],
+    [_P] * 4 + [_I] * 5 + [_P],
 )
+# the widths each kernel takes on the card: kernel A's C (its M is 4 C), kernel
+# B's head dim; their backwards A' and B' take ViT-B's
+MLP_WIDTHS = (768, 1024, 1280)
+MLP_BWD_WIDTHS = (768,)
+QKV_HEAD_DIMS = (64, 80)
 # B': one count per call (five device launches inside, three without LN)
 LN_QKV_HEADMAJOR_BWD = CudaKernel(
     "ln_qkv_headmajor_bwd", "ln_qkv_headmajor_bwd.cu", "rsp_ln_qkv_headmajor_bwd",
@@ -178,9 +188,12 @@ def ln_mlp_residual_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, dout,
             db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype))
 
 
-def _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2):
+def _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2, widths=MLP_WIDTHS):
     t, c = x.shape
     m = w1.shape[0]
+    if c not in widths or m != 4 * c:
+        raise ValueError(f"ln_mlp_residual: unsupported widths C={c}, M={m} "
+                         f"(C one of {widths}, M = 4 C)")
     bf = torch.bfloat16
     check_cuda_tensor("x", x, bf, (t, c))
     check_cuda_tensor("ln_w", ln_w, torch.float32, (c,))
@@ -189,8 +202,6 @@ def _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2):
     check_cuda_tensor("b1", b1, bf, (m,))
     check_cuda_tensor("w2", w2, bf, (c, m))
     check_cuda_tensor("b2", b2, bf, (c,))
-    if c != 768 or m % 64:  # ViT-B's width; ViT-L/H come with their checks
-        raise ValueError(f"ln_mlp_residual: unsupported widths C={c}, M={m}")
     return t, c, m
 
 
@@ -214,7 +225,7 @@ def ln_mlp_residual_bwd(x, ln_w, ln_b, w1, b1, w2, b2, dout, eps: float = 1e-6):
     gradients of :func:`ln_mlp_residual` given dO."""
     if x.device.type == "cpu":
         return ln_mlp_residual_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, dout, eps)
-    t, c, m = _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2)
+    t, c, m = _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2, MLP_BWD_WIDTHS)
     check_cuda_tensor("dout", dout, torch.bfloat16, (t, c))
     f32, bf = torch.float32, torch.bfloat16
     parts = -(-t // 128) * m + -(-t // 16) * 3 * c  # db1's, then dgamma/dbeta/db2's
@@ -387,23 +398,35 @@ def _qkv_rows(x, heads3: int, window: int):
     return bsz, hh * ww
 
 
-def _check_qkv_args(x, ln_w, ln_b, w, b, heads3):
+def _head_dim(w, heads3: int, dims, what: str) -> int:
+    """The head dim of a qkv weight (heads3 * d, C); raise unless d is one
+    of ``dims``."""
+    d = w.shape[0] // heads3
+    if d not in dims or w.shape[0] != heads3 * d:
+        raise ValueError(f"{what}: head dim {w.shape[0]} / {heads3} is not one of {dims}")
+    return d
+
+
+def _check_qkv_args(x, ln_w, ln_b, w, b, heads3, dims=QKV_HEAD_DIMS):
+    """Kernel B's (and B''s, with ``dims`` (64,)) arguments; returns d."""
     bsz, hh, ww, c = x.shape
     bf = torch.bfloat16
+    d = _head_dim(w, heads3, dims, "ln_qkv_headmajor")
     check_cuda_tensor("x", x, bf, (bsz, hh, ww, c))
-    check_cuda_tensor("w", w, bf, (heads3 * 64, c))
-    check_cuda_tensor("b", b, bf, (heads3 * 64,))
+    check_cuda_tensor("w", w, bf, (heads3 * d, c))
+    check_cuda_tensor("b", b, bf, (heads3 * d,))
     if ln_w is not None:
         check_cuda_tensor("ln_w", ln_w, torch.float32, (c,))
         check_cuda_tensor("ln_b", ln_b, torch.float32, (c,))
     if c % 64 or c > 2048:
         raise ValueError(f"ln_qkv_headmajor: C={c} is not a multiple of 64 up to 2048")
+    return d
 
 
 def _ln_qkv_headmajor_fwd(x, ln_w, ln_b, w, b, heads3, window, eps):
     if x.device.type == "cpu":
         return ln_qkv_headmajor_plain(x, ln_w, ln_b, w, b, heads3, window, eps)
-    _check_qkv_args(x, ln_w, ln_b, w, b, heads3)
+    d = _check_qkv_args(x, ln_w, ln_b, w, b, heads3)
     bsz, hh, ww, c = x.shape
     n, s = _qkv_rows(x, heads3, window)
     variant = "window" if window else "global"
@@ -413,8 +436,8 @@ def _ln_qkv_headmajor_fwd(x, ln_w, ln_b, w, b, heads3, window, eps):
         ptr(ln_b) if ln_b is not None else _NULL, ptr(z), bsz, hh, ww, c, window, eps,
         variant=variant,
     )
-    out = torch.empty((n, heads3, s, 64), dtype=torch.bfloat16, device=x.device)
-    LN_QKV_HEADMAJOR.launch(ptr(z), ptr(w), ptr(b), ptr(out), n, s, c, heads3,
+    out = torch.empty((n, heads3, s, d), dtype=torch.bfloat16, device=x.device)
+    LN_QKV_HEADMAJOR.launch(ptr(z), ptr(w), ptr(b), ptr(out), n, s, c, heads3, d,
                             variant=variant)
     return out
 
@@ -425,7 +448,7 @@ def ln_qkv_headmajor_bwd(x, ln_w, ln_b, w, b, dy, heads3: int, window: int = 0,
     gradients of :func:`ln_qkv_headmajor` given dy (N, heads3, S, 64)."""
     if x.device.type == "cpu":
         return ln_qkv_headmajor_bwd_plain(x, ln_w, ln_b, w, b, dy, heads3, window, eps)
-    _check_qkv_args(x, ln_w, ln_b, w, b, heads3)
+    _check_qkv_args(x, ln_w, ln_b, w, b, heads3, dims=(64,))
     bsz, hh, ww, c = x.shape
     n, s = _qkv_rows(x, heads3, window)
     if c % 256 or c > 1280:  # the row kernels' widths, up to ViT-H
@@ -491,13 +514,14 @@ def _qkv_headmajor_fwd(x, w, b, heads3, n):
         return qkv_headmajor_plain(x, w, b, heads3, n)
     t, c = x.shape
     bf = torch.bfloat16
+    _head_dim(w, heads3, (64,), "qkv_headmajor")  # K12' takes 64-wide heads
     check_cuda_tensor("x", x, bf, (t, c))
     check_cuda_tensor("w", w, bf, (heads3 * 64, c))
     check_cuda_tensor("b", b, bf, (heads3 * 64,))
     if c % 64 or t % n:
         raise ValueError(f"qkv_headmajor: C={c} not a multiple of 64 or {t} rows for N={n}")
     out = torch.empty((n, heads3, t // n, 64), dtype=bf, device=x.device)
-    QKV_HEADMAJOR.launch(ptr(x), ptr(w), ptr(b), ptr(out), n, t // n, c, heads3,
+    QKV_HEADMAJOR.launch(ptr(x), ptr(w), ptr(b), ptr(out), n, t // n, c, heads3, 64,
                          variant="window" if t // n <= 512 else "global")
     return out
 

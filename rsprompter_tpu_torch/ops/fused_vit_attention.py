@@ -19,6 +19,11 @@ and q. Bound on the H100: tensor-core operations for the 4096-token global
 layers (103 GFLOP per ViT-B layer at batch 2), device-memory bytes for the
 196-token windows (about 70 MB per layer).
 
+It takes heads of d = 64 and 80 (``HEAD_DIMS``, the scale d^-0.5): ViT-H's
+16 heads of 80, where JAX runs XLA attention (its Pallas kernels take 64
+only); C' takes 64. ``relpos_attention_route`` says which of the kernel's
+two paths (window, global) a grid takes at a head dim.
+
 It also serves two more TPU kernels, at their own call sites: the encoder's
 ``'flash'`` route runs it where JAX runs ``flash_attention.py``'s
 ``_fwd_kernel`` / ``_fwd_kernel_smallseq`` (K10: exact softmax, p rounded to
@@ -47,12 +52,29 @@ _NULL = ctypes.c_void_p(None)
 
 RELPOS_ATTENTION = CudaKernel(
     "relpos_attention", "relpos_attention.cu", "rsp_relpos_attention",
-    [_P] * 5 + [_I] * 5 + [_F, _P],
+    [_P] * 5 + [_I] * 6 + [_F, _P],
 )
 RELPOS_ATTENTION_BWD = CudaKernel(
     "relpos_attention_bwd", "relpos_attention_bwd.cu", "rsp_relpos_attention_bwd",
     [_P] * 12 + [_I] * 7 + [_F, _P],
 )
+# which of kernel C's paths a shape takes (a query of the built library, no launch)
+RELPOS_ATTENTION_ROUTE = CudaKernel(
+    "relpos_attention_route", "relpos_attention.cu", "rsp_relpos_attention_route", [_I] * 4,
+)
+HEAD_DIMS = (64, 80)  # kernel C's head dims; C' takes 64
+BWD_HEAD_DIMS = (64,)
+
+
+def relpos_attention_route(hw: Tuple[int, int], d: int) -> str:
+    """The path kernel C takes for an h x w grid at head dim d, as its
+    dispatcher decides it: 'window' (one tile of every key, the bias as a
+    product) or 'global' (key tiles streamed with an online softmax). Asks
+    the built library, so on the card only."""
+    route = RELPOS_ATTENTION_ROUTE.load()(hw[0] * hw[1], hw[0], hw[1], d)
+    if route < 0:
+        raise ValueError(f"relpos_attention: no path for grid {hw} at head dim {d}")
+    return "window" if route else "global"
 
 
 def _variant(s: int, heads: int) -> str:
@@ -103,29 +125,31 @@ def relpos_attention_bwd_plain(qkv, fh, fw, dout, hw: Tuple[int, int]):
             dsg.sum(dim=-2).to(fw.dtype))
 
 
-def _check_attention_args(qkv, fh, fw, hw):
+def _check_attention_args(qkv, fh, fw, hw, dims=HEAD_DIMS):
     h, w = hw
-    nb, n3, s, _ = qkv.shape
+    nb, n3, s, d = qkv.shape
     n = n3 // 3
     bf = torch.bfloat16
-    check_cuda_tensor("qkv", qkv, bf, (nb, 3 * n, h * w, 64))
+    if d not in dims:
+        raise ValueError(f"relpos_attention: head dim {d} is not one of {dims}")
+    check_cuda_tensor("qkv", qkv, bf, (nb, 3 * n, h * w, d))
     check_cuda_tensor("fh", fh, bf, (nb, n, s, h))
     check_cuda_tensor("fw", fw, bf, (nb, n, s, w))
     if h > 64 or w > 64:
         raise ValueError(f"relpos_attention: grid {h}x{w} exceeds 64x64")
-    return nb, n, s
+    return nb, n, s, d
 
 
 def _relpos_attention_fwd(qkv, fh, fw, hw, with_lse: bool):
     """(out, row log-sum-exp or None); the log-sum-exp only from the kernel."""
     if qkv.device.type == "cpu":
         return relpos_attention_plain(qkv, fh, fw, hw), None
-    nb, n, s = _check_attention_args(qkv, fh, fw, hw)
-    out = torch.empty((nb, n, s, 64), dtype=torch.bfloat16, device=qkv.device)
+    nb, n, s, d = _check_attention_args(qkv, fh, fw, hw)
+    out = torch.empty((nb, n, s, d), dtype=torch.bfloat16, device=qkv.device)
     lse = torch.empty((nb, n, s), dtype=torch.float32, device=qkv.device) if with_lse else None
     RELPOS_ATTENTION.launch(
         ptr(qkv), ptr(fh), ptr(fw), ptr(out), ptr(lse) if with_lse else _NULL,
-        nb, n, s, hw[0], hw[1], 64 ** -0.5, variant=_variant(s, n),
+        nb, n, s, hw[0], hw[1], d, d ** -0.5, variant=_variant(s, n),
     )
     return out, lse
 
@@ -135,7 +159,7 @@ def relpos_attention_bwd(qkv, fh, fw, out, lse, dout, hw: Tuple[int, int]):
     log-sum-exp; the plain backward on the CPU. Returns (dqkv, dfh, dfw)."""
     if qkv.device.type == "cpu":
         return relpos_attention_bwd_plain(qkv, fh, fw, dout, hw)
-    nb, n, s = _check_attention_args(qkv, fh, fw, hw)
+    nb, n, s, _ = _check_attention_args(qkv, fh, fw, hw, BWD_HEAD_DIMS)
     check_cuda_tensor("out", out, torch.bfloat16, (nb, n, s, 64))
     check_cuda_tensor("dout", dout, torch.bfloat16, (nb, n, s, 64))
     check_cuda_tensor("lse", lse, torch.float32, (nb, n, s))
@@ -174,8 +198,8 @@ class _RelposAttention(torch.autograd.Function):
 
 def relpos_attention(qkv: torch.Tensor, fh: torch.Tensor, fw: torch.Tensor,
                      hw: Tuple[int, int]) -> torch.Tensor:
-    """Kernel C on CUDA tensors (bf16, head dim 64, h and w <= 64), with C'
-    as its backward; the plain versions on the CPU."""
+    """Kernel C on CUDA tensors (bf16, head dim 64 or 80, h and w <= 64), with
+    C' as its backward (head dim 64); the plain versions on the CPU."""
     if torch.is_grad_enabled() and (qkv.requires_grad or fh.requires_grad or fw.requires_grad):
         return _RelposAttention.apply(qkv, fh, fw, hw)
     return _relpos_attention_fwd(qkv, fh, fw, hw, False)[0]  # no graph to record

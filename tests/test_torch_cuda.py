@@ -426,3 +426,85 @@ def test_fp32_encoder_runs_the_bf16_kernels(gen):
         assert torch.isfinite(a).all()
         err = (a - b).abs().max().item()
         assert err <= ENCODER_TOL * b.abs().max().item(), err
+
+
+# --- the ViT-L and ViT-H widths ---------------------------------------------
+
+
+@pytest.mark.parametrize("c", [1024, 1280])
+@pytest.mark.parametrize("t", [300, 4096])
+def test_ln_mlp_residual_wide(gen, c, t):
+    """Kernel A at ViT-L's and ViT-H's widths (M = 4 C), at a row count that
+    is not a multiple of the GEMMs' 128-row tile."""
+    m = 4 * c
+    args = (_rnd(gen, t, c), 1 + _rnd(gen, c, scale=0.1, dtype=torch.float32),
+            _rnd(gen, c, scale=0.1, dtype=torch.float32), _rnd(gen, m, c, scale=0.02),
+            _rnd(gen, m, scale=0.02), _rnd(gen, c, m, scale=0.02), _rnd(gen, c, scale=0.02),
+            1e-6)
+    _close(fm.ln_mlp_residual(*args), fm.ln_mlp_residual_plain(*_f32(args)))
+
+
+@pytest.mark.parametrize("c,heads", [(1024, 16), (1280, 16), (320, 4)])
+@pytest.mark.parametrize("grid,window", [((10, 9), 0), ((10, 9), 4), ((15, 14), 14)])
+def test_ln_qkv_headmajor_wide(gen, c, heads, grid, window):
+    """Kernel B with 16 heads of 64 (ViT-L) and of 80 (ViT-H), and four heads
+    of 80 (960 columns: 80-wide heads straddle the GEMM's 256-column tiles
+    and the last tile is partly past the weight), at ragged grids, global
+    and windowed."""
+    args = (
+        _rnd(gen, 2, *grid, c), 1 + _rnd(gen, c, scale=0.1, dtype=torch.float32),
+        _rnd(gen, c, scale=0.1, dtype=torch.float32), _rnd(gen, 3 * c, c, scale=0.02),
+        _rnd(gen, 3 * c, scale=0.02), 3 * heads, window, 1e-6,
+    )
+    got = fm.ln_qkv_headmajor(*args)
+    assert got.shape[-1] == c // heads
+    _close(got, fm.ln_qkv_headmajor_plain(*_f32(args)))
+
+
+@pytest.mark.parametrize("d,heads", [(80, 16), (80, 3), (64, 16)])
+@pytest.mark.parametrize("hw", [(14, 14), (9, 7), (1, 1), (16, 16), (32, 32)])
+def test_relpos_attention_wide(gen, d, heads, hw):
+    """Kernel C at head dim 80 (and 64 with ViT-L's 16 heads): the window
+    path for S <= 200, the global one for (16, 16) and (32, 32); the output
+    and the row log-sum-exp against plain, the scale d^-0.5."""
+    s = hw[0] * hw[1]
+    qkv = _rnd(gen, 3, 3 * heads, s, d)
+    fh = _rnd(gen, 3, heads, s, hw[0], scale=0.5)
+    fw = _rnd(gen, 3, heads, s, hw[1], scale=0.5)
+    assert fa.relpos_attention_route(hw, d) == ("window" if s <= 200 else "global")
+    out, lse = fa._relpos_attention_fwd(qkv, fh, fw, hw, True)
+    qf = qkv.float()
+    scores = fa._biased_scores(qf[:, :heads], qf[:, heads : 2 * heads], fh, fw)
+    _close(out, fa.relpos_attention_plain(qf, fh.float(), fw.float(), hw))
+    err = (lse - torch.logsumexp(scores, dim=-1)).abs().max().item()
+    assert err <= 1e-3 * scores.abs().max().item(), err
+
+
+def test_wrappers_refuse_widths_they_do_not_take(gen):
+    """Kernel A at C = 896, B and C at head dim 96, and the backwards and
+    K12' at head dim 80 raise on CUDA tensors before any launch."""
+    c = 896
+    args = (_rnd(gen, 8, c), _rnd(gen, c, dtype=torch.float32),
+            _rnd(gen, c, dtype=torch.float32), _rnd(gen, 4 * c, c), _rnd(gen, 4 * c),
+            _rnd(gen, c, 4 * c), _rnd(gen, c))
+    with pytest.raises(ValueError, match="unsupported widths"):
+        fm.ln_mlp_residual(*args)
+    x = _rnd(gen, 1, 4, 4, 192)
+    w, b = _rnd(gen, 6 * 96, 192), _rnd(gen, 6 * 96)
+    with pytest.raises(ValueError, match="head dim"):
+        fm.ln_qkv_headmajor(x, None, None, w, b, 6)
+    w, b = _rnd(gen, 6 * 80, 192), _rnd(gen, 6 * 80)
+    with pytest.raises(ValueError, match="head dim"):
+        fm.qkv_headmajor(x.reshape(16, 192), w, b, 6, 1)
+    with pytest.raises(ValueError, match="head dim"):
+        fm.ln_qkv_headmajor_bwd(x, None, None, w, b, _rnd(gen, 1, 6, 16, 80), 6)
+    for d in (96, 80):
+        qkv, fh, fw = _rnd(gen, 1, 6, 9, d), _rnd(gen, 1, 2, 9, 3), _rnd(gen, 1, 2, 9, 3)
+        if d == 96:
+            with pytest.raises(ValueError, match="head dim"):
+                fa.relpos_attention(qkv, fh, fw, (3, 3))
+        else:
+            with pytest.raises(ValueError, match="head dim"):
+                fa.relpos_attention_bwd(qkv, fh, fw, _rnd(gen, 1, 2, 9, d),
+                                        torch.zeros(1, 2, 9, device="cuda"),
+                                        _rnd(gen, 1, 2, 9, d), (3, 3))

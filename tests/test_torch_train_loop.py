@@ -330,6 +330,15 @@ COCO_KEYS = {f"coco/{m}_mAP{s}" for m in ("bbox", "segm")
 DIGEST_KEYS = {"val/num_dets", "val/mean_score", "val/mean_mask_prob"}
 
 
+@pytest.fixture()
+def scratch(tmp_path):
+    """``tmp_path``, emptied when the test ends: a train checkpoint of the
+    tiny detector is 268 MB (22.9M fp32 parameters and their AdamW moments),
+    and pytest keeps every test's directory until the session ends."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def coco_dir(tmp_path_factory):
     return synthetic_coco(str(tmp_path_factory.mktemp("coco")), CLASSES,
@@ -357,10 +366,10 @@ def _records(work_dir):
         return [json.loads(line) for line in f]
 
 
-def test_checkpoint_save_latest_prune_restore(tmp_path):
+def test_checkpoint_save_latest_prune_restore(scratch):
     cfg = dict(model=TINY_MODEL, max_epochs=2)
     trainer = build_trainer(cfg, device="cpu", seed=0)
-    ckpts = str(tmp_path / "ckpts")
+    ckpts = str(scratch / "ckpts")
     assert latest_checkpoint(ckpts) is None
     for step in (1, 2, 10, 3):
         trainer.iter = step
@@ -380,13 +389,13 @@ def test_checkpoint_save_latest_prune_restore(tmp_path):
     assert saved.keys() == {"model", "optimizer", "step"}
 
 
-def test_resume_is_bitwise(coco_dir, tmp_path):
+def test_resume_is_bitwise(coco_dir, scratch):
     """3 epochs of one step straight, against a fresh runner resumed with
     ``--resume`` from the straight run's step-2 checkpoint (what a run
     stopped after that save leaves) for the third: every parameter, BN
     buffer, moment and count equal."""
-    cfg = _write_config(tmp_path, coco_dir)
-    straight, split = str(tmp_path / "straight"), str(tmp_path / "split")
+    cfg = _write_config(scratch, coco_dir)
+    straight, split = str(scratch / "straight"), str(scratch / "split")
     train_tool.main([cfg, "--work-dir", straight, "--device", "cpu"])
     shutil.copytree(os.path.join(straight, "ckpts", "step_2"),
                     os.path.join(split, "ckpts", "step_2"))
@@ -410,9 +419,9 @@ def test_resume_is_bitwise(coco_dir, tmp_path):
     assert _records(straight)[-1]["loss"] == _records(split)[-1]["loss"]
 
 
-def test_train_tool_end_to_end(coco_dir, tmp_path, capsys):
-    cfg = _write_config(tmp_path, coco_dir, max_epochs=6, val_interval=3)
-    work = str(tmp_path / "work")
+def test_train_tool_end_to_end(coco_dir, scratch, capsys):
+    cfg = _write_config(scratch, coco_dir, max_epochs=6, val_interval=3)
+    work = str(scratch / "work")
     runner = train_tool.main([cfg, "--work-dir", work, "--device", "cpu"])
     records = _records(work)
     train_recs = [r for r in records if "loss" in r]
