@@ -179,7 +179,24 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    ``facebook/sam-vit-huge``, seeded weights) through ``init_detector`` /
    ``inference_detector`` on phase 3's images, with phase 13's gates: A 32,
    B and C 28 window + 4 global launches a forward, every output finite,
-   ms/batch, ``model.predict`` alone, peak memory, a profiled forward.
+   ms/batch, ``model.predict`` alone, peak memory, a profiled forward;
+16. ViT-L and ViT-H training: A' at ViT-L's and ViT-H's widths (C 1024,
+   1280), B' and C' at ViT-L's 16 heads of 64 and ViT-H's 16 heads of 80
+   (global and window), at the train steps' shapes (512^2, batch 4), and
+   K12' at head dim 80 alone at the 'flash' encoder's shapes (1024^2, batch
+   2) and with the adapter at the peft step's, each against its fp32 plain
+   version with phase 2's times and tolerance, A', B' and C' launched twice
+   for the same bits;
+   the ViT-H encoder on ``attn_impl='flash'`` (K12' and C at hd 80) against
+   plain fp32 within ``ENCODER_TOL``; then three train steps through
+   ``build_trainer``, seeded weights, batch 4, one warm-up and
+   ``WIDE_TRAIN_STEPS`` timed steps each: ``rsprompter_anchor-nwpu-scratch-
+   512.py`` at ``facebook/sam-vit-large`` and ``-huge`` (encoder and decoder
+   trained) and ``rsprompter_anchor-nwpu-peft-512.py`` at ``-huge``, with
+   phase 12's gates (finite metrics, trained tensors moved, frozen ones
+   bitwise unchanged, exact launch counts, s/step, peak memory, a profiled
+   step) and phase 6's gradient check, the encoder alone held to the floor
+   rule at these depths (``GRAD_TOL`` holds ViT-B's).
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -279,8 +296,11 @@ REPLACES = {
 }
 
 
+HD80_NOTE = " (no TPU kernel at head dim 80: JAX runs XLA)"
+
+
 def _replaces(key: str, d: int = 64) -> str:
-    return REPLACES[key] + ("" if d == 64 else " (no TPU kernel at head dim 80: JAX runs XLA)")
+    return REPLACES[key] + ("" if d == 64 else HD80_NOTE)
 
 
 def mlp_row(rnd, dev, t: int, c: int, tag: str = "", launches_alone: bool = False) -> dict:
@@ -470,10 +490,53 @@ def log_rows(rows, what: str = "max|plain|") -> None:
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
 
 
-def kernel_phase(dev):
+def k12_row(name: str, x, w, b, heads3: int, n_img: int, variant: str, path: str,
+            adapter=None) -> dict:
+    """K12' on flat tokens ``x`` (n_img windows or images) against its plain
+    version, or with ``adapter`` = (la, lb, scale) K12' with the LoRA
+    adapter folded into its K; the library call composed of bf16 PyTorch
+    calls. Returns its kernel row."""
     import torch
 
     from rsprompter_tpu_torch.ops import fused_mlp as fm
+
+    F = torch.nn.functional
+    a = (x, w, b) + (tuple(adapter) if adapter else ()) + (heads3, n_img)
+    fn = fm.qkv_headmajor_lora if adapter else fm.qkv_headmajor
+    plain = fm.qkv_headmajor_lora_plain if adapter else fm.qkv_headmajor_plain
+    got = fn(*a)
+    torch.cuda.synchronize()
+    err = compare(name, got, plain(*[v.float() if torch.is_tensor(v) else v for v in a]))
+    d = w.shape[0] // heads3
+
+    def library():
+        y = F.linear(x, w, b)
+        if adapter:
+            la, lb, scale = adapter
+            y = y + ((x @ la) @ lb) * scale
+        return y.reshape(n_img, -1, heads3, d).permute(0, 2, 1, 3).contiguous()
+
+    m, c, k = x.shape[0], x.shape[1], w.shape[0]
+    flops, nbytes = 2.0 * m * c * k, (x.numel() + w.numel() + b.numel() + got.numel()) * 2
+    if adapter:
+        r = adapter[0].shape[1]
+        flops += 2.0 * m * r * (c + k)
+        nbytes += (adapter[0].numel() + adapter[1].numel()) * 2
+    b_ms, b_by = bound_ms(flops, nbytes)
+    return dict(
+        name=name, kernel=fm.QKV_HEADMAJOR, variant=variant, route="cuda",
+        source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor.cu",
+        replaces="rsprompter_tpu/ops/fused_mlp.py:154" + ("" if d == 64 else HD80_NOTE),
+        path=path, shape=f"x {tuple(x.shape)}" + (f" + adapter r {r}" if adapter else "")
+        + f" -> {tuple(got.shape)} bf16", max_abs_err=err,
+        ms=cuda_time_ms(lambda: fn(*a)), plain_ms=cuda_time_ms(lambda: plain(*a)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(library),
+    )
+
+
+def kernel_phase(dev):
+    import torch
+
     from rsprompter_tpu_torch.ops import fused_vit_attention as fa
 
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -539,28 +602,8 @@ def kernel_phase(dev):
 
     # --- K12': qkv_headmajor (kernel B without LN), global and window -------
     for variant, n_img, s in (("global", bsz, grid * grid), ("window", bsz * 25, win * win)):
-        xf = rnd(n_img * s, c)
-        a = (xf, wq, bq, 3 * heads, n_img)
-        got = fm.qkv_headmajor(*a)
-        torch.cuda.synchronize()
-        err = compare(f"qkv_headmajor/{variant}", got,
-                      fm.qkv_headmajor_plain(*[v.float() if torch.is_tensor(v) else v for v in a]))
-
-        def library(xf=xf, n_img=n_img, s=s):
-            y = torch.nn.functional.linear(xf, wq, bq)
-            return y.reshape(n_img, s, 3 * heads, 64).permute(0, 2, 1, 3).contiguous()
-
-        b_ms, b_by = bound_ms(2.0 * n_img * s * c * 3 * c,
-                              (xf.numel() + wq.numel() + bq.numel() + got.numel()) * 2)
-        rows.append(dict(
-            name=f"qkv_headmajor/{variant}", kernel=fm.QKV_HEADMAJOR, variant=variant,
-            route="cuda", source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor.cu",
-            replaces="rsprompter_tpu/ops/fused_mlp.py:154", path="query_flash",
-            shape=f"x {tuple(xf.shape)} -> {tuple(got.shape)} bf16", max_abs_err=err,
-            ms=cuda_time_ms(lambda: fm.qkv_headmajor(*a)),
-            plain_ms=cuda_time_ms(lambda: fm.qkv_headmajor_plain(*a)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(library),
-        ))
+        rows.append(k12_row(f"qkv_headmajor/{variant}", rnd(n_img * s, c), wq, bq, 3 * heads,
+                            n_img, variant, "query_flash"))
     for r in rows:
         r.setdefault("path", "anchor_predict")
     log_rows(rows)
@@ -794,9 +837,9 @@ def backward_kernel_phase(dev, bsz: int = 4, grid: int = 32,
     return rows
 
 
-def a_prime_row(rnd, f32, t, c, mlp, ln_w, ln_b) -> dict:
+def a_prime_row(rnd, f32, t, c, mlp, ln_w, ln_b, tag: str = "") -> dict:
     """A' against its fp32 plain version at ``t`` rows; a second launch must
-    give the same bits. Returns its kernel row."""
+    give the same bits. Returns its kernel row (named with ``tag``)."""
     import torch
     import torch.nn.functional as F
 
@@ -806,15 +849,16 @@ def a_prime_row(rnd, f32, t, c, mlp, ln_w, ln_b) -> dict:
             rnd(c, mlp, scale=0.02), rnd(c, scale=0.02), rnd(t, c))
     got = fm.ln_mlp_residual_bwd(*args, 1e-6)
     torch.cuda.synchronize()
-    err = compare_each("ln_mlp_residual_bwd", got, fm.ln_mlp_residual_bwd_plain(*f32(args), 1e-6))
+    name = f"ln_mlp_residual_bwd{tag}"
+    err = compare_each(name, got, fm.ln_mlp_residual_bwd_plain(*f32(args), 1e-6))
     again = fm.ln_mlp_residual_bwd(*args, 1e-6)
     torch.cuda.synchronize()
-    for name, x, y in zip(("dx", "dgamma", "dbeta", "dW1", "db1", "dW2", "db2"), got, again):
+    for what, x, y in zip(("dx", "dgamma", "dbeta", "dW1", "db1", "dW2", "db2"), got, again):
         if not torch.equal(x, y):
             raise AssertionError(
-                f"ln_mlp_residual_bwd: a second launch changed {name} "
+                f"{name}: a second launch changed {what} "
                 f"(max |diff| {(x.float() - y.float()).abs().max().item():.4g})")
-    log("ln_mlp_residual_bwd: a second launch gives the same bits in all seven outputs")
+    log(f"{name}: a second launch gives the same bits in all seven outputs")
     del got, again
     flops = 5 * 2.0 * t * c * mlp  # fc1 recompute, dO W2, dW2, dW1, dh W1
     # read x, dO, W1, W2, b1, b2, LN params; write dx, dW1 / dW2 / db1 / db2
@@ -827,7 +871,7 @@ def a_prime_row(rnd, f32, t, c, mlp, ln_w, ln_b) -> dict:
             F.layer_norm(x, (c,), lw, lb, 1e-6), w1, b1), approximate="none"), w2, b2),
         args[:7], args[7])
     return dict(
-        name="ln_mlp_residual_bwd", kernel=fm.LN_MLP_RESIDUAL_BWD, variant="",
+        name=name, kernel=fm.LN_MLP_RESIDUAL_BWD, variant="",
         route="cuda", source="rsprompter_tpu_torch/csrc/ln_mlp_residual_bwd.cu",
         replaces="rsprompter_tpu/ops/fused_mlp.py:483",
         shape=f"x, dO ({t}, {c}) bf16, W1 {mlp}x{c}, W2 {c}x{mlp}", max_abs_err=err,
@@ -837,9 +881,11 @@ def a_prime_row(rnd, f32, t, c, mlp, ln_w, ln_b) -> dict:
     )
 
 
-def b_prime_rows(rnd, f32, bsz, grid, c, heads, win, n_win, ln_w, ln_b) -> list:
-    """B' (global and window) against its fp32 plain version; a second
-    launch must give the same bits. Returns its kernel rows."""
+def b_prime_rows(rnd, f32, bsz, grid, c, heads, win, n_win, ln_w, ln_b,
+                 tag: str = "") -> list:
+    """B' (global and window) with ``heads`` heads of c / heads against its
+    fp32 plain version; a second launch must give the same bits. Returns
+    its kernel rows (named with ``tag``)."""
     import torch
     import torch.nn.functional as F
 
@@ -847,6 +893,7 @@ def b_prime_rows(rnd, f32, bsz, grid, c, heads, win, n_win, ln_w, ln_b) -> list:
 
     rows = []
     t = bsz * grid * grid
+    d = c // heads
     xg = rnd(bsz, grid, grid, c)
     wq, bq = rnd(3 * c, c, scale=0.02), rnd(3 * c, scale=0.02)
     for variant, window, replaces in (
@@ -854,26 +901,25 @@ def b_prime_rows(rnd, f32, bsz, grid, c, heads, win, n_win, ln_w, ln_b) -> list:
         ("window", win, "rsprompter_tpu/ops/fused_mlp.py:707"),
     ):
         n_img, s = (bsz, grid * grid) if not window else (n_win, win * win)
-        dy = rnd(n_img, 3 * heads, s, 64)
+        name = f"ln_qkv_headmajor_bwd/{variant}{tag}"
+        dy = rnd(n_img, 3 * heads, s, d)
         a = (xg, ln_w, ln_b, wq, bq, dy, 3 * heads, window, 1e-6)
         got = fm.ln_qkv_headmajor_bwd(*a)
         torch.cuda.synchronize()
-        err = compare_each(f"ln_qkv_headmajor_bwd/{variant}", got,
-                           fm.ln_qkv_headmajor_bwd_plain(*f32(a)))
+        err = compare_each(name, got, fm.ln_qkv_headmajor_bwd_plain(*f32(a)))
         again = fm.ln_qkv_headmajor_bwd(*a)
         torch.cuda.synchronize()
-        for name, x, y in zip(("dx", "dgamma", "dbeta", "dW", "db"), got, again):
+        for what, x, y in zip(("dx", "dgamma", "dbeta", "dW", "db"), got, again):
             if not torch.equal(x, y):
                 raise AssertionError(
-                    f"ln_qkv_headmajor_bwd/{variant}: a second launch changed {name} "
+                    f"{name}: a second launch changed {what} "
                     f"(max |diff| {(x.float() - y.float()).abs().max().item():.4g})")
-        log(f"ln_qkv_headmajor_bwd/{variant}: a second launch gives the same bits in all "
-            "five outputs")
+        log(f"{name}: a second launch gives the same bits in all five outputs")
         del got, again
         library_ms = composed_backward_ms(  # LN -> window partition -> qkv -> head-major
             lambda x, lw, lb, w, b, window=window, n_img=n_img, s=s: F.linear(
                 fm.window_partition(F.layer_norm(x, (c,), lw, lb, 1e-6), window), w, b
-            ).reshape(n_img, s, 3 * heads, 64).permute(0, 2, 1, 3),
+            ).reshape(n_img, s, 3 * heads, d).permute(0, 2, 1, 3),
             (xg, ln_w, ln_b, wq, bq), dy)
         # dW and dz over the t real tokens: window pad rows have z = 0 and feed
         # no token; only db reads their dy, a sum counted in the bytes
@@ -882,9 +928,10 @@ def b_prime_rows(rnd, f32, bsz, grid, c, heads, win, n_win, ln_w, ln_b) -> list:
                   + 4 * c * 4)
         b_ms, b_by = bound_ms(flops, nbytes)
         rows.append(dict(
-            name=f"ln_qkv_headmajor_bwd/{variant}", kernel=fm.LN_QKV_HEADMAJOR_BWD,
+            name=name, kernel=fm.LN_QKV_HEADMAJOR_BWD,
             variant=variant, route="cuda",
-            source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor_bwd.cu", replaces=replaces,
+            source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor_bwd.cu",
+            replaces=replaces + ("" if d == 64 else HD80_NOTE),
             shape=f"x ({bsz}, {grid}, {grid}, {c}), dy {tuple(dy.shape)} bf16",
             max_abs_err=err, ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor_bwd(*a)),
             plain_ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor_bwd_plain(*a)),
@@ -893,9 +940,10 @@ def b_prime_rows(rnd, f32, bsz, grid, c, heads, win, n_win, ln_w, ln_b) -> list:
     return rows
 
 
-def c_prime_rows(rnd, bsz, grid, heads, win, n_win) -> list:
-    """C' (global and window) against its fp32 plain version; a second
-    launch must give the same bits. Returns its kernel rows."""
+def c_prime_rows(rnd, bsz, grid, heads, win, n_win, d: int = 64, tag: str = "") -> list:
+    """C' (global and window) at ``heads`` heads of ``d`` against its fp32
+    plain version; a second launch must give the same bits. Returns its
+    kernel rows (named with ``tag``)."""
     import torch
 
     from rsprompter_tpu_torch.ops import fused_vit_attention as fa
@@ -906,38 +954,39 @@ def c_prime_rows(rnd, bsz, grid, heads, win, n_win) -> list:
         ("window", n_win, (win, win), "rsprompter_tpu/ops/fused_vit_attention.py:752"),
     ):
         s = hw[0] * hw[1]
-        qkv = rnd(n_img, 3 * heads, s, 64)
+        name = f"relpos_attention_bwd/{variant}{tag}"
+        qkv = rnd(n_img, 3 * heads, s, d)
         fh = rnd(n_img, heads, s, hw[0], scale=0.5)
         fw = rnd(n_img, heads, s, hw[1], scale=0.5)
-        dout = rnd(n_img, heads, s, 64)
+        dout = rnd(n_img, heads, s, d)
         out, lse = fa._relpos_attention_fwd(qkv, fh, fw, hw, True)
         a = (qkv, fh, fw, out, lse, dout, hw)
         got = fa.relpos_attention_bwd(*a)
         torch.cuda.synchronize()
-        err = compare_each(f"relpos_attention_bwd/{variant}", got, fa.relpos_attention_bwd_plain(
+        err = compare_each(name, got, fa.relpos_attention_bwd_plain(
             qkv.float(), fh.float(), fw.float(), dout.float(), hw))
         again = fa.relpos_attention_bwd(*a)
         torch.cuda.synchronize()
-        for name, x, y in zip(("dqkv", "dfh", "dfw"), got, again):
+        for what, x, y in zip(("dqkv", "dfh", "dfw"), got, again):
             if not torch.equal(x, y):
                 raise AssertionError(
-                    f"relpos_attention_bwd/{variant}: a second launch changed {name} "
+                    f"{name}: a second launch changed {what} "
                     f"(max |diff| {(x.float() - y.float()).abs().max().item():.4g})")
-        log(f"relpos_attention_bwd/{variant}: a second launch gives the same bits "
-            "in dqkv, dfh and dfw")
+        log(f"{name}: a second launch gives the same bits in dqkv, dfh and dfw")
         del again
         q, k, v = qkv[:, :heads], qkv[:, heads : 2 * heads], qkv[:, 2 * heads :]
         bias = (fh[..., :, None] + fw[..., None, :]).reshape(n_img, heads, s, s)
         library_ms = sdpa_backward_ms(q, k, v, bias, dout)
         del bias
-        flops = 5 * 2.0 * n_img * heads * s * s * 64  # q k^T again, dP, dV, dQ, dK
+        flops = 5 * 2.0 * n_img * heads * s * s * d  # q k^T again, dP, dV, dQ, dK
         nbytes = ((qkv.numel() + fh.numel() + fw.numel() + out.numel() + dout.numel()) * 2
                   + lse.numel() * 4 + (qkv.numel() + fh.numel() + fw.numel()) * 2)
         b_ms, b_by = bound_ms(flops, nbytes)
         rows.append(dict(
-            name=f"relpos_attention_bwd/{variant}", kernel=fa.RELPOS_ATTENTION_BWD,
+            name=name, kernel=fa.RELPOS_ATTENTION_BWD,
             variant=variant, route="cuda",
-            source="rsprompter_tpu_torch/csrc/relpos_attention_bwd.cu", replaces=replaces,
+            source="rsprompter_tpu_torch/csrc/relpos_attention_bwd.cu",
+            replaces=replaces + ("" if d == 64 else HD80_NOTE),
             shape=f"qkv {tuple(qkv.shape)} bf16, factors h={hw[0]} w={hw[1]}",
             max_abs_err=err, ms=cuda_time_ms(lambda: fa.relpos_attention_bwd(*a)),
             plain_ms=cuda_time_ms(lambda: fa.relpos_attention_bwd_plain(
@@ -1173,7 +1222,7 @@ def check_floor(what: str, got_rel, floor_rel) -> None:
             raise AssertionError(msg)
 
 
-def gradient_phase(model, opt, loss_fn, only=None):
+def gradient_phase(model, opt, loss_fn, only=None, encoder_floor: bool = False):
     """Phase 6 (and phase 12's, ``only`` naming the parameters compared:
     those that train). ``loss_fn()`` runs one batch with fixed draws through the
     whole loss three times: through the kernels, through the plain versions,
@@ -1191,9 +1240,12 @@ def gradient_phase(model, opt, loss_fn, only=None):
     the LoRA adapters are the encoder's only trained tensors, and their
     low-rank gradients, sums over every token, carry more bf16 noise than
     ``GRAD_TOL`` was set by) it is held to the same floor rule against the
-    fp32 encoder given those cotangents. Where ``only`` names no encoder
-    tensor (phase 14's frozen SAM-seg encoder) the encoder has no gradient
-    to compare, and that part is skipped."""
+    fp32 encoder given those cotangents. ``encoder_floor`` (phase 16's ViT-L
+    and ViT-H steps, 24 and 32 layers deep, where ``GRAD_TOL``, set at
+    ViT-B's 12, is not the limit) holds the encoder alone to that floor rule
+    too, and reports its kernels-vs-plain reading without a limit. Where
+    ``only`` names no encoder tensor (phase 14's frozen SAM-seg encoder) the
+    encoder has no gradient to compare, and that part is skipped."""
     import torch
 
     from rsprompter_tpu_torch.apis.build import set_compute_dtype
@@ -1247,7 +1299,7 @@ def gradient_phase(model, opt, loss_fn, only=None):
         same_cot = encoder_grads("plain", cot)
         set_compute_dtype(enc, torch.float32, cast_params=False)
         ref, _ = whole_loss_grads("plain")
-        ref_cot = encoder_grads("plain", cot) if only is not None else None
+        ref_cot = encoder_grads("plain", cot) if only is not None or encoder_floor else None
     finally:
         rpn_mod.rpn_predict = rpn_predict
         set_compute_dtype(enc, torch.bfloat16, cast_params=False)
@@ -1262,8 +1314,11 @@ def gradient_phase(model, opt, loss_fn, only=None):
     check_floor("whole loss", kernel_ref, floor)
     if only is None:
         check_grads("encoder with the same cotangents, kernels vs plain",
-                    relative_grad_diffs({n: kernel[n] for n in same_cot}, same_cot), GRAD_TOL)
-    elif enc_trains:  # the adapters' gradients: phase 6's rule against the fp32 encoder
+                    relative_grad_diffs({n: kernel[n] for n in same_cot}, same_cot),
+                    None if encoder_floor else GRAD_TOL)
+    if enc_trains and (only is not None or encoder_floor):
+        # the adapters' gradients, or a deep encoder's: phase 6's rule
+        # against the fp32 encoder given the same cotangents
         kernel_cot = relative_grad_diffs({n: kernel[n] for n in ref_cot}, ref_cot)
         floor_cot = relative_grad_diffs(same_cot, ref_cot)
         check_grads("encoder with the same cotangents, plain bf16 vs fp32 (the floor)",
@@ -2509,7 +2564,6 @@ def peft_phase(kernels, iters: int, profile_dir: str = "", config: str = PEFT_CO
 
     t_phase = time.time()
     on_card = device == "cuda"
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
     # --- 1. the anchor peft train step --------------------------------------
     cfg = Config.fromfile(config)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2547,81 +2601,18 @@ def peft_phase(kernels, iters: int, profile_dir: str = "", config: str = PEFT_CO
         PEFT_BATCH, size, cfg["model"]["num_classes"], max_gt=8, seed=0).items()}
     gen = torch.Generator(device=device)
 
-    def check(metrics, when, what="peft train step"):
-        bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
-        if bad:
-            raise AssertionError(f"{what} {when}: non-finite {bad}")
-        return {k: float(v) for k, v in metrics.items()}
-
-    first = check(trainer.step(batch, gen.manual_seed(0)), "warm-up")
-    sync()
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    reached = set()
-    for k in kernels:
-        k.reset_counts()
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(iters):
-        t0 = time.perf_counter()
-        metrics = trainer.step(batch, gen.manual_seed(1 + i))
-        sync()
-        times.append(time.perf_counter() - t0)
-        reached |= trained - set(opt.unreached)
-        if not all(n.startswith(UNREACHED) for n in opt.unreached):
-            raise AssertionError(f"peft train step: no gradient reached {opt.unreached}")
-        last = check(metrics, f"{i + 1}")
-    counts = {k.name: dict(k.variant_launches) for k in kernels}
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else float("nan")
-    for n, p in model.named_parameters():
-        moved = not torch.equal(p.detach(), before[n])
-        if n in trained:
-            if p.grad is None or not torch.isfinite(p.grad).all():
-                raise AssertionError(f"peft train step: {n} has no finite gradient")
-            if n in reached and not moved:
-                raise AssertionError(f"peft train step: {n} was not updated")
-        elif moved:
-            raise AssertionError(f"peft train step: the frozen {n} moved")
-    if not lora_names <= reached:
-        raise AssertionError(f"peft train step: adapters not reached {lora_names - reached}")
-    if on_card:
-        check_train_launches("peft train", counts, model, iters, lora=True)
-    med = statistics.median(times)
-    log(f"peft train step launches over {iters} steps: "
-        f"{ {n: c for n, c in counts.items() if c} }")
     log(f"peft train step: RSPrompter-anchor peft (LoRA r 16, alpha 32 on qkv; pseudo "
         f"aggregator), ViT-B {size[0]}x{size[1]}, batch {PEFT_BATCH}, bf16 compute, fp32 "
         f"master weights, a seeded 1024^2 SAM file through the {size[0]}^2 resize ({loaded} "
-        f"encoder tensors equal to the file's), {n_lora} adapters with seeded qkv_lora_b: {med:.4f} "
-        f"s/step median of {iters} (min {min(times):.4f}, max {max(times):.4f}), "
-        f"{PEFT_BATCH / med:.3f} images/s; peak device memory {peak_gb:.2f} GiB; "
-        f"{len(opt.trained)} trained / {len(opt.frozen)} frozen tensors; every frozen tensor "
-        f"bitwise unchanged")
-    log(f"peft train step 1 (warm-up): {json.dumps(first)}")
-    log(f"peft train step {iters + 1}: {json.dumps(last)}")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    sync()
-    t0 = time.perf_counter()
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
-    with profile(activities=activities) as prof:
-        trainer.step(batch, gen.manual_seed(99))
-        sync()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms = device_busy_ms(prof)
-    log(f"peft train step profile: device busy {busy_ms:.2f} ms (union of kernel intervals); "
-        f"profiled step wall {wall_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.4f}; against "
-        f"the unprofiled median step {med * 1e3:.2f} ms, idle share "
-        f"{1 - busy_ms / (med * 1e3):.4f}; host calls in the step (the script's closing "
-        f"cudaDeviceSynchronize included): {host_counts(prof)}")
+        f"encoder tensors equal to the file's), {n_lora} adapters with seeded qkv_lora_b")
+    run = baseline_steps("peft train step", trainer, batch, iters, kernels,
+                         unreached_ok=(UNREACHED,), device=device, profile_dir=profile_dir,
+                         lora=True)
+    if not lora_names <= run["reached"]:
+        raise AssertionError(f"peft train step: adapters not reached "
+                             f"{lora_names - run['reached']}")
     if profile_dir:
-        os.makedirs(profile_dir, exist_ok=True)
-        table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
-        with open(os.path.join(profile_dir, "peft_train_step_profile.txt"), "w") as f:
-            f.write(table)
-        prof.export_chrome_trace(os.path.join(profile_dir, "peft_train_step_trace.json"))
-        log(table[:8000])
+        run["prof"].export_chrome_trace(os.path.join(profile_dir, "peft_train_step_trace.json"))
         from rsprompter_tpu_torch.ops import fused_mlp as fm
 
         split = stage_ms({
@@ -2632,12 +2623,12 @@ def peft_phase(kernels, iters: int, profile_dir: str = "", config: str = PEFT_CO
                                                model.neck_feature_spliter],
             "optimizer (clip + AdamW)": [(opt, "step")],
         }, lambda: trainer.step(batch, gen.manual_seed(98)), iters=3)
-        log("peft train step: stream ms per stage (forward stages; backward in the profile "
-            "rows above): " + "; ".join(f"{k} {v:.2f}" for k, v in split.items()))
+        log("peft train step: stream ms per stage (forward stages; backward in "
+            "peft_train_step_profile.txt): " + "; ".join(f"{k} {v:.2f}" for k, v in split.items()))
 
     gradient_phase(model, opt, lambda: model.loss(batch, generator=gen.manual_seed(7)),
                    only=trained)
-    del trainer, model, opt, before, batch
+    del trainer, model, opt, batch
     if on_card:
         torch.cuda.empty_cache()
 
@@ -2647,7 +2638,7 @@ def peft_phase(kernels, iters: int, profile_dir: str = "", config: str = PEFT_CO
     # --- 3. the query peft train step ---------------------------------------
     peft_query_train(kernels, query_config, device)
     log(f"peft phase: {time.time() - t_phase:.1f} s")
-    return counts
+    return run["counts"]
 
 
 def peft_predict(kernels, config: str = PEFT_CONFIG, device: str = "cuda") -> None:
@@ -3145,14 +3136,17 @@ def gather_index_stats(run, min_numel: int = 1 << 16) -> list:
     return stats
 
 
-def baseline_steps(what: str, trainer, batch, steps: int, kernels, loss_terms: int,
-                   unreached_ok=(), device: str = "cuda", profile_dir: str = "",
-                   gathers: bool = False) -> dict:
-    """One warm-up and ``steps`` timed steps: every metric finite with
-    ``loss_terms`` loss terms, every frozen tensor bitwise unchanged, every
-    trained tensor the loss reaches with a finite gradient and moved (only
-    ``unreached_ok`` prefixes may go unreached); then one profiled step
-    (with ``gathers``, its RoI gathers' indices counted first, from its
+def baseline_steps(what: str, trainer, batch, steps: int, kernels,
+                   loss_terms: Optional[int] = None, unreached_ok=(), device: str = "cuda",
+                   profile_dir: str = "", gathers: bool = False,
+                   lora: Optional[bool] = None) -> dict:
+    """One warm-up and ``steps`` timed steps (phases 12, 14 and 16): every
+    metric finite (with ``loss_terms`` loss terms, where given), every frozen
+    tensor bitwise unchanged, every trained tensor the loss reaches with a
+    finite gradient and moved (only ``unreached_ok`` prefixes may go
+    unreached); on the card with ``lora`` given, exact launch counts
+    (``check_train_launches``, ``lora``: the LoRA route); then one profiled
+    step (with ``gathers``, its RoI gathers' indices counted first, from its
     forward on the same weights and draws). Returns the launch counts,
     times, the profile and the step's figures."""
     import torch
@@ -3165,7 +3159,7 @@ def baseline_steps(what: str, trainer, batch, steps: int, kernels, loss_terms: i
     def check(metrics, when):
         bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
         terms = [k for k in metrics if "loss" in k and k != "loss"]
-        if bad or len(terms) != loss_terms:
+        if bad or loss_terms not in (None, len(terms)):
             raise AssertionError(f"{what} step {when}: non-finite {bad}, {len(terms)} loss "
                                  f"terms (expected {loss_terms})")
         return {k: float(v) for k, v in metrics.items()}
@@ -3196,9 +3190,11 @@ def baseline_steps(what: str, trainer, batch, steps: int, kernels, loss_terms: i
         moved = not torch.equal(p.detach(), before[n])
         if n not in trained and moved:
             raise AssertionError(f"{what} step: the frozen {n} moved")
-        if n in reached and (not moved or not torch.isfinite(p.grad).all()):
+        if n in reached and (not moved or p.grad is None or not torch.isfinite(p.grad).all()):
             raise AssertionError(f"{what} step: {n} did not move or has no finite gradient")
     del before
+    if on_card and lora is not None:
+        check_train_launches(what, counts, model, steps, lora=lora)
     med = statistics.median(times)
     if gathers:
         gathers = gather_index_stats(lambda: model.loss(batch, generator=gen.manual_seed(99)))
@@ -3232,8 +3228,8 @@ def baseline_steps(what: str, trainer, batch, steps: int, kernels, loss_terms: i
         os.makedirs(profile_dir, exist_ok=True)
         with open(os.path.join(profile_dir, what.replace(" ", "_") + "_profile.txt"), "w") as f:
             f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
-    return dict(counts=counts, med=med, prof=prof, busy_ms=busy_ms, peak_gb=peak_gb,
-                last=last, reached=reached)
+    return dict(counts=counts, med=med, times=times, prof=prof, busy_ms=busy_ms,
+                peak_gb=peak_gb, last=last, reached=reached)
 
 
 def baseline_trainer(config, sam_file: str, device: str, options=None):
@@ -3343,13 +3339,10 @@ def baselines_train_phase(kernels, iters: int = BASELINE_STEPS, profile_dir: str
                                  "its adapters")
         out = baseline_steps("samseg_maskrcnn peft train", trainer, batch, PEFT_SEG_STEPS,
                              kernels, BASELINE_LOSS_TERMS["samseg_maskrcnn"], device=device,
-                             profile_dir=profile_dir, gathers=True)
+                             profile_dir=profile_dir, gathers=True, lora=True)
         moved_enc = {n for n in out["reached"] if n.startswith("backbone.")}
         if moved_enc != lora:
             raise AssertionError(f"samseg_maskrcnn peft: encoder tensors moved {moved_enc ^ lora}")
-        if on_card:
-            check_train_launches("samseg_maskrcnn peft train", out["counts"], model,
-                                 PEFT_SEG_STEPS, lora=True)
         log(f"samseg_maskrcnn peft train: LoRA r {peft['peft_config']['r']} alpha "
             f"{peft['peft_config']['lora_alpha']} on qkv, {peft['aggregator_type']} aggregator, "
             f"{n_lora} adapters with seeded qkv_lora_b: K12' with the adapter, C, A, C' and A' "
@@ -3584,13 +3577,15 @@ def wide_kernel_rows(dev) -> list:
     return rows
 
 
-def wide_encoder_check(arch: str, kernels, dev, seed: int = 0) -> dict:
+def wide_encoder_check(arch: str, kernels, dev, seed: int = 0,
+                       attn_impl: str = "fused") -> dict:
     """The arch's SAM encoder (fp32 parameters, seeded; its blocks run the
-    bf16 kernels) at 1024^2, batch 2: the launches of one forward, which
-    path kernel C took for the windows and the global grid, the kernels
-    against plain fp32 within ``ENCODER_TOL`` over the neck and every hidden
-    state, and plain with the rel-pos tables zeroed moved by more than twice
-    that. Returns the forward's launch counts."""
+    bf16 kernels) at 1024^2, batch 2, on the ``attn_impl`` route: the
+    launches of one forward, which path kernel C took for the windows and
+    the global grid, the kernels against plain fp32 within ``ENCODER_TOL``
+    over the neck and every hidden state, and plain with the rel-pos tables
+    zeroed moved by more than twice that. Returns the forward's launch
+    counts."""
     import torch
 
     from rsprompter_tpu_torch.apis.build import init_random_weights
@@ -3599,7 +3594,7 @@ def wide_encoder_check(arch: str, kernels, dev, seed: int = 0) -> dict:
     from rsprompter_tpu_torch.ops import fused_vit_attention as fa
 
     vcfg = sam_config(arch).vision_config
-    enc = SamVisionEncoder(vcfg)
+    enc = SamVisionEncoder(vcfg, attn_impl=attn_impl)
     init_random_weights(enc, seed)
     enc.to(dev).eval()
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -3621,7 +3616,12 @@ def wide_encoder_check(arch: str, kernels, dev, seed: int = 0) -> dict:
         for t, v in zip(tables, saved):
             t.copy_(v)
         enc.impl = "kernel"
-    check_launches(f"ViT-{arch} encoder", counts, frozen_forward_launches(enc, 1))
+    expect = frozen_forward_launches(enc, 1)
+    if attn_impl == "flash":  # torch LN1 and MLP; K12' and C
+        expect = {k: {} for k in expect}
+        expect["relpos_attention"] = expect["qkv_headmajor"] = \
+            frozen_forward_launches(enc, 1)["relpos_attention"]
+    check_launches(f"ViT-{arch} encoder ({attn_impl})", counts, expect)
     if not all(torch.isfinite(a).all() for a in (out_k[0],) + out_k[1]):
         raise AssertionError(f"ViT-{arch} encoder through the kernels: non-finite output")
     worst = worst_rel_diff(out_k, out_p)
@@ -3630,7 +3630,8 @@ def wide_encoder_check(arch: str, kernels, dev, seed: int = 0) -> dict:
     grid = vcfg.image_size // vcfg.patch_size
     win = vcfg.window_size
     log(f"ViT-{arch} encoder (C {vcfg.hidden_size}, {vcfg.num_hidden_layers} layers, "
-        f"{vcfg.num_attention_heads} heads of {d}), 1024^2, batch 2: launches of one forward "
+        f"{vcfg.num_attention_heads} heads of {d}), attn_impl={attn_impl!r}, 1024^2, "
+        f"batch 2: launches of one forward "
         f"{counts}; kernel C took its {fa.relpos_attention_route((win, win), d)} path for "
         f"the {win}x{win} windows and its {fa.relpos_attention_route((grid, grid), d)} path "
         f"for the {grid}x{grid} grid; kernels (bf16 inside) vs plain fp32: worst "
@@ -3672,6 +3673,143 @@ def widths_phase(kernels, iters: int, dev, profile_dir: str = "") -> dict:
     paths[WIDE_PATHS["huge"]] = counts
     log(f"anchor_vit_h: launches over {iters} forwards {counts}")
     log(f"phase 15: {time.time() - t_phase:.1f} s")
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 16: ViT-L and ViT-H training
+# ---------------------------------------------------------------------------
+
+# path: (config, SAM name); each at 512^2, batch 4, seeded weights
+WIDE_TRAIN = {
+    "vit_l_train_step": (TRAIN_CONFIG, "facebook/sam-vit-large"),
+    "vit_h_train_step": (TRAIN_CONFIG, "facebook/sam-vit-huge"),
+    "vit_h_peft_train_step": (PEFT_CONFIG, "facebook/sam-vit-huge"),
+}
+WIDE_TRAIN_STEPS = 3  # timed steps of each, after one warm-up
+WIDE_FLASH_PATH = "vit_h_flash_encoder"
+
+
+def k12_hd80_rows(rnd, c: int, heads: int, win: int) -> list:
+    """K12' at 16 heads of 80 alone at the shapes of the 'flash' encoder
+    check (1024^2, batch 2: 50 windows of 196, 2 images of 4096) and with
+    the adapter (r 16, K = C + 64) at the peft step's (512^2, batch 4: 36
+    windows of 196, 4 images of 1024), at the windows and the global grid,
+    against their plain versions."""
+    w, b = rnd(3 * c, c, scale=0.02), rnd(3 * c, scale=0.02)
+    adapter = (rnd(c, 16, scale=1.0 / 16), rnd(16, 3 * c, scale=LORA_B_STD), 2.0)
+    rows = []
+    for path, bsz, grid, adapt in ((WIDE_FLASH_PATH, 2, 64, None),
+                                   ("vit_h_peft_train_step", PEFT_BATCH, 32, adapter)):
+        n_win = bsz * (-(-grid // win)) ** 2  # windows of the padded grid
+        for variant, n_img, s in (("window", n_win, win * win), ("global", bsz, grid * grid)):
+            name = f"qkv_headmajor{'_lora' if adapt else ''}/{variant}@vit-h"
+            rows.append(k12_row(name, rnd(n_img * s, c), w, b, 3 * heads, n_img, variant,
+                                path, adapt))
+    return rows
+
+
+def wide_backward_rows(dev) -> list:
+    """Phase 16's kernel rows at the train steps' shapes (512^2, batch 4: T
+    = 4096 tokens, 36 windows of 196, 4 images of 1024): A' at ViT-L's (C
+    1024) and ViT-H's (C 1280) widths, B' and C' at ViT-L's 16 heads of 64
+    and ViT-H's 16 heads of 80, each against its fp32 plain version and
+    launched twice for the same bits; then K12' at head dim 80 alone and
+    with the adapter (``k12_hd80_rows``). Each row counts launches on its
+    path."""
+    import torch
+
+    from rsprompter_tpu_torch.models.sam.configs import sam_config
+
+    g = torch.Generator(device="cpu").manual_seed(16)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    def f32(args):
+        return [a.float() if torch.is_tensor(a) else a for a in args]
+
+    bsz, grid, win = PEFT_BATCH, 32, 14
+    t, n_win = bsz * grid * grid, bsz * (-(-grid // win)) ** 2
+    rows = []
+    for arch, path in (("large", "vit_l_train_step"), ("huge", "vit_h_train_step")):
+        v = sam_config(arch).vision_config
+        c, heads, tag = v.hidden_size, v.num_attention_heads, f"@vit-{arch[0]}"
+        ln_w, ln_b = 1 + rnd(c, scale=0.1, dtype=torch.float32), rnd(c, scale=0.1,
+                                                                     dtype=torch.float32)
+        arch_rows = [a_prime_row(rnd, f32, t, c, 4 * c, ln_w, ln_b, tag)]
+        torch.cuda.empty_cache()
+        arch_rows += b_prime_rows(rnd, f32, bsz, grid, c, heads, win, n_win, ln_w, ln_b, tag)
+        arch_rows += c_prime_rows(rnd, bsz, grid, heads, win, n_win, c // heads, tag)
+        rows += [dict(r, path=path) for r in arch_rows]
+        torch.cuda.empty_cache()
+    v = sam_config("huge").vision_config
+    rows += k12_hd80_rows(rnd, v.hidden_size, v.num_attention_heads, win)
+    log_rows(rows, "max|plain| per output")
+    return rows
+
+
+def wide_train_step(path: str, config: str, sam_name: str, kernels, steps: int,
+                    device: str = "cuda") -> dict:
+    """One of phase 16's train steps: ``build_trainer`` on ``config`` with
+    ``hf_sam_pretrain_name`` = ``sam_name`` and seeded weights (no L/H
+    file), a synthetic batch of 4 at the config's crop, then
+    ``baseline_steps`` (one warm-up, ``steps`` timed steps, their gates and
+    exact launch counts, s/step, peak memory, a profiled step's busy time and
+    idle share), then phase 6's gradient check with the encoder alone held
+    to the floor rule (``gradient_phase(encoder_floor=True)``). Returns the
+    launch counts of the timed steps. (``device='cpu'`` rehearses it on a
+    tiny config, without the launch checks.)"""
+    import torch
+
+    from rsprompter_tpu_torch.core.config import Config
+    from rsprompter_tpu_torch.engine.train_state import build_trainer
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_batch
+
+    t0 = time.time()
+    cfg = Config.fromfile(config) if isinstance(config, str) else config
+    cfg.merge_from_options({"model.hf_sam_pretrain_name": sam_name,
+                            "model.hf_sam_pretrain_ckpt_path": None})
+    peft = cfg["model"].get("peft_config") is not None
+    trainer = build_trainer(cfg, device=device, seed=0, steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    model, opt = trainer.model, trainer.optimizer
+    vcfg = model.backbone.config
+    if peft:
+        seed_lora_b(model, seed=3)
+    trained = {n for n, _ in opt.trained}
+    size = tuple(cfg["crop_size"])
+    batch = {k: torch.as_tensor(v, device=device) for k, v in synthetic_batch(
+        PEFT_BATCH, size, cfg["model"]["num_classes"], max_gt=8, seed=0).items()}
+    d = vcfg.hidden_size // vcfg.num_attention_heads
+    what = ("peft (LoRA r 16 on qkv, pseudo aggregator)" if peft
+            else "scratch (encoder and decoder trained)")
+    log(f"{path}: RSPrompter-anchor {what}, {sam_name} (C {vcfg.hidden_size}, "
+        f"{vcfg.num_hidden_layers} layers, {vcfg.num_attention_heads} heads of {d}), seeded "
+        f"weights, {size[0]}x{size[1]}, batch {PEFT_BATCH}, bf16 compute, fp32 master weights")
+    run = baseline_steps(path, trainer, batch, steps, kernels, unreached_ok=(UNREACHED,),
+                         device=device, lora=peft)
+    if peft and {n for n in run["reached"] if n.startswith("backbone")} != {
+            n for n in trained if "qkv_lora" in n}:
+        raise AssertionError(f"{path}: the encoder's trained tensors are not its adapters")
+    gen = torch.Generator(device=device)
+    gradient_phase(model, opt, lambda: model.loss(batch, generator=gen.manual_seed(7)),
+                   only=trained if peft else None, encoder_floor=True)
+    del trainer, model, opt, batch
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"{path}: {time.time() - t0:.1f} s")
+    return run["counts"]
+
+
+def wide_train_phase(kernels, steps: int, dev) -> dict:
+    """Phase 16: the ViT-H encoder on the 'flash' route against plain fp32
+    (K12' and C at head dim 80), then the three train steps of
+    ``WIDE_TRAIN``. Returns the launch counts of each path."""
+    t_phase = time.time()
+    paths = {WIDE_FLASH_PATH: wide_encoder_check("huge", kernels, dev, attn_impl="flash")}
+    for path, (config, sam_name) in WIDE_TRAIN.items():
+        paths[path] = wide_train_step(path, config, sam_name, kernels, steps)
+    log(f"phase 16: {time.time() - t_phase:.1f} s")
     return paths
 
 
@@ -3728,6 +3866,8 @@ def main() -> int:
     rows += baseline_rows
     rows += wide_kernel_rows(dev)
     paths.update(widths_phase(kernels, args.iters, dev, args.profile_dir))
+    rows += wide_backward_rows(dev)
+    paths.update(wide_train_phase(kernels, WIDE_TRAIN_STEPS, dev))
     out = []
     for r in rows:
         name, variant = r["kernel"].name, r["variant"]

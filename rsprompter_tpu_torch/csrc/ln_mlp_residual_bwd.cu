@@ -14,6 +14,14 @@
 // the two weight gradients and dh W1), 96.6 GFLOP, about 98 us at 989
 // TFLOP/s bf16; the bytes it must move (x, dO, dx, 9.4 MB of weights in and
 // 9.4 MB of bf16 weight gradients out) take about 8 us: operations bound it.
+// At ViT-L (C = 1024, M = 4096) the five products are 172 GFLOP (174 us), at
+// ViT-H (C = 1280, M = 5120) 268 GFLOP (271 us), operations-bound too.
+//
+// Widths: C = 768, 1024 or 1280 (V = C / 256 = 3, 4, 5 columns of 256 per
+// row-kernel lane; the products take any multiple of 256). The LN backward's
+// per-block column sums live in one shared row that the block's warps add
+// to in warp order (ln_rows_bwd.cuh): 3 x 1280 fp32 fits static shared
+// memory, where a row per warp would not.
 //
 // Design: the TPU kernel sweeps token blocks in order and accumulates the
 // weight gradients in resident VMEM; on the card blocks run in no order, so
@@ -260,34 +268,17 @@ cudaError_t launch_f32(const void* a, const void* b, float* out, int rows, int c
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Kernel A'. Inputs: x (T, C), dout (T, C), w1 (M, C), b1 (M), w2 (C, M)
-// bf16; gamma, beta (C) fp32. Outputs: dx (T, C), dw1 (M, C), db1 (M), dw2
-// (C, M), db2 (C) bf16; dgamma, dbeta (C) fp32. Scratch: z_ws (T, C) bf16,
-// stats_ws (2, T) fp32, hg_ws and dh_ws (T, M) bf16, dz_ws (T, C) fp32,
-// part_ws (ceil(T / 128) * M + ceil(T / 16) * 3 C) fp32. C = 768; M a
-// multiple of 256.
-extern "C" int rsp_ln_mlp_residual_bwd(
-    const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
-    const void* w2, const void* dout, void* dx, void* dgamma, void* dbeta, void* dw1,
-    void* db1, void* dw2, void* db2, void* z_ws, void* stats_ws, void* hg_ws, void* dh_ws,
-    void* dz_ws, void* part_ws, int T, int C, int M, float eps, void* stream) {
-  constexpr int V = 3;
-  if (C != 256 * V || M % 256 != 0 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* dob = static_cast<const bf16*>(dout);
-  const float* ga = static_cast<const float*>(gamma);
-  bf16* z = static_cast<bf16*>(z_ws);
-  float* mu = static_cast<float*>(stats_ws);
+// Every launch of A' at C = 256 V (the row kernels' width).
+template <int V>
+cudaError_t run(const bf16* xb, const float* ga, const float* beta, const bf16* w1,
+                const bf16* b1, const bf16* w2, const bf16* dob, bf16* dx, float* dgamma,
+                float* dbeta, bf16* dw1, bf16* db1, bf16* dw2, bf16* db2, bf16* z, float* mu,
+                bf16* hg, bf16* dh, float* dz, float* db1_part, int T, int M, float eps,
+                cudaStream_t s) {
+  constexpr int C = 256 * V;
   float* rstd = mu + T;
-  bf16* hg = static_cast<bf16*>(hg_ws);
-  bf16* dh = static_cast<bf16*>(dh_ws);
-  float* dz = static_cast<float*>(dz_ws);
   const int p1 = (T + BM - 1) / BM;
   const int p2 = (T + rsp::LNB_ROWS - 1) / rsp::LNB_ROWS;
-  float* db1_part = static_cast<float*>(part_ws);
   float* row_part = db1_part + (size_t)p1 * M;
 
   // operand maps, each read as stored: K-major (K) or MN-major (MN)
@@ -302,43 +293,71 @@ extern "C" int rsp_ln_mlp_residual_bwd(
       !MNA::make_map(&g_maps[0], dob, T, C) || !MNB::make_map(&g_maps[1], hg, T, M) ||
       !MNA::make_map(&g_maps[2], dh, T, M) || !MNB::make_map(&g_maps[3], z, T, C) ||
       !KA::make_map(&g_maps[4], dh, T, M) || !MNB::make_map(&g_maps[5], w1, M, C))
-    return static_cast<int>(cudaErrorNotSupported);
+    return cudaErrorNotSupported;
   cudaError_t err;
 
   using rsp::ROW_WARPS;
   rsp::ln_stats_kernel<V><<<(T + ROW_WARPS - 1) / ROW_WARPS, ROW_WARPS * 32, 0, s>>>(
-      xb, ga, static_cast<const float*>(beta), z, mu, rstd, T, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+      xb, ga, beta, z, mu, rstd, T, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   constexpr int h_smem = rsp::GemmTile<false, false, 256>::SMEM;
-  if ((err = prepare(hidden_kernel, h_smem)) != cudaSuccess) return static_cast<int>(err);
-  hidden_kernel<<<dim3(M / 256, p1), THREADS, h_smem, s>>>(
-      h_maps[0], h_maps[1], static_cast<const bf16*>(b1), hg, T, M, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = prepare(hidden_kernel, h_smem)) != cudaSuccess) return err;
+  hidden_kernel<<<dim3(M / 256, p1), THREADS, h_smem, s>>>(h_maps[0], h_maps[1], b1, hg, T,
+                                                            M, C);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  if ((err = prepare(dh_kernel, DhTile::SMEM)) != cudaSuccess) return static_cast<int>(err);
+  if ((err = prepare(dh_kernel, DhTile::SMEM)) != cudaSuccess) return err;
   dh_kernel<<<dim3(M / DhTile::BN, p1), THREADS, DhTile::SMEM, s>>>(
       dh_maps[0], dh_maps[1], dh_maps[2], hg, dh, db1_part, T, M, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
+  // C / 128 and C / 256 tiles: C = 256 V
   constexpr int g_smem = rsp::GemmTile<true, true, 256>::SMEM;
   static_assert(rsp::GemmTile<false, true, 128>::SMEM <= g_smem, "the dz tiles fit");
   const int g_blocks = (C / BM) * (M / 256) + (M / BM) * (C / 256) + p1 * (C / 128);
-  if ((err = prepare(grads_kernel, g_smem)) != cudaSuccess) return static_cast<int>(err);
-  grads_kernel<<<g_blocks, THREADS, g_smem, s>>>(
-      g_maps[0], g_maps[1], g_maps[2], g_maps[3], g_maps[4], g_maps[5],
-      static_cast<bf16*>(dw2), static_cast<bf16*>(dw1), dz, T, C, M);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = prepare(grads_kernel, g_smem)) != cudaSuccess) return err;
+  grads_kernel<<<g_blocks, THREADS, g_smem, s>>>(g_maps[0], g_maps[1], g_maps[2], g_maps[3],
+                                                 g_maps[4], g_maps[5], dw2, dw1, dz, T, C, M);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   rsp::ln_bwd_rows_kernel<V, true><<<p2, rsp::LNB_WARPS * 32, 0, s>>>(
-      xb, dz, ga, dob, mu, rstd, static_cast<bf16*>(dx), row_part, T);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+      xb, dz, ga, dob, mu, rstd, dx, row_part, T);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   using rsp::BS_COLS;
   rsp::bias_sums_kernel<<<(M + 3 * C + BS_COLS - 1) / BS_COLS, BS_COLS * rsp::BS_GROUPS, 0, s>>>(
-      db1_part, p1, M, static_cast<bf16*>(db1), row_part, p2, C, 3,
-      static_cast<float*>(dgamma), static_cast<float*>(dbeta), static_cast<bf16*>(db2));
-  return static_cast<int>(cudaGetLastError());
+      db1_part, p1, M, db1, row_part, p2, C, 3, dgamma, dbeta, db2);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Kernel A'. Inputs: x (T, C), dout (T, C), w1 (M, C), b1 (M), w2 (C, M)
+// bf16; gamma, beta (C) fp32. Outputs: dx (T, C), dw1 (M, C), db1 (M), dw2
+// (C, M), db2 (C) bf16; dgamma, dbeta (C) fp32. Scratch: z_ws (T, C) bf16,
+// stats_ws (2, T) fp32, hg_ws and dh_ws (T, M) bf16, dz_ws (T, C) fp32,
+// part_ws (ceil(T / 128) * M + ceil(T / 16) * 3 C) fp32. C = 768, 1024 or
+// 1280 (ViT-B, ViT-L, ViT-H); M a multiple of 256.
+extern "C" int rsp_ln_mlp_residual_bwd(
+    const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
+    const void* w2, const void* dout, void* dx, void* dgamma, void* dbeta, void* dw1,
+    void* db1, void* dw2, void* db2, void* z_ws, void* stats_ws, void* hg_ws, void* dh_ws,
+    void* dz_ws, void* part_ws, int T, int C, int M, float eps, void* stream) {
+  if ((C != 768 && C != 1024 && C != 1280) || M % 256 != 0 || T < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Run = decltype(&run<3>);
+  constexpr Run runs[3] = {run<3>, run<4>, run<5>};
+  return static_cast<int>(runs[C / 256 - 3](
+      static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const bf16*>(w1),
+      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dx), static_cast<float*>(dgamma),
+      static_cast<float*>(dbeta), static_cast<bf16*>(dw1), static_cast<bf16*>(db1),
+      static_cast<bf16*>(dw2), static_cast<bf16*>(db2), static_cast<bf16*>(z_ws),
+      static_cast<float*>(stats_ws), static_cast<bf16*>(hg_ws), static_cast<bf16*>(dh_ws),
+      static_cast<float*>(dz_ws), static_cast<float*>(part_ws), T, M, eps,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // A' 's mainloop alone, for the tests of its operand layouts: out (rows,

@@ -1,5 +1,6 @@
 // Kernel B': backward of LayerNorm -> qkv projection -> head-major
-// (N, 3n, S, 64), for the global and the windowed row maps of kernel B.
+// (N, 3n, S, d), d = 64 (ViT-B, ViT-L) or 80 (ViT-H), for the global and
+// the windowed row maps of kernel B.
 //
 // Replaces two TPU kernels: rsprompter_tpu/ops/fused_mlp.py:
 // _ln_qkv_bwd_kernel (global layers, through _ln_qkv_bwd_pallas) and
@@ -18,12 +19,18 @@
 // Bound on the H100 at ViT-B, 512^2, batch 4: both variants are
 // 2 x 2*4096*768*2304 = 29.0 GFLOP (29 us at 989 TFLOP/s bf16); the bytes
 // (x, dy, dx, 3.5 MB of weight in and 3.5 MB of bf16 weight gradient out)
-// take 10-14 us: operations bound both.
+// take 10-14 us: operations bound both. At ViT-H (C = 1280, 16 heads of
+// 80, K3 = 3840) both are 2 x 2*4096*1280*3840 = 80.5 GFLOP (81 us); the
+// window variant's dy holds 36 x 196 = 7056 rows, a pass over 54 MB more.
+// At head dim 80 JAX has no kernel (XLA computes LN + qkv and its
+// backward); B' takes those heads as it takes 64-wide ones: the dy copy
+// moves ten 16-byte chunks a head row instead of eight, and the products
+// see only K3 = 3n d.
 //
 // Design: kernel A''s launch structure (ln_mlp_residual_bwd.cu) with B''s
 // products, its row kernels shared through ln_rows_bwd.cuh; no atomics, no
 // split of K, every sum in a fixed order (the same bits from run to run):
-//  1. dy_tokens: dy (N, 3n, S, 64) copied to dy_t, the (T, 3C) token-major
+//  1. dy_tokens: dy (N, 3n, S, d) copied to dy_t, the (T, 3C) token-major
 //     matrix (row t = token t; window pad rows are not written), 16 bytes a
 //     thread, and the partial column sums of every dy row, pad rows
 //     included, per 64-row block (db's partials). A window's 196 rows do not
@@ -50,21 +57,23 @@ constexpr int BM = rsp::GEMM_TILE_M;
 constexpr int BK = rsp::GEMM_TILE_K;
 constexpr int THREADS = rsp::GEMM_THREADS_WS;
 constexpr int DY_ROWS = 64;     // dy_tokens: rows per block (one db partial)
-constexpr int DY_GROUPS = 16;   // ... row groups of 8 threads (one head's 128 bytes)
+constexpr int DY_GROUPS = 16;   // ... row groups of d / 8 threads (one head row)
 constexpr int MAX_V = 5;        // C = 256 V up to 1280 (ViT-H)
 
 // 1. Block (row block, head h): rows 64 blockIdx.x .. + 63 of dy's (N*S, 3n *
-// 64) matrix, columns 64 h .. + 63. Thread (group g, chunk u) copies 16
-// bytes of rows g, g + 16, .. and sums them; the 16 groups' sums are then
-// added in group order.
-__global__ void __launch_bounds__(DY_GROUPS * 8) dy_tokens_kernel(
+// D) matrix, columns D h .. + D - 1 (D = 64 or 80: 8 or 10 16-byte chunks a
+// head row). Thread (group g, chunk u) copies 16 bytes of rows g, g + 16, ..
+// and sums them; the 16 groups' sums are then added in group order.
+template <int D>
+__global__ void __launch_bounds__(DY_GROUPS * D / 8) dy_tokens_kernel(
     const bf16* __restrict__ dy, bf16* __restrict__ dy_t, float* __restrict__ db_part,
     int rows, int S, int heads3, int H, int W, int window, int nwx, int nwin) {
-  __shared__ float red[DY_GROUPS][64];
+  constexpr int U = D / 8;  // 16-byte chunks of a head row
+  __shared__ float red[DY_GROUPS][D];
   const int h = blockIdx.y;
-  const int u = threadIdx.x % 8;
-  const int g = threadIdx.x / 8;
-  const int K3 = heads3 * 64;
+  const int u = threadIdx.x % U;
+  const int g = threadIdx.x / U;
+  const int K3 = heads3 * D;
   float cs[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) cs[e] = 0.f;
@@ -75,7 +84,7 @@ __global__ void __launch_bounds__(DY_GROUPS * 8) dy_tokens_kernel(
     const int n = r / S;
     const int s = r - n * S;
     const uint4 raw =
-        *reinterpret_cast<const uint4*>(dy + (((size_t)n * heads3 + h) * S + s) * 64 + 8 * u);
+        *reinterpret_cast<const uint4*>(dy + (((size_t)n * heads3 + h) * S + s) * D + 8 * u);
     const bf16* v = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
     for (int e = 0; e < 8; ++e) cs[e] += rsp::to_f(v[e]);
@@ -87,16 +96,16 @@ __global__ void __launch_bounds__(DY_GROUPS * 8) dy_tokens_kernel(
       const int gx = (wi % nwx) * window + s % window;
       t = (gy < H && gx < W) ? (b * H + gy) * W + gx : -1;  // -1: a pad row
     }
-    if (t >= 0) *reinterpret_cast<uint4*>(dy_t + (size_t)t * K3 + 64 * h + 8 * u) = raw;
+    if (t >= 0) *reinterpret_cast<uint4*>(dy_t + (size_t)t * K3 + D * h + 8 * u) = raw;
   }
 #pragma unroll
   for (int e = 0; e < 8; ++e) red[g][8 * u + e] = cs[e];
   __syncthreads();
-  if (threadIdx.x >= 64) return;
+  if (threadIdx.x >= D) return;
   float s = 0.f;
 #pragma unroll
   for (int q = 0; q < DY_GROUPS; ++q) s += red[q][threadIdx.x];
-  db_part[(size_t)blockIdx.x * K3 + 64 * h + threadIdx.x] = s;
+  db_part[(size_t)blockIdx.x * K3 + D * h + threadIdx.x] = s;
 }
 
 // 3. The products, one launch: the first blocks dW = dy_t^T z (K3 x C), a
@@ -128,7 +137,8 @@ __global__ void __launch_bounds__(THREADS, 1) products_kernel(
   const int m0 = (u / (C / 128)) * BM;
   const int n0 = (u % (C / 128)) * 128;
   float acc[64];
-  if (!rsp::gemm_mainloop<false, true, 128>(smem, &dy_k, &w_mn, m0, n0, 0, K3 / BK, acc))
+  if (!rsp::gemm_mainloop<false, true, 128>(smem, &dy_k, &w_mn, m0, n0, 0,
+                                            (K3 + BK - 1) / BK, acc))
     return;
   if (dx == nullptr) {
     rsp::store_f32<128>(acc, dz, T, C, m0, n0);
@@ -143,10 +153,10 @@ template <int V>
 cudaError_t run(const bf16* x, const float* gamma, const float* beta, const bf16* w,
                 const bf16* dy, bf16* dx, float* dgamma, float* dbeta, bf16* dw, bf16* db,
                 bf16* dy_t, bf16* z_ws, float* mu, float* dz, float* part, int B, int H, int W,
-                int heads3, int window, float eps, cudaStream_t s) {
+                int heads3, int d, int window, float eps, cudaStream_t s) {
   constexpr int C = 256 * V;
   const int T = B * H * W;
-  const int K3 = heads3 * 64;
+  const int K3 = heads3 * d;
   int S = H * W, N = B, nwx = 1, nwin = 1;
   if (window != 0) {
     nwx = (W + window - 1) / window;
@@ -172,8 +182,12 @@ cudaError_t run(const bf16* x, const float* gamma, const float* beta, const bf16
     return cudaErrorNotSupported;
   cudaError_t err;
 
-  dy_tokens_kernel<<<dim3(p1, heads3), DY_GROUPS * 8, 0, s>>>(dy, dy_t, db_part, N * S, S,
-                                                              heads3, H, W, window, nwx, nwin);
+  if (d == 64)
+    dy_tokens_kernel<64><<<dim3(p1, heads3), DY_GROUPS * 8, 0, s>>>(
+        dy, dy_t, db_part, N * S, S, heads3, H, W, window, nwx, nwin);
+  else
+    dy_tokens_kernel<80><<<dim3(p1, heads3), DY_GROUPS * 10, 0, s>>>(
+        dy, dy_t, db_part, N * S, S, heads3, H, W, window, nwx, nwin);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   if (ln) {
@@ -208,20 +222,21 @@ cudaError_t run(const bf16* x, const float* gamma, const float* beta, const bf16
 
 }  // namespace
 
-// Kernel B'. Inputs: x (B, H, W, C), w (heads3 * 64, C) bf16, dy (N,
-// heads3, S, 64) bf16 (N = B, S = H W; with a window N = B * windows, S =
+// Kernel B'. Inputs: x (B, H, W, C), w (heads3 * d, C) bf16, dy (N,
+// heads3, S, d) bf16 (N = B, S = H W; with a window N = B * windows, S =
 // window^2); gamma, beta (C) fp32, both null without LN. Outputs: dx (B, H,
-// W, C), dw (heads3 * 64, C), db (heads3 * 64) bf16; dgamma, dbeta (C) fp32
-// (untouched without LN). Scratch: dyt_ws (T, heads3 * 64) bf16, z_ws (T, C)
+// W, C), dw (heads3 * d, C), db (heads3 * d) bf16; dgamma, dbeta (C) fp32
+// (untouched without LN). Scratch: dyt_ws (T, heads3 * d) bf16, z_ws (T, C)
 // bf16, stats_ws (2, T) fp32, dz_ws (T, C) fp32, part_ws (ceil(N S / 64) *
-// heads3 * 64 + ceil(T / 16) * 2 C) fp32, T = B H W. C a multiple of 256 up
-// to 1280.
+// heads3 * d + ceil(T / 16) * 2 C) fp32, T = B H W. C a multiple of 256 up
+// to 1280, d = 64 or 80.
 extern "C" int rsp_ln_qkv_headmajor_bwd(
     const void* x, const void* gamma, const void* beta, const void* w, const void* dy,
     void* dx, void* dgamma, void* dbeta, void* dw, void* db, void* dyt_ws, void* z_ws,
     void* stats_ws, void* dz_ws, void* part_ws, int B, int H, int W, int C, int heads3,
-    int window, float eps, void* stream) {
-  if (C % 256 != 0 || C < 256 || C > 256 * MAX_V || heads3 < 1 || B * H * W < 1)
+    int d, int window, float eps, void* stream) {
+  if (C % 256 != 0 || C < 256 || C > 256 * MAX_V || heads3 < 1 || B * H * W < 1 ||
+      (d != 64 && d != 80))
     return static_cast<int>(cudaErrorInvalidValue);
   using Run = decltype(&run<1>);
   constexpr Run runs[MAX_V] = {run<1>, run<2>, run<3>, run<4>, run<5>};
@@ -231,6 +246,6 @@ extern "C" int rsp_ln_qkv_headmajor_bwd(
       static_cast<bf16*>(dx), static_cast<float*>(dgamma), static_cast<float*>(dbeta),
       static_cast<bf16*>(dw), static_cast<bf16*>(db), static_cast<bf16*>(dyt_ws),
       static_cast<bf16*>(z_ws), static_cast<float*>(stats_ws), static_cast<float*>(dz_ws),
-      static_cast<float*>(part_ws), B, H, W, heads3, window, eps,
+      static_cast<float*>(part_ws), B, H, W, heads3, d, window, eps,
       static_cast<cudaStream_t>(stream)));
 }

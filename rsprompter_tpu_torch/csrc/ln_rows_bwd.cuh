@@ -141,7 +141,8 @@ __global__ void __launch_bounds__(ROW_WARPS * 32) ln_stats_kernel(
 
 // dx = bf16(rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) [+ dO]),
 // dxhat = dz gamma, one warp per row; part[block] = the block's LNB_ROWS rows
-// of dz * xhat, dz [and dO] summed in row order per column (2 C [3 C] wide).
+// of dz * xhat, dz [and dO] summed in row order per column (2 C [3 C] wide):
+// each warp's rows in order, then the warps in order.
 // RES: the layer has a residual, whose dO adds to dx (A').
 template <int V, bool RES>
 __global__ void __launch_bounds__(LNB_WARPS * 32) ln_bwd_rows_kernel(
@@ -152,8 +153,10 @@ __global__ void __launch_bounds__(LNB_WARPS * 32) ln_bwd_rows_kernel(
   constexpr int C = 256 * V;
   constexpr int NS = RES ? 3 : 2;  // column sums per block
   constexpr int PER_WARP = LNB_ROWS / LNB_WARPS;
-  static_assert(LNB_WARPS * NS * C * 4 <= 48 * 1024, "static shared memory");
-  __shared__ __align__(16) float red[LNB_WARPS][NS * C];
+  // one row of sums, which the warps add to in warp order (a buffer per
+  // warp would exceed static shared memory at C = 1280 with the residual)
+  static_assert(NS * C * 4 <= 48 * 1024, "static shared memory");
+  __shared__ __align__(16) float red[NS * C];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   float pg[V][8], pb[V][8], pd[V][8];
@@ -206,23 +209,24 @@ __global__ void __launch_bounds__(LNB_WARPS * 32) ln_bwd_rows_kernel(
       store8(dx + (size_t)row * C + c, y);
     }
   }
+  // 0 + warp 0 + warp 1 + ..., each column in the same order every run
+  for (int w = 0; w < LNB_WARPS; ++w) {
+    if (warp == w) {
 #pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const int c = 256 * i + 8 * lane;
+      for (int i = 0; i < V; ++i) {
+        const int c = 256 * i + 8 * lane;
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      red[warp][c + u] = pg[i][u];
-      red[warp][C + c + u] = pb[i][u];
-      if constexpr (RES) red[warp][2 * C + c + u] = pd[i][u];
+        for (int u = 0; u < 8; ++u) {
+          red[c + u] = (w == 0 ? 0.f : red[c + u]) + pg[i][u];
+          red[C + c + u] = (w == 0 ? 0.f : red[C + c + u]) + pb[i][u];
+          if constexpr (RES) red[2 * C + c + u] = (w == 0 ? 0.f : red[2 * C + c + u]) + pd[i][u];
+        }
+      }
     }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < NS * C; e += LNB_WARPS * 32) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < LNB_WARPS; ++w) s += red[w][e];
-    part[(size_t)blockIdx.x * NS * C + e] = s;
-  }
+  for (int e = threadIdx.x; e < NS * C; e += LNB_WARPS * 32)
+    part[(size_t)blockIdx.x * NS * C + e] = red[e];
 }
 
 // bias = the column sums of bias_part (p1 rows of M), and dgamma, dbeta

@@ -21,15 +21,16 @@ The config key ``attn_impl`` picks the block's route, as in JAX
   JAX's ``'fused'`` block runs XLA attention (its Pallas attention and LN +
   qkv kernels take 64 only) beside its MLP kernel; the port runs kernels B
   and C there too, the same LN1 -> qkv -> rel-pos attention judged at the
-  module boundary. The backwards A', B', C' take ViT-B's widths, so a
-  ViT-L/H block on the card predicts and does not yet train.
+  module boundary. The backwards A', B', C' take the same widths, so a
+  ViT-L/H block on the card trains as a ViT-B one does.
 * ``'flash'`` (JAX's non-fused block, ``vision_encoder.py:355-369`` and
   ``:452-456``): plain LN1, the explicit window partition zero-padded after
   LN1, kernel K12' (``ops.fused_mlp.qkv_headmajor``) for qkv, the rel-pos
   factors in fp32 cast to q's dtype, kernel C in the place of JAX's flash
   kernel (``flash_attention_rel_pos``), proj, unpartition, residual, then
   LN2 and ``MLPBlock`` in torch (JAX runs them outside any Pallas kernel on
-  this route). K12''s backward is plain torch products, as in JAX.
+  this route). K12''s backward is plain torch products, as in JAX. K12'
+  and C take heads of 64 and 80, so the route runs at every SAM width.
 
 ``lora_rank > 0`` (the peft configs: r 16, alpha 32 on ``qkv``) adds JAX's
 low-rank adapter to every block's qkv, ``qkv_lora_a`` (C, r) and

@@ -11,8 +11,8 @@ bias and the residual (counted as ``LN_MLP_RESIDUAL`` variants ``fc1`` and
 ``fc2``); the (T, 4C) hidden activation goes through device memory in bf16,
 at the rounding point JAX's kernel has (see the source note). It takes the
 SAM widths C = 768, 1024 and 1280 (ViT-B, ViT-L, ViT-H) with M = 4 C
-(``MLP_WIDTHS``). Its backward
-A' (``csrc/ln_mlp_residual_bwd.cu``) replaces ``_mlp_bwd_kernel``: one
+(``MLP_WIDTHS``), and so does its backward A'
+(``csrc/ln_mlp_residual_bwd.cu``), which replaces ``_mlp_bwd_kernel``: one
 entry point, counted once per call as ``LN_MLP_RESIDUAL_BWD``, that makes
 six device launches, its five products on kernel A's TMA + wgmma mainloop
 (``csrc/wgmma_gemm.cuh``) with each operand read as stored, K-major or
@@ -32,13 +32,16 @@ projection there). Its backward B' (``csrc/ln_qkv_headmajor_bwd.cu``) replaces
 counted once per call as ``LN_QKV_HEADMAJOR_BWD``, that makes five device
 launches (a copy of dy to token-major rows, then A''s row kernels around one
 launch of both products on the same mainloop) and takes C a multiple of 256
-and heads of 64; A' takes C = 768 (``MLP_BWD_WIDTHS``).
+up to 1280 and heads of 64 or 80 (at head dim 80 it is judged against JAX's
+autodiff of its XLA route).
 
 Kernel K12', ``qkv_headmajor`` (the same GEMM), replaces
 ``_qkv_pair_kernel`` (``fused_qkv_pair``): flat tokens (N*S, C) -> x.W + b
-head-major (N, 3n, S, 64), heads of 64 only. The encoder's ``'flash'``
-route runs it. Its backward is plain torch products on every device, as JAX's
-``_qkv_pair_bwd_vjp`` leaves it to XLA.
+head-major (N, 3n, S, d), heads of 64 or 80 (``QKV_HEAD_DIMS``; JAX's
+kernel takes 64 and XLA projects ViT-H's 80-wide heads). The encoder's
+``'flash'`` route runs it, and the LoRA route with the adapter folded into
+its K (``qkv_headmajor_lora``, K = C + 64). Its backward is plain torch
+products on every device, as JAX's ``_qkv_pair_bwd_vjp`` leaves it to XLA.
 
 The public functions are ``torch.autograd.Function``s: their forward is the
 kernel, their backward the backward kernel, for CUDA tensors; for tensors on
@@ -92,15 +95,14 @@ QKV_HEADMAJOR = CudaKernel(
     "qkv_headmajor", "ln_qkv_headmajor.cu", "rsp_qkv_headmajor",
     [_P] * 4 + [_I] * 5 + [_P],
 )
-# the widths each kernel takes on the card: kernel A's C (its M is 4 C), kernel
-# B's head dim; their backwards A' and B' take ViT-B's
+# the widths each kernel takes on the card, its backward too: kernel A's C
+# (its M is 4 C), kernel B's and K12''s head dim (ViT-B, ViT-L, ViT-H)
 MLP_WIDTHS = (768, 1024, 1280)
-MLP_BWD_WIDTHS = (768,)
 QKV_HEAD_DIMS = (64, 80)
 # B': one count per call (five device launches inside, three without LN)
 LN_QKV_HEADMAJOR_BWD = CudaKernel(
     "ln_qkv_headmajor_bwd", "ln_qkv_headmajor_bwd.cu", "rsp_ln_qkv_headmajor_bwd",
-    [_P] * 15 + [_I] * 6 + [_F, _P],
+    [_P] * 15 + [_I] * 7 + [_F, _P],
 )
 _NULL = ctypes.c_void_p(None)
 _DY_PART_ROWS = 64  # B''s dy pass: rows per partial column sum of db
@@ -188,12 +190,13 @@ def ln_mlp_residual_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, dout,
             db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype))
 
 
-def _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2, widths=MLP_WIDTHS):
+def _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2):
+    """Kernel A's (and A''s) arguments; raise on any width they do not take."""
     t, c = x.shape
     m = w1.shape[0]
-    if c not in widths or m != 4 * c:
+    if c not in MLP_WIDTHS or m != 4 * c:
         raise ValueError(f"ln_mlp_residual: unsupported widths C={c}, M={m} "
-                         f"(C one of {widths}, M = 4 C)")
+                         f"(C one of {MLP_WIDTHS}, M = 4 C)")
     bf = torch.bfloat16
     check_cuda_tensor("x", x, bf, (t, c))
     check_cuda_tensor("ln_w", ln_w, torch.float32, (c,))
@@ -225,7 +228,7 @@ def ln_mlp_residual_bwd(x, ln_w, ln_b, w1, b1, w2, b2, dout, eps: float = 1e-6):
     gradients of :func:`ln_mlp_residual` given dO."""
     if x.device.type == "cpu":
         return ln_mlp_residual_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, dout, eps)
-    t, c, m = _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2, MLP_BWD_WIDTHS)
+    t, c, m = _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2)
     check_cuda_tensor("dout", dout, torch.bfloat16, (t, c))
     f32, bf = torch.float32, torch.bfloat16
     parts = -(-t // 128) * m + -(-t // 16) * 3 * c  # db1's, then dgamma/dbeta/db2's
@@ -398,20 +401,21 @@ def _qkv_rows(x, heads3: int, window: int):
     return bsz, hh * ww
 
 
-def _head_dim(w, heads3: int, dims, what: str) -> int:
+def _head_dim(w, heads3: int, what: str) -> int:
     """The head dim of a qkv weight (heads3 * d, C); raise unless d is one
-    of ``dims``."""
+    of ``QKV_HEAD_DIMS``."""
     d = w.shape[0] // heads3
-    if d not in dims or w.shape[0] != heads3 * d:
-        raise ValueError(f"{what}: head dim {w.shape[0]} / {heads3} is not one of {dims}")
+    if d not in QKV_HEAD_DIMS or w.shape[0] != heads3 * d:
+        raise ValueError(f"{what}: head dim {w.shape[0]} / {heads3} is not one of "
+                         f"{QKV_HEAD_DIMS}")
     return d
 
 
-def _check_qkv_args(x, ln_w, ln_b, w, b, heads3, dims=QKV_HEAD_DIMS):
-    """Kernel B's (and B''s, with ``dims`` (64,)) arguments; returns d."""
+def _check_qkv_args(x, ln_w, ln_b, w, b, heads3):
+    """Kernel B's (and B''s) arguments; returns d."""
     bsz, hh, ww, c = x.shape
     bf = torch.bfloat16
-    d = _head_dim(w, heads3, dims, "ln_qkv_headmajor")
+    d = _head_dim(w, heads3, "ln_qkv_headmajor")
     check_cuda_tensor("x", x, bf, (bsz, hh, ww, c))
     check_cuda_tensor("w", w, bf, (heads3 * d, c))
     check_cuda_tensor("b", b, bf, (heads3 * d,))
@@ -445,16 +449,16 @@ def _ln_qkv_headmajor_fwd(x, ln_w, ln_b, w, b, heads3, window, eps):
 def ln_qkv_headmajor_bwd(x, ln_w, ln_b, w, b, dy, heads3: int, window: int = 0,
                          eps: float = 1e-6):
     """Kernel B' on CUDA tensors (the plain backward on the CPU): the
-    gradients of :func:`ln_qkv_headmajor` given dy (N, heads3, S, 64)."""
+    gradients of :func:`ln_qkv_headmajor` given dy (N, heads3, S, d)."""
     if x.device.type == "cpu":
         return ln_qkv_headmajor_bwd_plain(x, ln_w, ln_b, w, b, dy, heads3, window, eps)
-    _check_qkv_args(x, ln_w, ln_b, w, b, heads3, dims=(64,))
+    d = _check_qkv_args(x, ln_w, ln_b, w, b, heads3)
     bsz, hh, ww, c = x.shape
     n, s = _qkv_rows(x, heads3, window)
     if c % 256 or c > 1280:  # the row kernels' widths, up to ViT-H
         raise ValueError(f"ln_qkv_headmajor_bwd: C={c} is not a multiple of 256 up to 1280")
-    check_cuda_tensor("dy", dy, torch.bfloat16, (n, heads3, s, 64))
-    t, k = bsz * hh * ww, heads3 * 64
+    check_cuda_tensor("dy", dy, torch.bfloat16, (n, heads3, s, d))
+    t, k = bsz * hh * ww, heads3 * d
     f32, bf = torch.float32, torch.bfloat16
     # db's partials (every output row, pad rows too), then dgamma / dbeta's
     parts = -(-(n * s) // _DY_PART_ROWS) * k + -(-t // _LN_PART_ROWS) * 2 * c
@@ -466,7 +470,7 @@ def ln_qkv_headmajor_bwd(x, ln_w, ln_b, w, b, dy, heads3: int, window: int = 0,
     LN_QKV_HEADMAJOR_BWD.launch(
         ptr(x), ptr(ln_w) if with_ln else _NULL, ptr(ln_b) if with_ln else _NULL,
         ptr(w), ptr(dy), ptr(dx), ptr(dg), ptr(dbb), ptr(dw), ptr(db), ptr(dyt), ptr(z),
-        ptr(stats), ptr(dz), ptr(part), bsz, hh, ww, c, heads3, window,
+        ptr(stats), ptr(dz), ptr(part), bsz, hh, ww, c, heads3, d, window,
         eps, variant="window" if window else "global",
     )
     if not with_ln:
@@ -514,14 +518,14 @@ def _qkv_headmajor_fwd(x, w, b, heads3, n):
         return qkv_headmajor_plain(x, w, b, heads3, n)
     t, c = x.shape
     bf = torch.bfloat16
-    _head_dim(w, heads3, (64,), "qkv_headmajor")  # K12' takes 64-wide heads
+    d = _head_dim(w, heads3, "qkv_headmajor")
     check_cuda_tensor("x", x, bf, (t, c))
-    check_cuda_tensor("w", w, bf, (heads3 * 64, c))
-    check_cuda_tensor("b", b, bf, (heads3 * 64,))
+    check_cuda_tensor("w", w, bf, (heads3 * d, c))
+    check_cuda_tensor("b", b, bf, (heads3 * d,))
     if c % 64 or t % n:
         raise ValueError(f"qkv_headmajor: C={c} not a multiple of 64 or {t} rows for N={n}")
-    out = torch.empty((n, heads3, t // n, 64), dtype=bf, device=x.device)
-    QKV_HEADMAJOR.launch(ptr(x), ptr(w), ptr(b), ptr(out), n, t // n, c, heads3, 64,
+    out = torch.empty((n, heads3, t // n, d), dtype=bf, device=x.device)
+    QKV_HEADMAJOR.launch(ptr(x), ptr(w), ptr(b), ptr(out), n, t // n, c, heads3, d,
                          variant="window" if t // n <= 512 else "global")
     return out
 
@@ -550,9 +554,9 @@ class _QkvHeadmajor(torch.autograd.Function):
 
 
 def qkv_headmajor(x, w, b, heads3: int, n: int):
-    """Kernel K12' on CUDA tensors (bf16 x (N*S, C), w (heads3*64, C), b);
-    the plain version on the CPU. Returns (N, heads3, S, 64). Its backward
-    is :func:`qkv_headmajor_bwd` on every device."""
+    """Kernel K12' on CUDA tensors (bf16 x (N*S, C), w (heads3*d, C), b, d
+    = 64 or 80); the plain version on the CPU. Returns (N, heads3, S, d).
+    Its backward is :func:`qkv_headmajor_bwd` on every device."""
     return _QkvHeadmajor.apply(x, w, b, heads3, n)
 
 

@@ -19,10 +19,11 @@ and q. Bound on the H100: tensor-core operations for the 4096-token global
 layers (103 GFLOP per ViT-B layer at batch 2), device-memory bytes for the
 196-token windows (about 70 MB per layer).
 
-It takes heads of d = 64 and 80 (``HEAD_DIMS``, the scale d^-0.5): ViT-H's
-16 heads of 80, where JAX runs XLA attention (its Pallas kernels take 64
-only); C' takes 64. ``relpos_attention_route`` says which of the kernel's
-two paths (window, global) a grid takes at a head dim.
+Both take heads of d = 64 and 80 (``HEAD_DIMS``, the scale d^-0.5): ViT-H's
+16 heads of 80, where JAX runs XLA attention and its autodiff (its Pallas
+kernels take 64 only). ``relpos_attention_route`` says which of kernel C's
+two paths (window, global) a grid takes at a head dim; C' takes every grid
+kernel C takes, up to 64 x 64, at both head dims.
 
 It also serves two more TPU kernels, at their own call sites: the encoder's
 ``'flash'`` route runs it where JAX runs ``flash_attention.py``'s
@@ -58,12 +59,16 @@ RELPOS_ATTENTION_BWD = CudaKernel(
     "relpos_attention_bwd", "relpos_attention_bwd.cu", "rsp_relpos_attention_bwd",
     [_P] * 12 + [_I] * 7 + [_F, _P],
 )
+# the depth of C''s scratch F and E (a query of the built library, no launch)
+RELPOS_ATTENTION_BWD_DEPTH = CudaKernel(
+    "relpos_attention_bwd_depth", "relpos_attention_bwd.cu", "rsp_relpos_attention_bwd_depth",
+    [_I] * 3,
+)
 # which of kernel C's paths a shape takes (a query of the built library, no launch)
 RELPOS_ATTENTION_ROUTE = CudaKernel(
     "relpos_attention_route", "relpos_attention.cu", "rsp_relpos_attention_route", [_I] * 4,
 )
-HEAD_DIMS = (64, 80)  # kernel C's head dims; C' takes 64
-BWD_HEAD_DIMS = (64,)
+HEAD_DIMS = (64, 80)  # the head dims of kernel C and C'
 
 
 def relpos_attention_route(hw: Tuple[int, int], d: int) -> str:
@@ -125,13 +130,13 @@ def relpos_attention_bwd_plain(qkv, fh, fw, dout, hw: Tuple[int, int]):
             dsg.sum(dim=-2).to(fw.dtype))
 
 
-def _check_attention_args(qkv, fh, fw, hw, dims=HEAD_DIMS):
+def _check_attention_args(qkv, fh, fw, hw):
     h, w = hw
     nb, n3, s, d = qkv.shape
     n = n3 // 3
     bf = torch.bfloat16
-    if d not in dims:
-        raise ValueError(f"relpos_attention: head dim {d} is not one of {dims}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"relpos_attention: head dim {d} is not one of {HEAD_DIMS}")
     check_cuda_tensor("qkv", qkv, bf, (nb, 3 * n, h * w, d))
     check_cuda_tensor("fh", fh, bf, (nb, n, s, h))
     check_cuda_tensor("fw", fw, bf, (nb, n, s, w))
@@ -159,24 +164,25 @@ def relpos_attention_bwd(qkv, fh, fw, out, lse, dout, hw: Tuple[int, int]):
     log-sum-exp; the plain backward on the CPU. Returns (dqkv, dfh, dfw)."""
     if qkv.device.type == "cpu":
         return relpos_attention_bwd_plain(qkv, fh, fw, dout, hw)
-    nb, n, s, _ = _check_attention_args(qkv, fh, fw, hw, BWD_HEAD_DIMS)
-    check_cuda_tensor("out", out, torch.bfloat16, (nb, n, s, 64))
-    check_cuda_tensor("dout", dout, torch.bfloat16, (nb, n, s, 64))
+    nb, n, s, d = _check_attention_args(qkv, fh, fw, hw)
+    check_cuda_tensor("out", out, torch.bfloat16, (nb, n, s, d))
+    check_cuda_tensor("dout", dout, torch.bfloat16, (nb, n, s, d))
     check_cuda_tensor("lse", lse, torch.float32, (nb, n, s))
     dqkv = torch.empty_like(qkv)
     dfh = torch.empty_like(fh)
     dfw = torch.empty_like(fw)
-    # scratch (csrc/relpos_attention_bwd.cu's header): delta; F = [fh | fw]
-    # zero-padded to nf columns (whole 128-byte tiles); the group matrix E
-    # over the keys padded to whole 64-key tiles
-    nf, sp = (64 if sum(hw) <= 64 else 128), -(-s // 64) * 64
+    # scratch (csrc/relpos_attention_bwd.cu's header): delta; F, nfb columns
+    # (whole 128-byte tiles, as many as the library asks for); the group
+    # matrix E over the keys padded to whole 64-key tiles
+    nfb = RELPOS_ATTENTION_BWD_DEPTH.load()(hw[0], hw[1], d)
+    sp = -(-s // 64) * 64
     delta = torch.empty((nb, n, s), dtype=torch.float32, device=qkv.device)
-    fcat = torch.empty((nb, n, s, nf), dtype=torch.bfloat16, device=qkv.device)
-    groups = torch.empty((sp, nf), dtype=torch.bfloat16, device=qkv.device)
+    fcat = torch.empty((nb, n, s, nfb), dtype=torch.bfloat16, device=qkv.device)
+    groups = torch.empty((sp, nfb), dtype=torch.bfloat16, device=qkv.device)
     RELPOS_ATTENTION_BWD.launch(
         ptr(qkv), ptr(fh), ptr(fw), ptr(out), ptr(lse), ptr(dout), ptr(dqkv),
         ptr(dfh), ptr(dfw), ptr(delta), ptr(fcat), ptr(groups),
-        nb, n, s, hw[0], hw[1], nf, sp, 64 ** -0.5, variant=_variant(s, n),
+        nb, n, s, hw[0], hw[1], d, sp, d ** -0.5, variant=_variant(s, n),
     )
     return dqkv, dfh, dfw
 
@@ -199,7 +205,7 @@ class _RelposAttention(torch.autograd.Function):
 def relpos_attention(qkv: torch.Tensor, fh: torch.Tensor, fw: torch.Tensor,
                      hw: Tuple[int, int]) -> torch.Tensor:
     """Kernel C on CUDA tensors (bf16, head dim 64 or 80, h and w <= 64), with
-    C' as its backward (head dim 64); the plain versions on the CPU."""
+    C' as its backward; the plain versions on the CPU."""
     if torch.is_grad_enabled() and (qkv.requires_grad or fh.requires_grad or fw.requires_grad):
         return _RelposAttention.apply(qkv, fh, fw, hw)
     return _relpos_attention_fwd(qkv, fh, fw, hw, False)[0]  # no graph to record

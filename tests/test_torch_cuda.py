@@ -43,8 +43,8 @@ def _f32(args):
     return [a.float() if torch.is_tensor(a) else a for a in args]
 
 
-def _mlp_args(gen, t):
-    c, m = 768, 3072
+def _mlp_args(gen, t, c=768):
+    m = 4 * c
     return (
         _rnd(gen, t, c), 1 + _rnd(gen, c, scale=0.1, dtype=torch.float32),
         _rnd(gen, c, scale=0.1, dtype=torch.float32), _rnd(gen, m, c, scale=0.02),
@@ -305,13 +305,14 @@ def test_wgmma_gemm_operand_layouts(gen, product, t):
 
 
 def _qkv_bwd_args(gen, bsz, grid, c, heads, window, ln):
-    """B''s inputs; dy is drawn for every output row, window pad rows too."""
+    """B''s inputs at heads of c / heads; dy is drawn for every output row,
+    window pad rows too."""
     x = _rnd(gen, bsz, *grid, c)
     lw = 1 + _rnd(gen, c, scale=0.1, dtype=torch.float32) if ln else None
     lb = _rnd(gen, c, scale=0.1, dtype=torch.float32) if ln else None
     w, b = _rnd(gen, 3 * c, c, scale=0.05), _rnd(gen, 3 * c, scale=0.05)
     n, s = fm._qkv_rows(x, 3 * heads, window)
-    return (x, lw, lb, w, b, _rnd(gen, n, 3 * heads, s, 64), 3 * heads, window)
+    return (x, lw, lb, w, b, _rnd(gen, n, 3 * heads, s, c // heads), 3 * heads, window)
 
 
 @pytest.mark.parametrize("bsz,grid,c,heads,window,ln", [
@@ -319,12 +320,15 @@ def _qkv_bwd_args(gen, bsz, grid, c, heads, window, ln):
     (2, (32, 32), 256, 4, 14, True), (2, (10, 9), 256, 4, 4, False),
     (4, (32, 32), 768, 12, 0, True), (4, (32, 32), 768, 12, 14, True),
     (1, (15, 20), 1024, 16, 14, True), (1, (15, 20), 1280, 20, 0, True),
+    (2, (10, 9), 1280, 16, 0, True), (2, (10, 9), 1280, 16, 4, True),
+    (4, (32, 32), 1280, 16, 14, True), (1, (15, 20), 1280, 16, 0, False),
 ])
 def test_ln_qkv_headmajor_bwd_kernel(gen, bsz, grid, c, heads, window, ln):
     """Window grids that need padding, pad rows with a non-zero dy, no LN,
     the ViT-B train step's shapes (x (4, 32, 32, 768), 12 heads, global and
-    window 14), and ViT-L / ViT-H widths (C = 1024, 1280: the row kernels'
-    other instances)."""
+    window 14), ViT-L / ViT-H widths (C = 1024, 1280: the row kernels'
+    other instances), and ViT-H's 16 heads of 80 (global, padded windows,
+    the train step's 32 x 32 under window 14, no LN)."""
     args = _qkv_bwd_args(gen, bsz, grid, c, heads, window, ln)
     _close_each(fm.ln_qkv_headmajor_bwd(*args), fm.ln_qkv_headmajor_bwd_plain(*_f32(args)))
 
@@ -342,12 +346,12 @@ def test_ln_qkv_headmajor_bwd_is_deterministic(gen, window):
         assert torch.equal(x, y)
 
 
-def _bwd_inputs(gen, n_img, heads, hw):
+def _bwd_inputs(gen, n_img, heads, hw, d=64):
     s = hw[0] * hw[1]
-    qkv = _rnd(gen, n_img, 3 * heads, s, 64)
+    qkv = _rnd(gen, n_img, 3 * heads, s, d)
     fh = _rnd(gen, n_img, heads, s, hw[0], scale=0.5)
     fw = _rnd(gen, n_img, heads, s, hw[1], scale=0.5)
-    dout = _rnd(gen, n_img, heads, s, 64)
+    dout = _rnd(gen, n_img, heads, s, d)
     out, lse = fa._relpos_attention_fwd(qkv, fh, fw, hw, True)
     return qkv, fh, fw, out, lse, dout, hw
 
@@ -481,30 +485,118 @@ def test_relpos_attention_wide(gen, d, heads, hw):
 
 
 def test_wrappers_refuse_widths_they_do_not_take(gen):
-    """Kernel A at C = 896, B and C at head dim 96, and the backwards and
-    K12' at head dim 80 raise on CUDA tensors before any launch."""
+    """Kernel A and A' at C = 896, and kernels B, B', K12', C and C' at head
+    dim 96, raise on CUDA tensors before any launch."""
     c = 896
     args = (_rnd(gen, 8, c), _rnd(gen, c, dtype=torch.float32),
             _rnd(gen, c, dtype=torch.float32), _rnd(gen, 4 * c, c), _rnd(gen, 4 * c),
             _rnd(gen, c, 4 * c), _rnd(gen, c))
     with pytest.raises(ValueError, match="unsupported widths"):
         fm.ln_mlp_residual(*args)
-    x = _rnd(gen, 1, 4, 4, 192)
-    w, b = _rnd(gen, 6 * 96, 192), _rnd(gen, 6 * 96)
+    with pytest.raises(ValueError, match="unsupported widths"):
+        fm.ln_mlp_residual_bwd(*args, _rnd(gen, 8, c))
+    x = _rnd(gen, 1, 4, 4, 256)
+    w, b = _rnd(gen, 6 * 96, 256), _rnd(gen, 6 * 96)
     with pytest.raises(ValueError, match="head dim"):
         fm.ln_qkv_headmajor(x, None, None, w, b, 6)
-    w, b = _rnd(gen, 6 * 80, 192), _rnd(gen, 6 * 80)
     with pytest.raises(ValueError, match="head dim"):
-        fm.qkv_headmajor(x.reshape(16, 192), w, b, 6, 1)
+        fm.qkv_headmajor(x.reshape(16, 256), w, b, 6, 1)
     with pytest.raises(ValueError, match="head dim"):
-        fm.ln_qkv_headmajor_bwd(x, None, None, w, b, _rnd(gen, 1, 6, 16, 80), 6)
-    for d in (96, 80):
-        qkv, fh, fw = _rnd(gen, 1, 6, 9, d), _rnd(gen, 1, 2, 9, 3), _rnd(gen, 1, 2, 9, 3)
-        if d == 96:
-            with pytest.raises(ValueError, match="head dim"):
-                fa.relpos_attention(qkv, fh, fw, (3, 3))
-        else:
-            with pytest.raises(ValueError, match="head dim"):
-                fa.relpos_attention_bwd(qkv, fh, fw, _rnd(gen, 1, 2, 9, d),
-                                        torch.zeros(1, 2, 9, device="cuda"),
-                                        _rnd(gen, 1, 2, 9, d), (3, 3))
+        fm.ln_qkv_headmajor_bwd(x, None, None, w, b, _rnd(gen, 1, 6, 16, 96), 6)
+    qkv, fh, fw = _rnd(gen, 1, 6, 9, 96), _rnd(gen, 1, 2, 9, 3), _rnd(gen, 1, 2, 9, 3)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.relpos_attention(qkv, fh, fw, (3, 3))
+    with pytest.raises(ValueError, match="head dim"):
+        fa.relpos_attention_bwd(qkv, fh, fw, _rnd(gen, 1, 2, 9, 96),
+                                torch.zeros(1, 2, 9, device="cuda"), _rnd(gen, 1, 2, 9, 96),
+                                (3, 3))
+
+
+# --- the ViT-L and ViT-H backwards --------------------------------------------
+
+
+@pytest.mark.parametrize("c", [1024, 1280])
+@pytest.mark.parametrize("t", [300, 4096])
+def test_ln_mlp_residual_bwd_wide(gen, c, t):
+    """A' at ViT-L's and ViT-H's widths (M = 4 C; the row kernels' V = 4, 5),
+    at a row count that is not a multiple of the 128-row tile."""
+    args = (*_mlp_args(gen, t, c)[:7], _rnd(gen, t, c))
+    _close_each(fm.ln_mlp_residual_bwd(*args, 1e-6),
+                fm.ln_mlp_residual_bwd_plain(*_f32(args), 1e-6))
+
+
+@pytest.mark.parametrize("c", [1024, 1280])
+def test_ln_mlp_residual_bwd_wide_is_deterministic(gen, c):
+    """Two launches of A' at C = 1024 and 1280 give the same bits in all
+    seven outputs (the LN backward's column sums in warp order)."""
+    args = (*_mlp_args(gen, 4096, c)[:7], _rnd(gen, 4096, c))
+    first = fm.ln_mlp_residual_bwd(*args, 1e-6)
+    second = fm.ln_mlp_residual_bwd(*args, 1e-6)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("window", [0, 14])
+def test_ln_qkv_headmajor_bwd_hd80_is_deterministic(gen, window):
+    args = _qkv_bwd_args(gen, 4, (32, 32), 1280, 16, window, True)
+    first = fm.ln_qkv_headmajor_bwd(*args)
+    second = fm.ln_qkv_headmajor_bwd(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("hw", [(14, 14), (9, 7), (32, 32), (64, 64)])
+def test_relpos_attention_bwd_hd80(gen, hw):
+    """C' at head dim 80: the grids kernel C takes there, its window path's
+    (14, 14) and (9, 7) (F's two halves in 64 columns) and its global
+    path's (32, 32) and (64, 64) (the bias 128 and 256 deep, the group sums
+    64 and 128 wide), against plain; the log-sum-exp is kernel C's."""
+    n_img, heads = (1, 2) if hw == (64, 64) else (3, 4)
+    qkv, fh, fw, out, lse, dout, _ = a = _bwd_inputs(gen, n_img, heads, hw, 80)
+    assert fa.relpos_attention_route(hw, 80) == ("window" if hw[0] * hw[1] <= 200 else "global")
+    _close_each(
+        fa.relpos_attention_bwd(*a),
+        fa.relpos_attention_bwd_plain(qkv.float(), fh.float(), fw.float(), dout.float(), hw),
+    )
+
+
+@pytest.mark.parametrize("hw", [(14, 14), (32, 32), (64, 64)])
+def test_relpos_attention_bwd_hd80_is_deterministic(gen, hw):
+    a = _bwd_inputs(gen, 2, 2, hw, 80)
+    first = fa.relpos_attention_bwd(*a)
+    second = fa.relpos_attention_bwd(*a)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n,s", [(1, 37), (5, 196), (2, 1024)])
+def test_qkv_headmajor_hd80(gen, n, s):
+    """K12' with 16 heads of 80 at C = 1280, ragged and ViT-H's row counts."""
+    c, heads3 = 1280, 48
+    args = (_rnd(gen, n * s, c), _rnd(gen, heads3 * 80, c, scale=0.02),
+            _rnd(gen, heads3 * 80, scale=0.02), heads3, n)
+    got = fm.qkv_headmajor(*args)
+    assert got.shape == (n, heads3, s, 80)
+    _close(got, fm.qkv_headmajor_plain(*_f32(args)))
+
+
+@pytest.mark.parametrize("n,s", [(1, 37), (5, 196)])
+def test_qkv_headmajor_lora_hd80(gen, n, s):
+    """K12' with the adapter at head dim 80 (K = 1280 + 64), forward and
+    every gradient against the plain version's autograd."""
+    c, heads3, r = 1280, 48, 16
+    args = (_rnd(gen, n * s, c), _rnd(gen, heads3 * 80, c, scale=0.02),
+            _rnd(gen, heads3 * 80, scale=0.02), _rnd(gen, c, r, scale=1.0 / r),
+            _rnd(gen, r, heads3 * 80, scale=0.02))
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    got = fm.qkv_headmajor_lora(*leaves, 2.0, heads3, n)
+    ref_leaves = [t.float().requires_grad_(True) for t in args]
+    ref = fm.qkv_headmajor_lora_plain(*ref_leaves, 2.0, heads3, n)
+    _close(got, ref)
+    dy = _rnd(gen, *got.shape)
+    got.backward(dy)
+    ref.backward(dy.float())
+    _close_each([t.grad for t in leaves], [t.grad for t in ref_leaves])

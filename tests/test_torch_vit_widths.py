@@ -2,7 +2,7 @@
 
 fp32 on the CPU, tolerance ``TOL`` = 2e-4 (sums run in another order). ViT-H
 has 16 heads of 80 (C 1280) and ViT-L 16 heads of 64 (C 1024); kernels A, B
-and C take both on the card, where JAX runs its Pallas MLP kernel and, at
+and C and their backwards take both on the card, where JAX runs its Pallas MLP kernel and, at
 head dim 80, XLA attention (``vision_encoder.py`` requires ``hd == 64`` for
 its attention kernels). The same arithmetic at narrow widths here:
 
@@ -18,7 +18,9 @@ its attention kernels). The same arithmetic at narrow widths here:
   and an HF-named SAM file (``vision_encoder.layers.{0..31}``) through both
   packages' ``load_sam_pretrained``;
 * the wrappers' width checks, which refuse on any device what the kernels
-  do not take (the card tests launch the kernels at these widths).
+  do not take (the card tests launch the kernels, forward and backward, at
+  these widths; ``test_torch_vit_widths_train.py`` holds the backwards'
+  plain versions at head dim 80 and the L/H train steps against JAX).
 
 JAX variables are drawn with numpy on ``jax.eval_shape``'s shapes.
 """
@@ -184,31 +186,28 @@ def _cpu(*shape):
 
 
 @pytest.mark.parametrize("kind,width", [
-    ("mlp", (896, 3584)), ("mlp", (1024, 3072)), ("mlp_bwd", (1024, 4096)), ("qkv", 96),
-    ("qkv_bwd", 80), ("k12", 80), ("attn", 96), ("attn_bwd", 80),
-], ids=["A C=896", "A M=3C", "A' C=1024", "B d=96", "B' d=80", "K12' d=80", "C d=96",
-        "C' d=80"])
+    ("mlp", (896, 3584)), ("mlp", (1024, 3072)), ("mlp_bwd", (896, 3584)), ("qkv", 96),
+    ("qkv_bwd", 96), ("k12", 96), ("attn", 96), ("attn_bwd", 96),
+], ids=["A C=896", "A M=3C", "A' C=896", "B d=96", "B' d=96", "K12' d=96", "C d=96",
+        "C' d=96"])
 def test_wrappers_refuse_other_widths(kind, width):
-    """Kernel A takes C in (768, 1024, 1280) with M = 4 C, kernels B and C
-    head dims 64 and 80; A', B', C' and K12' keep ViT-B's (A' C 768, the
-    others 64-wide heads). The width checks run before any device check."""
+    """Kernels A and A' take C in (768, 1024, 1280) with M = 4 C; kernels B,
+    B', K12', C and C' head dims 64 and 80. Each forward shares its width
+    check with its backward, and the checks run before any device check."""
     if kind.startswith("mlp"):
         c, m = width
-        widths = fm.MLP_BWD_WIDTHS if kind == "mlp_bwd" else fm.MLP_WIDTHS
         with pytest.raises(ValueError, match="unsupported widths"):
             fm._check_mlp_args(_cpu(4, c), _cpu(c), _cpu(c), _cpu(m, c), _cpu(m), _cpu(c, m),
-                               _cpu(c), widths)
+                               _cpu(c))
     elif kind.startswith("qkv"):
         d = width
-        dims = (64,) if kind == "qkv_bwd" else fm.QKV_HEAD_DIMS
         with pytest.raises(ValueError, match="head dim"):
             fm._check_qkv_args(_cpu(1, 4, 4, 2 * d), None, None, _cpu(6 * d, 2 * d),
-                               _cpu(6 * d), 6, dims)
+                               _cpu(6 * d), 6)
     elif kind == "k12":
         with pytest.raises(ValueError, match="head dim"):
-            fm._head_dim(_cpu(6 * width, 160), 6, (64,), "qkv_headmajor")
+            fm._head_dim(_cpu(6 * width, 160), 6, "qkv_headmajor")
     else:
-        dims = fa.BWD_HEAD_DIMS if kind == "attn_bwd" else fa.HEAD_DIMS
         with pytest.raises(ValueError, match="head dim"):
             fa._check_attention_args(_cpu(1, 6, 9, width), _cpu(1, 2, 9, 3), _cpu(1, 2, 9, 3),
-                                     (3, 3), dims)
+                                     (3, 3))
