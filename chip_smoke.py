@@ -196,7 +196,31 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    phase 12's gates (finite metrics, trained tensors moved, frozen ones
    bitwise unchanged, exact launch counts, s/step, peak memory, a profiled
    step) and phase 6's gradient check, the encoder alone held to the floor
-   rule at these depths (``GRAD_TOL`` holds ViT-B's).
+   rule at these depths (``GRAD_TOL`` holds ViT-B's);
+17. the serving surface on ``rsprompter_anchor-nwpu.py`` (ViT-B 1024^2, bf16,
+   seeded weights): every JPEG fixture of ``tests/data/jpeg/`` through the
+   port's decoder, its sha256 equal to ``cv2.imread``'s (``digests.json``),
+   the host ms a decode, OpenCV never imported; ``tools.image_demo``'s main
+   over that directory (a drawn PNG an image at the input's shape, one
+   ``predictions.json`` entry an image); ``tools.serve`` in-process on
+   127.0.0.1 at a free port (``--max-batch 4 --size-buckets 512,1024
+   --warmup --batch-window-ms 20``): 16 POSTs from 8 client threads mixing
+   JPEG bytes, PNG bytes and ``{"path": ...}`` at both buckets, each answered
+   200 and held against ``DetInferencer`` called directly on the same image
+   at the same bucket (labels and counts equal; boxes, scores and decoded
+   masks within ``SERVE_*_TOL``), ``/healthz`` counting 16 images in fewer
+   batches, A, B and C launched per served forward as phase 3 counts and
+   kernel C's window calls at 9 windows an image at 512 (25 at 1024),
+   requests/s and p50 / p99 latency at concurrency 8 and 1; ``oom_guard``
+   on a real ``torch.cuda.OutOfMemoryError`` (the allocator capped between
+   a batch-2 and a batch-4 predict's reservation: batch 8 halved twice, the
+   result equal to four unguarded batch-2 predicts bit for bit, the cap
+   lifted after); ``tools.large_image_demo``'s main on a seeded 3400 x 2600
+   PNG scene at ``--patch 1024 --overlap 0.25 --batch-size 4`` (as many
+   patches as ``slice_offsets``, merged boxes inside the scene, the drawn
+   PNG and ``predictions.json`` written); ``tools.test``'s main over the
+   JPEG fixtures as a COCO set whose GT is written at run time, every key of
+   JAX's tool finite.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -626,6 +650,17 @@ def mlp_launches(n: int):
     return {"fc1": n, "fc2": n}
 
 
+def expected_forward_launches(det, forwards: int) -> dict:
+    """Kernels A, B and C over ``forwards`` encoder forwards, as phase 3
+    counts one."""
+    depth = det.backbone.config.num_hidden_layers
+    n_global = len(det.backbone.config.global_attn_indexes)
+    per_kind = {"global": n_global * forwards, "window": (depth - n_global) * forwards}
+    return {"ln_mlp_residual": mlp_launches(depth * forwards),
+            "ln_rows": dict(per_kind, mlp=depth * forwards),
+            "ln_qkv_headmajor": per_kind, "relpos_attention": per_kind, "qkv_headmajor": {}}
+
+
 def worst_rel_diff(got, ref) -> float:
     """Largest max|got - ref| / max|ref| over the neck and hidden states."""
     (neck_a, hid_a), (neck_b, hid_b) = got, ref
@@ -657,8 +692,6 @@ def main_path_phase(kernels, iters: int, profile_dir: str = ""):
 
     model = init_detector(CONFIG, device="cuda", batch_size=2, seed=0)
     det = model.model
-    depth = det.backbone.config.num_hidden_layers
-    n_global = len(det.backbone.config.global_attn_indexes)
     imgs = synthetic_images(0)
     preds = inference_detector(model, imgs)  # warm-up: cuBLAS/cuDNN handles
     torch.cuda.synchronize()
@@ -673,15 +706,7 @@ def main_path_phase(kernels, iters: int, profile_dir: str = ""):
         times.append((time.perf_counter() - t0) * 1e3)
     counts = {k.name: dict(k.variant_launches) for k in kernels}
 
-    per_kind = {"global": n_global * iters, "window": (depth - n_global) * iters}
-    expect = {
-        "ln_mlp_residual": mlp_launches(depth * iters),
-        "ln_rows": dict(per_kind, mlp=depth * iters),
-        "ln_qkv_headmajor": per_kind,
-        "relpos_attention": per_kind,
-        "qkv_headmajor": {},
-    }
-    for name, want in expect.items():
+    for name, want in expected_forward_launches(det, iters).items():
         if counts[name] != want:
             raise AssertionError(f"{name}: launches {counts[name]}, expected {want}")
     log(f"main path launches over {iters} forwards: {counts}")
@@ -1786,13 +1811,7 @@ def eval_phase(kernels, config: str = CONFIG, device: str = "cuda") -> dict:
             f"cast to {'/'.join(sorted({str(t.dtype) for t in own.values()}))}")
 
         # launches: each forward of the loop as phase 3 counts one
-        depth = det.backbone.config.num_hidden_layers
-        n_global = len(det.backbone.config.global_attn_indexes)
-        per_kind = {"global": n_global * n_batches, "window": (depth - n_global) * n_batches}
-        expect = {"ln_mlp_residual": mlp_launches(depth * n_batches),
-                  "ln_rows": dict(per_kind, mlp=depth * n_batches),
-                  "ln_qkv_headmajor": per_kind, "relpos_attention": per_kind}
-        for name, want in expect.items():
+        for name, want in expected_forward_launches(det, n_batches).items():
             if counts[name] != (want if device == "cuda" else {}):
                 raise AssertionError(f"evaluation: {name} launches {counts[name]}, "
                                      f"expected {want} over {n_batches} forwards")
@@ -3813,6 +3832,497 @@ def wide_train_phase(kernels, steps: int, dev) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the serving surface (JPEG decoder, DetInferencer on paths,
+# image_demo, the batched server, oom_guard, large_image_demo, tools.test
+# over JPEGs)
+# ---------------------------------------------------------------------------
+
+JPEG_DIR = os.path.join(ROOT, "tests", "data", "jpeg")
+SERVE_BUCKETS = (512, 1024)
+SERVE_MAX_BATCH = 4
+SERVE_CLIENTS = 8
+# bucket-512 images the server test sends as PNG bytes and PNG paths (the
+# bucket-1024 ones are the JPEG fixtures, 600-960 px)
+SERVE_SMALL_SIZES = ((300, 420), (512, 384), (360, 500), (480, 480))
+SCENE_HW = (2600, 3400)  # the large_image_demo scene
+# a served answer against DetInferencer called directly on the same image
+# at the same bucket: largest |box diff| (px), |score diff| and the share of
+# mask pixels that differ. Twice the worst reading on an H100 80GB HBM3 at
+# 700.00 W (0, 0 and 0 over 1600 detections): both run a batch of 4 at one
+# bucket, the image in another slot beside other images, and every kernel
+# of the path computes a slot's rows alone, in a fixed order, so the
+# answers are equal bit for bit.
+SERVE_BOX_TOL = 0.0
+SERVE_SCORE_TOL = 0.0
+SERVE_MASK_TOL = 0.0
+
+
+def _post(url: str, body: bytes):
+    """POST ``body``; returns (status, JSON answer, seconds)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(url, data=body, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, payload = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, payload = e.code, json.loads(e.read() or b"{}")
+    return status, payload, time.perf_counter() - t0
+
+
+def latency_line(what: str, lat, wall: float) -> str:
+    import numpy as np
+
+    return (f"{what}: {len(lat)} requests in {wall:.3f} s, {len(lat) / wall:.3f} requests/s, "
+            f"latency p50 {1e3 * statistics.median(lat):.1f} ms, p99 "
+            f"{1e3 * float(np.percentile(lat, 99)):.1f} ms (of {len(lat)})")
+
+
+def jpeg_fixture_check(reps: int = 5) -> dict:
+    """Every committed fixture through the port's decoder: the sha256 of the
+    array equal to ``cv2.imread``'s (``tests/data/jpeg/digests.json``),
+    OpenCV never imported. Returns {name: host ms a decode (median)}."""
+    import hashlib
+
+    from rsprompter_tpu_torch.data.io import imread
+
+    with open(os.path.join(JPEG_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    ms = {}
+    for name, want in sorted(digests.items()):
+        path = os.path.join(JPEG_DIR, name)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            img = imread(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+        got = hashlib.sha256(img.tobytes()).hexdigest()
+        if got != want["sha256"] or list(img.shape) != want["shape"]:
+            raise AssertionError(f"JPEG {name}: {img.shape} sha256 {got[:16]}..., cv2.imread "
+                                 f"gave {want['shape']} {want['sha256'][:16]}...")
+        ms[name] = statistics.median(times)
+    if sys.modules.get("cv2") is not None:
+        raise AssertionError("the JPEG path imported cv2")
+    log("JPEG decoder: " + ", ".join(f"{n} {v:.2f} ms" for n, v in ms.items())
+        + f" (host ms a decode, median of {reps}); every array's sha256 equals cv2.imread's; "
+        "cv2 not imported")
+    return ms
+
+
+def jpeg_coco(root: str, seed: int = 0) -> str:
+    """The JPEG fixtures as a COCO set under ``root``: ``imgs/`` holds them,
+    ``ann.json`` GT drawn by ``synthetic_coco`` at their sizes."""
+    import shutil
+
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_coco
+
+    names = sorted(n for n in os.listdir(JPEG_DIR) if n.endswith(".jpg"))
+    with open(os.path.join(JPEG_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    sizes = [tuple(digests[n]["shape"][:2]) for n in names]
+    synthetic_coco(root, NWPU_CLASSES, sizes, lambda path, img: None, seed=seed)
+    with open(os.path.join(root, "ann.json")) as f:
+        ann = json.load(f)
+    for im, name in zip(ann["images"], names):
+        im["file_name"] = name
+        shutil.copy(os.path.join(JPEG_DIR, name), os.path.join(root, "imgs", name))
+    with open(os.path.join(root, "ann.json"), "w") as f:
+        json.dump(ann, f)
+    return root
+
+
+def serve_breakdown(inferencer, path: str) -> dict:
+    """Host ms of one request's stages outside HTTP, served alone at its
+    bucket: decode, the predict (synchronised), the detections and masks to
+    the host, RLE and lists (``BatchWorker._post``), the JSON body; and the
+    body's bytes."""
+    import torch
+
+    from rsprompter_tpu_torch.data.io import imread
+    from rsprompter_tpu_torch.tools import serve
+
+    out = {}
+    t = time.perf_counter()
+    img = imread(path)
+    out["decode_ms"] = (time.perf_counter() - t) * 1e3
+    side = max(img.shape[:2])
+    t = time.perf_counter()
+    with inferencer._lock:
+        dets, probs, metas = inferencer.predict_batch([img], crop=inferencer._bucket_for(side, side))
+        if inferencer.device.type == "cuda":
+            torch.cuda.synchronize()
+        out["predict_ms"] = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        pred = inferencer._finish(dets, probs, 0, metas[0], True, 0.0)
+    out["to_host_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    answer = serve.BatchWorker._post(pred, serve._Job(img, 0.0, True))
+    out["rle_ms"] = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    body = json.dumps(answer).encode()
+    out["json_ms"] = (time.perf_counter() - t) * 1e3
+    out["body_mb"] = len(body) / 2**20
+    out["dets"] = len(answer["scores"])
+    return out
+
+
+def served_vs_direct(answer: dict, direct: dict) -> tuple:
+    """(box, score, mask-share) distances of a served answer from the direct
+    prediction; raises where the labels or the count differ."""
+    import numpy as np
+
+    from rsprompter_tpu_torch.evaluation import rle
+
+    labels = np.asarray(answer["labels"], np.int64)
+    if not np.array_equal(labels, np.asarray(direct["labels"], np.int64)):
+        raise AssertionError(f"served labels {labels[:8]}... differ from the direct "
+                             f"predict's {direct['labels'][:8]}...")
+    if not labels.size:
+        return 0.0, 0.0, 0.0
+    box = float(np.abs(np.asarray(answer["bboxes"], np.float32).reshape(-1, 4)
+                       - direct["bboxes"]).max())
+    score = float(np.abs(np.asarray(answer["scores"], np.float32) - direct["scores"]).max())
+    masks = np.stack([rle.decode_mask(rle.RLE.from_coco(r)) for r in answer["masks_rle"]])
+    share = float((masks != direct["masks"]).mean())
+    return box, score, share
+
+
+def oom_check(inferencer, imgs) -> None:
+    """A real CUDA out of memory halved by ``oom_guard``: the allocator is
+    capped (``set_per_process_memory_fraction``, after ``empty_cache``) so
+    that the batch of 8 fails, its halves fail, and its quarters run; they
+    must give the detections of four unguarded batch-2 predicts of the same
+    images. The fraction is restored whatever happens.
+
+    The cap lies in the window between what the last quarter needs (a
+    batch-2 predict's peak, with three quarters' outputs still held by the
+    guard: the first half joined, and the third quarter) and what a half
+    needs (a batch-4 predict's peak, nothing held); both counted from the
+    memory allocated before the run. A half fails whatever the cache holds,
+    since its peak allocation alone passes the cap; the quarters get three
+    quarters of the window, since blocks cached beside held outputs count
+    against the cap too."""
+    import torch
+
+    from rsprompter_tpu_torch.apis.inference import DetInferencer
+    from rsprompter_tpu_torch.utils.memory import oom_guard
+
+    model, cfg = inferencer.model, inferencer.cfg
+    by_size = {n: DetInferencer.from_module(model, cfg, batch_size=n) for n in (2, 4, 8)}
+    need = {}  # the peak allocation a predict adds, at batch 2 and 4
+    for n in (2, 4):
+        batch, _ = by_size[n].make_batch(imgs[:n])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            by_size[n].predict_tensors(batch)
+        torch.cuda.synchronize()
+        need[n] = torch.cuda.max_memory_allocated() - base
+        del batch
+    batch8, _ = by_size[8].make_batch(imgs)
+    plain = [by_size[2].predict_tensors(by_size[2].make_batch(imgs[i:i + 2])[0])
+             for i in range(0, 8, 2)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    held = 3 * max(sum(t.numel() * t.element_size() for t in (*d, p) if torch.is_tensor(t))
+                   for d, p in plain)
+    window = need[4] - need[2] - held
+    if window <= 0:
+        raise AssertionError(f"oom_guard: no cap splits batch 4 from batch 2 "
+                             f"(needs {need}, held outputs {held} bytes)")
+    base = torch.cuda.memory_allocated()
+    cap = base + need[2] + held + 3 * window // 4
+    calls, failed = [], []
+
+    def predict(batch):
+        n = batch["images"].shape[0]
+        calls.append(n)
+        try:
+            out = by_size[8].predict_tensors(batch)
+            torch.cuda.synchronize()
+            return out
+        except torch.cuda.OutOfMemoryError:
+            failed.append(n)
+            raise
+
+    torch.cuda.set_per_process_memory_fraction(cap / total, 0)
+    try:
+        dets, probs = oom_guard(predict)(batch8)
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, 0)
+        torch.cuda.empty_cache()
+    if calls != [8, 4, 2, 2, 4, 2, 2] or failed != [8, 4, 4]:
+        raise AssertionError(f"oom_guard: calls at batch {calls}, of which out of memory "
+                             f"{failed}: expected 8 and 4 to fail and four 2s to run "
+                             f"(cap {cap / 2**30:.3f} GiB over {base / 2**30:.3f} allocated; "
+                             f"a predict allocates "
+                             f"{ {n: round(v / 2**30, 3) for n, v in need.items()} } GiB, "
+                             f"the guard holds {held / 2**30:.3f})")
+    ref_dets = [torch.cat(xs) for xs in zip(*[d for d, _ in plain])]
+    ref_probs = torch.cat([p for _, p in plain])
+    for name, a, b in zip(dets._fields, dets, ref_dets):
+        if not torch.equal(a, b):
+            raise AssertionError(f"oom_guard: detections' {name} differ from four batch-2 "
+                                 f"predicts (max |diff| {(a.float() - b.float()).abs().max()})")
+    if not torch.equal(probs, ref_probs):
+        raise AssertionError("oom_guard: mask probabilities differ from four batch-2 predicts")
+    log(f"oom_guard: allocator capped at {cap / 2**30:.3f} GiB of {total / 2**30:.1f} "
+        f"({base / 2**30:.3f} allocated before; a batch-2 predict allocates "
+        f"{need[2] / 2**30:.3f} GiB at its peak, batch 4 {need[4] / 2**30:.3f}; the guard "
+        f"holds up to {held / 2**30:.3f} of outputs): calls at batch {calls}, "
+        f"torch.cuda.OutOfMemoryError at "
+        f"{failed}; the halved run's {int(dets.valid.sum())} detections and mask "
+        "probabilities equal four unguarded batch-2 predicts bit for bit; fraction restored")
+    del plain, batch8, dets, probs
+
+
+def serving_phase(kernels, config: str = CONFIG, device: str = "cuda",
+                  buckets=SERVE_BUCKETS, small_sizes=SERVE_SMALL_SIZES, scene_hw=SCENE_HW,
+                  patch: int = 1024) -> dict:
+    """Phase 17 (see the module docstring). Returns the launch counts of the
+    served round (path ``serve``)."""
+    import tempfile
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from rsprompter_tpu_torch.data.io import decode_png, encode_png, imread
+    from rsprompter_tpu_torch.ops import fused_vit_attention as fa
+    from rsprompter_tpu_torch.tools import image_demo, large_image_demo, serve
+    from rsprompter_tpu_torch.tools import test as tool
+    from rsprompter_tpu_torch.utils.large_image import slice_offsets
+
+    t_phase = time.time()
+    decode_ms = jpeg_fixture_check()
+    jpegs = sorted(os.path.join(JPEG_DIR, n) for n in os.listdir(JPEG_DIR) if n.endswith(".jpg"))
+    rng = np.random.default_rng(17)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- image_demo over the fixture directory
+        t0 = time.time()
+        out_dir = os.path.join(tmp, "demo")
+        demo = image_demo.main([JPEG_DIR, config, "--out-dir", out_dir, "--score-thr", "0.0",
+                                "--device", device])
+        with open(os.path.join(out_dir, "predictions.json")) as f:
+            dumped = json.load(f)
+        if len(dumped) != len(jpegs) or len(demo["predictions"]) != len(jpegs):
+            raise AssertionError(f"image_demo: {len(dumped)} entries for {len(jpegs)} images")
+        for path in jpegs:
+            drawn = os.path.join(out_dir, os.path.splitext(os.path.basename(path))[0] + ".png")
+            with open(drawn, "rb") as f:
+                vis = decode_png(f.read())
+            if vis.shape != imread(path).shape:
+                raise AssertionError(f"image_demo: {drawn} is {vis.shape}")
+        log(f"image_demo: {len(jpegs)} JPEGs -> {len(jpegs)} drawn PNGs at the inputs' shapes "
+            f"and predictions.json ({sum(len(p['scores']) for p in dumped)} detections) in "
+            f"{time.time() - t0:.1f} s")
+        del demo
+
+        # --- the server, in-process, at a free port
+        small = []
+        for i, (h, w) in enumerate(small_sizes):
+            cell = 24
+            coarse = rng.uniform(0, 255, (h // cell + 1, w // cell + 1, 3))
+            field = np.kron(coarse, np.ones((cell, cell, 1)))[:h, :w]
+            img = np.clip(field + rng.normal(0, 10, field.shape), 0, 255).astype(np.uint8)
+            small.append((os.path.join(tmp, f"small_{i}.png"), img))
+            with open(small[-1][0], "wb") as f:
+                f.write(encode_png(img))
+        requests = []  # (kind, body, the image's path)
+        for path in jpegs:
+            with open(path, "rb") as f:
+                requests.append(("jpeg bytes", f.read(), path))
+        for path, img in small:
+            requests.append(("png bytes", encode_png(img), path))
+        for path in jpegs + [p for p, _ in small]:
+            requests.append(("path", json.dumps({"path": path}).encode(), path))
+        order = rng.permutation(len(requests))
+        requests = [requests[i] for i in order]
+
+        argv = [config, "--host", "127.0.0.1", "--port", "0", "--max-batch",
+                str(SERVE_MAX_BATCH), "--size-buckets", ",".join(map(str, buckets)),
+                "--warmup", "--batch-window-ms", "20", "--device", device]
+        t0 = time.time()
+        server = serve.make_server(argv)
+        log(f"server ready in {time.time() - t0:.1f} s (build, weights check, warm-up of "
+            f"{len(buckets)} buckets at batch {SERVE_MAX_BATCH}, smoke predict)")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{server.server_address[1]}"
+        inferencer = server.inferencer
+        det = inferencer.model
+        window_batches = []  # kernel C's window calls: qkv's first dim (windows x slots)
+        attention = fa.relpos_attention
+
+        def recording(qkv, fh, fw, hw):
+            if tuple(hw) == (det.backbone.config.window_size,) * 2:
+                window_batches.append(qkv.shape[0])
+            return attention(qkv, fh, fw, hw)
+
+        try:
+            for k in kernels:
+                k.reset_counts()
+            fa.relpos_attention = recording
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+                answers = list(pool.map(
+                    lambda r: _post(url + "/predict?score_thr=0.0", r[1]), requests))
+            wall8 = time.perf_counter() - t0
+            fa.relpos_attention = attention
+            counts = {k.name: dict(k.variant_launches) for k in kernels}
+            with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            for (kind, _, path), (status, payload, _) in zip(requests, answers):
+                if status != 200 or not {"bboxes", "scores", "labels", "masks_rle"} <= set(payload):
+                    raise AssertionError(f"serve: {kind} {path}: HTTP {status} {str(payload)[:200]}")
+            if health["images"] != len(requests) or health["batches"] >= len(requests):
+                raise AssertionError(f"serve: /healthz {health} for {len(requests)} requests")
+            by_bucket = {b[0]: w.batches_run for b, w in server.dispatcher._workers.items()}
+            forwards = sum(by_bucket.values())
+            want = expected_forward_launches(det, forwards)
+            for name, w in want.items():
+                if counts.get(name, {}) != (w if device == "cuda" else {}):
+                    raise AssertionError(f"serve: {name} launches {counts.get(name)}, expected "
+                                         f"{w} over {forwards} served forwards")
+            grid = {b: b // det.backbone.config.patch_size for b in buckets}
+            win = det.backbone.config.window_size
+            n_win = {b: ((grid[b] + win - 1) // win) ** 2 for b in buckets}
+            n_layers = det.backbone.config.num_hidden_layers - len(
+                det.backbone.config.global_attn_indexes)
+            want_windows = sorted(x for b in buckets for x in
+                                  [n_win[b] * SERVE_MAX_BATCH] * (n_layers * by_bucket.get(b, 0)))
+            if sorted(window_batches) != want_windows:
+                raise AssertionError(f"serve: kernel C's window calls took "
+                                     f"{sorted(window_batches)} windows, expected "
+                                     f"{want_windows} ({n_win} an image, {by_bucket} forwards)")
+            log(f"serve: {len(requests)} POSTs (JPEG bytes, PNG bytes, paths) from "
+                f"{SERVE_CLIENTS} clients, all 200; /healthz {health}; forwards by bucket "
+                f"{by_bucket}; launches {counts} ({forwards} forwards x phase 3's); kernel C "
+                f"windows an image {n_win}")
+            log(latency_line(f"serve, concurrency {SERVE_CLIENTS}",
+                             [a[2] for a in answers], wall8))
+            scores = np.concatenate([np.asarray(a[1]["scores"], np.float64) for a in answers])
+            # the large scene keeps the top tenth of what the served images scored
+            # (random weights score every box low)
+            scene_thr = float(np.quantile(scores, 0.9)) if scores.size else 0.0
+            log(f"served scores: {scores.size} detections, quantiles 0.5 / 0.9 / 0.99 / max "
+                f"{np.quantile(scores, [0.5, 0.9, 0.99, 1.0]).round(4).tolist() if scores.size else []}")
+
+            # each answer against DetInferencer called directly at the same bucket
+            worst = [0.0, 0.0, 0.0]
+            n_dets = 0
+            for (kind, _, path), (_, payload, _) in zip(requests, answers):
+                direct = inferencer([path], score_thr=0.0)["predictions"][0]
+                dists = served_vs_direct(payload, direct)
+                worst = [max(a, b) for a, b in zip(worst, dists)]
+                n_dets += len(payload["labels"])
+            log(f"serve vs direct predict on the same images at the same bucket: "
+                f"{n_dets} detections, labels and counts equal; worst |box diff| {worst[0]:.4g} "
+                f"px (tol {SERVE_BOX_TOL}), |score diff| {worst[1]:.4g} (tol "
+                f"{SERVE_SCORE_TOL}), share of mask pixels differing {worst[2]:.4g} (tol "
+                f"{SERVE_MASK_TOL})")
+            if (worst[0] > SERVE_BOX_TOL or worst[1] > SERVE_SCORE_TOL
+                    or worst[2] > SERVE_MASK_TOL):
+                raise AssertionError(f"serve: served answers differ from direct predicts {worst}")
+
+            for path in (jpegs[0], small[0][0]):
+                parts = [serve_breakdown(inferencer, path) for _ in range(3)]
+                log(f"serve host breakdown, {os.path.basename(path)} alone (median of 3): "
+                    + ", ".join(f"{k} {statistics.median(p[k] for p in parts):.2f}"
+                                for k in parts[0]))
+
+            # concurrency 1
+            t0 = time.perf_counter()
+            lat1 = []
+            for _, body, _ in requests[:8]:
+                status, _, sec = _post(url + "/predict?score_thr=0.0", body)
+                if status != 200:
+                    raise AssertionError(f"serve: HTTP {status} at concurrency 1")
+                lat1.append(sec)
+            log(latency_line("serve, concurrency 1", lat1, time.perf_counter() - t0))
+        finally:
+            fa.relpos_attention = attention
+            server.shutdown()
+            server.server_close()
+            server.dispatcher.stop()
+            thread.join(60)
+
+        # --- oom_guard on a real CUDA out of memory
+        if device == "cuda":
+            big = [imread(p) for p in jpegs]
+            big += [np.ascontiguousarray(np.flip(im, 1)) for im in big]
+            oom_check(inferencer, big[:8])
+        del server, inferencer, det
+
+        # --- large_image_demo on a seeded scene
+        t0 = time.time()
+        h, w = scene_hw
+        cell = 64
+        coarse = rng.uniform(0, 255, (h // cell + 1, w // cell + 1, 3))
+        scene = np.clip(np.kron(coarse, np.ones((cell, cell, 1)))[:h, :w]
+                        + rng.normal(0, 10, (h, w, 3)), 0, 255).astype(np.uint8)
+        scene_path = os.path.join(tmp, "scene.png")
+        with open(scene_path, "wb") as f:
+            f.write(encode_png(scene))
+        large_dir = os.path.join(tmp, "large")
+        res = large_image_demo.main([scene_path, config, "--out-dir", large_dir, "--patch",
+                                     str(patch), "--overlap", "0.25", "--batch-size", "4",
+                                     "--score-thr", f"{scene_thr:.6f}", "--device", device])
+        offsets = slice_offsets(h, w, patch, 0.25)
+        merged = res["merged"]
+        if len(res["patch_predictions"]) != len(offsets):
+            raise AssertionError(f"large_image_demo: {len(res['patch_predictions'])} patches, "
+                                 f"slice_offsets gives {len(offsets)}")
+        boxes = np.asarray(merged["bboxes"]).reshape(-1, 4)
+        if len(boxes) and (boxes.min() < 0 or boxes[:, [0, 2]].max() > w
+                           or boxes[:, [1, 3]].max() > h):
+            raise AssertionError("large_image_demo: merged boxes outside the scene")
+        with open(res["image_path"], "rb") as f:
+            drawn = decode_png(f.read())
+        with open(res["json_path"]) as f:
+            dumped = json.load(f)
+        if drawn.shape != scene.shape or len(dumped["scores"]) != len(boxes):
+            raise AssertionError(f"large_image_demo: drawn {drawn.shape}, "
+                                 f"{len(dumped['scores'])} dumped of {len(boxes)}")
+        log(f"large_image_demo: {w}x{h} scene, {len(offsets)} patches of {patch}^2 (overlap "
+            f"0.25, batch 4), {sum(len(p['scores']) for p in res['patch_predictions'])} patch "
+            f"detections over score {scene_thr:.4f} -> {len(boxes)} merged, inside the "
+            f"scene; drawn PNG and "
+            f"predictions.json written; {time.time() - t0:.1f} s")
+        del res
+
+        # --- tools.test over the JPEG fixtures as a COCO set
+        t0 = time.time()
+        coco = jpeg_coco(os.path.join(tmp, "coco"))
+        report = tool.main([config, "--device", device, "--cfg-options",
+                            f"test_dataloader.dataset.data_root={coco}",
+                            "test_dataloader.dataset.ann_file=ann.json",
+                            "test_dataloader.dataset.data_prefix.img=imgs"])
+        metrics = report["metrics"]
+        bad = [k for k in JAX_TOOL_KEYS if not np.isfinite(metrics.get(k, float("nan")))]
+        if bad:
+            raise AssertionError(f"tools.test over JPEGs: keys missing or not finite: {bad}")
+        if sys.modules.get("cv2") is not None:
+            raise AssertionError("phase 17 imported cv2")
+        log(f"tools.test over {report['timing']['images']} JPEGs (COCO GT written here): every "
+            f"key of JAX's tool finite; {time.time() - t0:.1f} s")
+        del report
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"phase 17: {time.time() - t_phase:.1f} s; JPEG decode "
+        f"{statistics.median(decode_ms.values()):.2f} ms an image (median)")
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10,
@@ -3868,6 +4378,7 @@ def main() -> int:
     paths.update(widths_phase(kernels, args.iters, dev, args.profile_dir))
     rows += wide_backward_rows(dev)
     paths.update(wide_train_phase(kernels, WIDE_TRAIN_STEPS, dev))
+    paths["serve"] = serving_phase(kernels)
     out = []
     for r in rows:
         name, variant = r["kernel"].name, r["variant"]

@@ -4,22 +4,30 @@ The JAX package reads images with OpenCV (``data/coco.py:117``); the card's
 machine has neither OpenCV nor PIL. So the port decodes PNG itself, with
 ``zlib`` and numpy: 8-bit grey, grey + alpha, RGB and RGBA, non-interlaced,
 all five row filters. Alpha is dropped and grey is repeated into three
-channels, as ``IMREAD_COLOR`` does. ``.npy`` files are read as they are. Any
-other format (NWPU's JPEGs) goes to ``cv2.imread`` where OpenCV imports, and
-raises ``ValueError`` otherwise.
+channels, as ``IMREAD_COLOR`` does. A file that starts with JPEG's SOI
+marker goes to the port's baseline decoder (``data/jpeg.py``), never to
+OpenCV, which raises for a JPEG it refuses. ``.npy`` files are read as they
+are. Any other format goes to ``cv2.imread`` where OpenCV imports, and
+raises ``ValueError`` otherwise. ``decode_image`` does the same for bytes
+(the server's request bodies), and ``encode_png`` writes the port's drawn
+images.
 """
 
 from __future__ import annotations
 
+import io
 import struct
 import zlib
 
 import numpy as np
 
+from rsprompter_tpu_torch.data.jpeg import JPEG_SOI, decode_jpeg
+
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 NPY_MAGIC = b"\x93NUMPY"
 # PNG colour type -> channels (8-bit samples); 3 (palette) is not decoded
 PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+PNG_LEVEL = 1  # zlib level of encode_png: OpenCV's default PNG compression
 
 
 def imread(path: str) -> np.ndarray:
@@ -28,18 +36,49 @@ def imread(path: str) -> np.ndarray:
         head = f.read(8)
         if head == PNG_SIGNATURE:
             return decode_png(head + f.read())
+        if head.startswith(JPEG_SOI):
+            return decode_jpeg(head + f.read(), str(path))
     if head.startswith(NPY_MAGIC):
         return np.load(path)
     try:
         import cv2
     except ImportError:
         raise ValueError(
-            f"{path}: no decoder for this format on this machine (the port decodes PNG "
-            "and .npy itself; other formats need OpenCV)") from None
+            f"{path}: no decoder for this format on this machine (the port decodes PNG, "
+            "JPEG and .npy itself; other formats need OpenCV)") from None
     img = cv2.imread(path, cv2.IMREAD_COLOR)
     if img is None:
         raise ValueError(f"{path}: OpenCV cannot decode this file")
     return img
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """PNG, JPEG or ``.npy`` bytes -> (H, W, 3) uint8 BGR (``.npy``: its
+    array); anything else raises ``ValueError``."""
+    if data.startswith(PNG_SIGNATURE):
+        return decode_png(data)
+    if data.startswith(JPEG_SOI):
+        return decode_jpeg(data)
+    if data.startswith(NPY_MAGIC):
+        return np.load(io.BytesIO(data), allow_pickle=False)
+    raise ValueError("not a PNG, JPEG or .npy image")
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 BGR -> PNG bytes (8-bit RGB, filter 0 on every row)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_png takes (H, W, 3) uint8, not {img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    rows = np.zeros((h, 1 + 3 * w), np.uint8)  # each row: filter byte 0, then RGB
+    rows[:, 1:] = img[:, :, ::-1].reshape(h, 3 * w)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), PNG_LEVEL)) + chunk(b"IEND", b""))
 
 
 def _chunks(data: bytes):

@@ -2,9 +2,12 @@
 
 Counterpart of the loops of ``rsprompter_tpu/tools/test.py`` (``main``
 :178-228) and ``rsprompter_tpu/engine/runner.py`` (``validate`` :257-299):
-each batch of the test-side loader is predicted on the inferencer's device,
-its detections and uint8 mask probabilities copied to the host and handed to
-``CocoMetric`` with the GT of each raw sample at its original size. Beside
+each batch of the test-side loader is predicted on the inferencer's device
+(``DetInferencer.predict_batch``, under ``utils.memory.oom_guard``: a batch
+that runs the card out of memory is halved, as JAX guards both loops' predict,
+``tools/test.py:202-204``, ``engine/runner.py:252-254``), its detections and
+uint8 mask probabilities copied to the host and handed to ``CocoMetric``
+with the GT of each raw sample at its original size. Beside
 the metric it sums JAX's prediction digest (:284-298): the kept detections,
 their mean score and their mean mask probability over every slot of each
 batch, padded slots included, as JAX's validation counts them.

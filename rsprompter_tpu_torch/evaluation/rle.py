@@ -7,30 +7,26 @@ crowd GTs scored as intersection over the detection's area).
 
 The library is the port's copy of the C++ source,
 ``rsprompter_tpu_torch/native/rle.cpp``, built at first use with the host
-compiler into ``build/native/`` at the repository root, a content hash of
-the source and the flags in the file name. A build or load that fails
-raises with the compiler's output: there is no fallback. The numpy
-functions ``*_plain`` below are the plain versions the tests hold the
-library against; nothing on the evaluation path calls them.
+compiler into ``build/native/`` at the repository root (``utils/native.py``).
+A build or load that fails raises with the compiler's output: there is no
+fallback. The numpy functions ``*_plain`` below are the plain versions the
+tests hold the library against; nothing on the evaluation path calls them.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from rsprompter_tpu_torch.utils import native
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PACKAGE_DIR / "native" / "rle.cpp"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "native"
-CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
@@ -50,30 +46,13 @@ _lock = threading.Lock()
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    digest.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"librle-{digest.hexdigest()[:12]}.so"
+    return native.library_path(SOURCE, BUILD_DIR)
 
 
 def build_library() -> Path:
     """Compile the source where its library is missing; raise with the
     compiler's output if that fails. Returns the library's path."""
-    path = library_path()
-    if path.exists():
-        return path
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the RLE library cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a name of this process, then rename: workers that build at
-    # once never load a half-written file
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {SOURCE.name} failed:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return path
+    return native.build_library(SOURCE, BUILD_DIR)
 
 
 def load_library() -> ctypes.CDLL:
@@ -81,15 +60,7 @@ def load_library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path = build_library()
-            try:
-                lib = ctypes.CDLL(str(path))
-            except OSError as err:
-                raise RuntimeError(f"loading {path} failed: {err}") from err
-            for name, (restype, argtypes) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.restype, fn.argtypes = restype, argtypes
-            _lib = lib
+            _lib = native.load_library(SOURCE, BUILD_DIR, _SIGNATURES)
     return _lib
 
 

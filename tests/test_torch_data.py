@@ -97,10 +97,15 @@ def test_npy_and_other_formats(tmp_path, monkeypatch):
     np.testing.assert_array_equal(imread(str(tmp_path / "a.npy")), arr)
     img = _image(np.random.default_rng(0), 16, 24, 3)
     cv2.imwrite(str(tmp_path / "a.jpg"), img)
-    _assert_same_as_cv2(tmp_path / "a.jpg")  # through OpenCV where it imports
+    cv2.imwrite(str(tmp_path / "a.bmp"), img)
+    _assert_same_as_cv2(tmp_path / "a.jpg")
+    _assert_same_as_cv2(tmp_path / "a.bmp")  # through OpenCV where it imports
+    ref = cv2.imread(str(tmp_path / "a.jpg"), cv2.IMREAD_COLOR)
     monkeypatch.setitem(sys.modules, "cv2", None)  # a machine without OpenCV
+    # JPEG through the port's own decoder, equal to OpenCV's
+    np.testing.assert_array_equal(imread(str(tmp_path / "a.jpg")), ref)
     with pytest.raises(ValueError, match="no decoder"):
-        imread(str(tmp_path / "a.jpg"))
+        imread(str(tmp_path / "a.bmp"))
 
 
 def _polygons(kind, rng, h, w):
