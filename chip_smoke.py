@@ -201,8 +201,8 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    seeded weights): every JPEG fixture of ``tests/data/jpeg/`` through the
    port's decoder, its sha256 equal to ``cv2.imread``'s (``digests.json``),
    the host ms a decode, OpenCV never imported; ``tools.image_demo``'s main
-   over that directory (a drawn PNG an image at the input's shape, one
-   ``predictions.json`` entry an image); ``tools.serve`` in-process on
+   over that directory (a drawn JPEG an image under the input's name at its
+   shape, one ``predictions.json`` entry an image); ``tools.serve`` in-process on
    127.0.0.1 at a free port (``--max-batch 4 --size-buckets 512,1024
    --warmup --batch-window-ms 20``): 16 POSTs from 8 client threads mixing
    JPEG bytes, PNG bytes and ``{"path": ...}`` at both buckets, each answered
@@ -220,7 +220,35 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    patches as ``slice_offsets``, merged boxes inside the scene, the drawn
    PNG and ``predictions.json`` written); ``tools.test``'s main over the
    JPEG fixtures as a COCO set whose GT is written at run time, every key of
-   JAX's tool finite.
+   JAX's tool finite;
+18. the test tool's evaluation options and the analysis tools on
+   ``rsprompter_anchor-nwpu.py`` (ViT-B 1024^2, batch 2, bf16, seeded
+   weights): (a) the port's JPEG encoder, built by g++ here, gives
+   ``cv2.imencode``'s bytes for every fixture's image at qualities 95 and 7
+   (``tests/data/jpeg/encode_digests.json``), each file decoding to the
+   image's shape, with its host ms an image; (b) flip TTA
+   (``models.tta.make_tta_predict``) on phase 3's images (one narrower than
+   the canvas): A, B and C launched exactly twice phase 3's per forward,
+   the output equal bit for bit to ``merge_views`` of two separate
+   ``model.predict`` calls, TTA and plain ms and images/s (CUDA events);
+   A, B (its row pass too) and C held against their plain versions by
+   phase 3's row builders on the inputs that the mirrored batch gives the
+   encoder's first window and first global layer, in the ``kernels`` line
+   under path ``tta_predict``; ``tools.test --tta``
+   over phase 9's synthetic PNG set, A, B and C twice a forward's count
+   per batch, every key of JAX's tool finite (this phase's evaluation runs
+   keep ``TOOL_MAX_PER_IMG`` detections an image, for the metric's host
+   time); (c) the host ms of every
+   corruption at severity 3 on one fixture, and ``tools.test --corruption
+   NAME --severity 3`` over the JPEG fixtures for ``jpeg_compression``
+   (with ``--show-dir``: a JPEG under each image's name at its size),
+   ``motion_blur`` and ``gaussian_noise``, every key finite; (d)
+   ``Runner.validate()`` with ``vis_interval=1`` on the scratch-512
+   trainer over the JPEG set writes ``vis/val_0.jpg`` and ``val_2.jpg`` at
+   the images' sizes; (e) ``tools.analysis_tools.benchmark --task
+   inference`` (batch 2) and ``get_flops`` (predict, 1024^2, batch 1,
+   counted on the card over the encoder's plain route) print their numbers.
+   OpenCV is never imported.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -327,20 +355,23 @@ def _replaces(key: str, d: int = 64) -> str:
     return REPLACES[key] + ("" if d == 64 else HD80_NOTE)
 
 
-def mlp_row(rnd, dev, t: int, c: int, tag: str = "", launches_alone: bool = False) -> dict:
+def mlp_row(rnd, dev, t: int, c: int, tag: str = "", launches_alone: bool = False,
+            inputs=None) -> dict:
     """Kernel A at x (t, c), M = 4 c, against its plain version, with the
     kernel, plain, composed-library and bound times; ``launches_alone`` also
-    logs its three launches' times."""
+    logs its three launches' times. ``inputs`` = (x, ln_w, ln_b, w1, b1, w2,
+    b2, eps), as a layer of the path gives them, replace the random ones."""
     import torch
 
     from rsprompter_tpu_torch.ops import fused_mlp as fm
 
     mlp = 4 * c
-    x = rnd(t, c)
-    ln_w, ln_b = 1 + rnd(c, scale=0.1, dtype=torch.float32), rnd(c, scale=0.1, dtype=torch.float32)
-    w1, b1 = rnd(mlp, c, scale=0.02), rnd(mlp, scale=0.02)
-    w2, b2 = rnd(c, mlp, scale=0.02), rnd(c, scale=0.02)
-    args = (x, ln_w, ln_b, w1, b1, w2, b2, 1e-6)
+    args = inputs or (
+        rnd(t, c), 1 + rnd(c, scale=0.1, dtype=torch.float32),
+        rnd(c, scale=0.1, dtype=torch.float32), rnd(mlp, c, scale=0.02), rnd(mlp, scale=0.02),
+        rnd(c, mlp, scale=0.02), rnd(c, scale=0.02), 1e-6)
+    x, ln_w, ln_b, w1, b1, w2, b2, eps = args
+    (t, c), mlp, dev = x.shape, w1.shape[0], x.device
     got = fm.ln_mlp_residual(*args)
     torch.cuda.synchronize()
     ref = fm.ln_mlp_residual_plain(*[a.float() if torch.is_tensor(a) else a for a in args])
@@ -353,7 +384,7 @@ def mlp_row(rnd, dev, t: int, c: int, tag: str = "", launches_alone: bool = Fals
             torch.empty_like(x)
         parts = {
             "row pass": lambda: fm.LN_ROWS.launch(fm.ptr(x), fm.ptr(ln_w), fm.ptr(ln_b),
-                                                  fm.ptr(z), 1, 1, t, c, 0, 1e-6,
+                                                  fm.ptr(z), 1, 1, t, c, 0, eps,
                                                   variant="check"),
             "fc1": lambda: fm.LN_MLP_RESIDUAL.launch(fm.ptr(z), fm.ptr(w1), fm.ptr(b1),
                                                      fm._NULL, fm.ptr(hid), t, mlp, c, 0,
@@ -369,7 +400,7 @@ def mlp_row(rnd, dev, t: int, c: int, tag: str = "", launches_alone: bool = Fals
     F = torch.nn.functional
 
     def library_a():  # composed of bf16 PyTorch calls: LN -> fc1 -> exact GELU -> fc2 + residual
-        z = F.layer_norm(x, (c,), ln_wb, ln_bb, 1e-6)
+        z = F.layer_norm(x, (c,), ln_wb, ln_bb, eps)
         return x + F.linear(F.gelu(F.linear(z, w1, b1), approximate="none"), w2, b2)
 
     torch.testing.assert_close(library_a().float(), ref, atol=TOL * ref.abs().max().item(), rtol=0)
@@ -386,23 +417,29 @@ def mlp_row(rnd, dev, t: int, c: int, tag: str = "", launches_alone: bool = Fals
 
 
 def qkv_rows(rnd, dev, bsz: int, grid: int, c: int, heads: int, win: int,
-             tag: str = "") -> list:
+             tag: str = "", inputs=None, variants=("global", "window")) -> list:
     """Kernel B's row pass alone and kernel B (row pass + GEMM) on x (bsz,
-    grid, grid, c) with ``heads`` heads of c / heads, global and windowed,
-    each against its plain version."""
+    grid, grid, c) with ``heads`` heads of c / heads, global and windowed
+    (``variants``), each against its plain version. ``inputs`` = (x, ln_w,
+    ln_b, wq, bq, eps), as a layer of the path gives them, replace the random
+    ones."""
     import torch
 
     from rsprompter_tpu_torch.ops import fused_mlp as fm
 
     F = torch.nn.functional
-    d = c // heads
-    t = bsz * grid * grid
     rows = []
-    xg = rnd(bsz, grid, grid, c)
-    ln_w, ln_b = 1 + rnd(c, scale=0.1, dtype=torch.float32), rnd(c, scale=0.1, dtype=torch.float32)
+    xg, ln_w, ln_b, wq, bq, eps = inputs or (
+        rnd(bsz, grid, grid, c), 1 + rnd(c, scale=0.1, dtype=torch.float32),
+        rnd(c, scale=0.1, dtype=torch.float32), rnd(3 * c, c, scale=0.02),
+        rnd(3 * c, scale=0.02), 1e-6)
+    (bsz, grid, _, c), dev = xg.shape, xg.device
+    d = c // heads
+    t = bsz * grid * grid  # the real tokens: a window's zero pad takes no products
     ln_wb, ln_bb = ln_w.to(xg.dtype), ln_b.to(xg.dtype)
-    wq, bq = rnd(3 * c, c, scale=0.02), rnd(3 * c, scale=0.02)
     for variant, window in (("global", 0), ("window", win)):
+        if variant not in variants:
+            continue
         replaces = _replaces(f"qkv/{variant}", d)
         # the row pass alone (LN, window partition, zero pad into z)
         n_img, s = fm._qkv_rows(xg, 3 * heads, window)
@@ -410,12 +447,12 @@ def qkv_rows(rnd, dev, bsz: int, grid: int, c: int, heads: int, win: int,
 
         def row_pass(z=z, window=window):
             fm.LN_ROWS.launch(fm.ptr(xg), fm.ptr(ln_w), fm.ptr(ln_b), fm.ptr(z), bsz, grid,
-                              grid, c, window, 1e-6, variant="check")
+                              grid, c, window, eps, variant="check")
 
         row_pass()
         torch.cuda.synchronize()
         err = compare(f"ln_rows/{variant}{tag}", z,
-                      fm.ln_rows_plain(xg.float(), ln_w, ln_b, window, 1e-6))
+                      fm.ln_rows_plain(xg.float(), ln_w, ln_b, window, eps))
         b_ms, b_by = bound_ms(0.0, xg.numel() * 2 + z.numel() * 2 + 2 * c * 4)
         rows.append(dict(
             name=f"ln_rows/{variant}{tag}", kernel=fm.LN_ROWS, variant=variant, route="cuda",
@@ -423,14 +460,14 @@ def qkv_rows(rnd, dev, bsz: int, grid: int, c: int, heads: int, win: int,
             shape=f"x ({bsz}, {grid}, {grid}, {c}) -> z {tuple(z.shape)} bf16",
             max_abs_err=err, ms=cuda_time_ms(row_pass),
             plain_ms=cuda_time_ms(lambda window=window: fm.ln_rows_plain(
-                xg, ln_w, ln_b, window, 1e-6)),
+                xg, ln_w, ln_b, window, eps)),
             bound_ms=b_ms, bound_by=b_by,
             # global: one call (LN); window: LN, then the partition and pad
             library_ms=cuda_time_ms(lambda window=window: fm.window_partition(
-                F.layer_norm(xg, (c,), ln_wb, ln_bb, 1e-6), window).contiguous()),
+                F.layer_norm(xg, (c,), ln_wb, ln_bb, eps), window).contiguous()),
         ))
         del z
-        a = (xg, ln_w, ln_b, wq, bq, 3 * heads, window, 1e-6)
+        a = (xg, ln_w, ln_b, wq, bq, 3 * heads, window, eps)
         got = fm.ln_qkv_headmajor(*a)
         torch.cuda.synchronize()
         ref = fm.ln_qkv_headmajor_plain(*[v.float() if torch.is_tensor(v) else v for v in a])
@@ -439,7 +476,7 @@ def qkv_rows(rnd, dev, bsz: int, grid: int, c: int, heads: int, win: int,
         def library_b(window=window, shape=got.shape):
             # composed of bf16 PyTorch calls: LN -> window partition and zero
             # pad (window layers) -> qkv -> head-major copy
-            z = fm.window_partition(F.layer_norm(xg, (c,), ln_wb, ln_bb, 1e-6), window)
+            z = fm.window_partition(F.layer_norm(xg, (c,), ln_wb, ln_bb, eps), window)
             return F.linear(z, wq, bq).reshape(shape[0], shape[2], shape[1], d).permute(
                 0, 2, 1, 3).contiguous()
 
@@ -463,10 +500,12 @@ def qkv_rows(rnd, dev, bsz: int, grid: int, c: int, heads: int, win: int,
 
 
 def attention_rows(rnd, bsz: int, grid: int, heads: int, d: int, win: int,
-                   tag: str = "") -> list:
+                   tag: str = "", inputs=None, variants=("global", "window")) -> list:
     """Kernel C on qkv of ``heads`` heads of ``d``, at the global grid and
-    the windows of a batch of ``bsz``, against its plain version; the
-    library call is SDPA with the bias materialised in bf16."""
+    the windows of a batch of ``bsz`` (``variants``), against its plain
+    version; the library call is SDPA with the bias materialised in bf16.
+    ``inputs`` = (qkv, fh, fw), as a layer of the path gives them to the one
+    variant asked for, replace the random ones."""
     import torch
 
     from rsprompter_tpu_torch.ops import fused_vit_attention as fa
@@ -474,10 +513,13 @@ def attention_rows(rnd, bsz: int, grid: int, heads: int, d: int, win: int,
     rows = []
     n_win = bsz * (-(-grid // win)) ** 2
     for variant, n_img, hw in (("global", bsz, (grid, grid)), ("window", n_win, (win, win))):
+        if variant not in variants:
+            continue
         s = hw[0] * hw[1]
-        qkv = rnd(n_img, 3 * heads, s, d)
-        fh = rnd(n_img, heads, s, hw[0], scale=0.5)
-        fw = rnd(n_img, heads, s, hw[1], scale=0.5)
+        qkv, fh, fw = inputs or (rnd(n_img, 3 * heads, s, d),
+                                 rnd(n_img, heads, s, hw[0], scale=0.5),
+                                 rnd(n_img, heads, s, hw[1], scale=0.5))
+        n_img = qkv.shape[0]
         got = fa.relpos_attention(qkv, fh, fw, hw)
         torch.cuda.synchronize()
         ref = fa.relpos_attention_plain(qkv.float(), fh.float(), fw.float(), hw)
@@ -4095,7 +4137,7 @@ def serving_phase(kernels, config: str = CONFIG, device: str = "cuda",
     import numpy as np
     import torch
 
-    from rsprompter_tpu_torch.data.io import decode_png, encode_png, imread
+    from rsprompter_tpu_torch.data.io import encode_png, imread
     from rsprompter_tpu_torch.ops import fused_vit_attention as fa
     from rsprompter_tpu_torch.tools import image_demo, large_image_demo, serve
     from rsprompter_tpu_torch.tools import test as tool
@@ -4116,13 +4158,12 @@ def serving_phase(kernels, config: str = CONFIG, device: str = "cuda",
             dumped = json.load(f)
         if len(dumped) != len(jpegs) or len(demo["predictions"]) != len(jpegs):
             raise AssertionError(f"image_demo: {len(dumped)} entries for {len(jpegs)} images")
-        for path in jpegs:
-            drawn = os.path.join(out_dir, os.path.splitext(os.path.basename(path))[0] + ".png")
-            with open(drawn, "rb") as f:
-                vis = decode_png(f.read())
+        for path in jpegs:  # drawn under the input's own name, JPEG at quality 95
+            drawn = os.path.join(out_dir, os.path.basename(path))
+            vis = imread(drawn)
             if vis.shape != imread(path).shape:
                 raise AssertionError(f"image_demo: {drawn} is {vis.shape}")
-        log(f"image_demo: {len(jpegs)} JPEGs -> {len(jpegs)} drawn PNGs at the inputs' shapes "
+        log(f"image_demo: {len(jpegs)} JPEGs -> {len(jpegs)} drawn JPEGs at the inputs' shapes "
             f"and predictions.json ({sum(len(p['scores']) for p in dumped)} detections) in "
             f"{time.time() - t0:.1f} s")
         del demo
@@ -4286,8 +4327,7 @@ def serving_phase(kernels, config: str = CONFIG, device: str = "cuda",
         if len(boxes) and (boxes.min() < 0 or boxes[:, [0, 2]].max() > w
                            or boxes[:, [1, 3]].max() > h):
             raise AssertionError("large_image_demo: merged boxes outside the scene")
-        with open(res["image_path"], "rb") as f:
-            drawn = decode_png(f.read())
+        drawn = imread(res["image_path"])
         with open(res["json_path"]) as f:
             dumped = json.load(f)
         if drawn.shape != scene.shape or len(dumped["scores"]) != len(boxes):
@@ -4321,6 +4361,320 @@ def serving_phase(kernels, config: str = CONFIG, device: str = "cuda",
     log(f"phase 17: {time.time() - t_phase:.1f} s; JPEG decode "
         f"{statistics.median(decode_ms.values()):.2f} ms an image (median)")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the test tool's evaluation options, validation drawing and the
+# analysis tools
+# ---------------------------------------------------------------------------
+
+TTA_PATH = "tta_predict"
+CORRUPTION_RUNS = ("jpeg_compression", "motion_blur", "gaussian_noise")
+# detections an image in phase 18's evaluation runs: the metric's host work
+# (masks at the original size, RLE) follows them, 3.5 s an image at 100
+TOOL_MAX_PER_IMG = 20
+CORRUPTION_SEVERITY = 3
+ENCODE_QUALITIES = (95, 7)
+
+
+def jpeg_encoder_check(reps: int = 3) -> dict:
+    """The port's JPEG encoder, built by g++ on this machine: its bytes of
+    every fixture's decoded image at qualities 95 and 7 equal to
+    ``cv2.imencode``'s (the sha256 in ``tests/data/jpeg/encode_digests.json``),
+    each file decoding through the port's decoder to the image's shape.
+    Returns {name: host ms an encode at quality 95 (median)}."""
+    import hashlib
+
+    from rsprompter_tpu_torch.data.io import imread
+    from rsprompter_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg, load_encoder
+
+    t0 = time.time()
+    load_encoder()
+    log(f"JPEG encoder built and loaded in {time.time() - t0:.2f} s")
+    with open(os.path.join(JPEG_DIR, "encode_digests.json")) as f:
+        digests = json.load(f)
+    ms = {}
+    for name, want in sorted(digests.items()):
+        img = imread(os.path.join(JPEG_DIR, name))
+        for q in ENCODE_QUALITIES:
+            times = []
+            for _ in range(reps):
+                t1 = time.perf_counter()
+                data = encode_jpeg(img, q)
+                times.append((time.perf_counter() - t1) * 1e3)
+            got = hashlib.sha256(data).hexdigest()
+            if got != want[str(q)]["sha256"]:
+                raise AssertionError(f"JPEG encoder: {name} at quality {q}: sha256 {got[:16]}..., "
+                                     f"cv2.imencode gave {want[str(q)]['sha256'][:16]}...")
+            if decode_jpeg(data).shape != img.shape:
+                raise AssertionError(f"JPEG encoder: {name} at quality {q} decodes to another "
+                                     "shape")
+            if q == 95:
+                ms[name] = statistics.median(times)
+    log("JPEG encoder: every fixture at qualities 95 and 7 gives cv2.imencode's bytes and "
+        "decodes to its shape; host ms an encode at 95 (median of "
+        f"{reps}): " + ", ".join(f"{n} {v:.2f}" for n, v in ms.items()))
+    return ms
+
+
+def tta_layer_rows(layer, x, with_mlp: bool) -> list:
+    """Phase 3's rows of B and C (and A where ``with_mlp``) on the inputs that
+    ``layer`` of the encoder gives them for the layer input ``x`` (B, H, W, C)
+    bf16."""
+    from rsprompter_tpu_torch.ops import fused_mlp as fm
+    from rsprompter_tpu_torch.ops.attention import rel_pos_factors
+
+    attn, win, eps = layer.attn, layer.window_size, layer.eps
+    bsz, grid, _, c = x.shape
+    nh, kind = attn.num_heads, "window" if win else "global"
+    ln1, ln2, mlp = layer.layer_norm1, layer.layer_norm2, layer.mlp
+    b_in = (x, ln1.weight, ln1.bias, attn.qkv.weight.to(x.dtype), layer._qkv_bias(x), eps)
+    rows = qkv_rows(None, None, bsz, grid, c, nh, win, "@tta", b_in, (kind,))
+    qkv = fm.ln_qkv_headmajor(*b_in[:5], 3 * nh, win, eps)
+    hw = (win, win) if win else (grid, grid)
+    fh, fw = rel_pos_factors(qkv[:, :nh], attn.rel_pos_h, attn.rel_pos_w, hw)
+    rows += attention_rows(None, bsz, grid, nh, c // nh, win or grid, "@tta",
+                           (qkv, fh.contiguous(), fw.contiguous()), (kind,))
+    if with_mlp:
+        x2 = (x + layer._attend(qkv, x.shape[:3], False)).reshape(-1, c).contiguous()
+        dt = x.dtype
+        rows.append(mlp_row(None, None, x2.shape[0], c, "@tta", inputs=(
+            x2, ln2.weight, ln2.bias, mlp.lin1.weight.to(dt), mlp.lin1.bias.to(dt),
+            mlp.lin2.weight.to(dt), mlp.lin2.bias.to(dt), eps)))
+    return rows
+
+
+def tta_kernel_rows(det, batch) -> list:
+    """Kernels A, B and C against their plain versions on the inputs that the
+    mirrored batch gives the encoder's first window layer and its first
+    global layer (path ``tta_predict``)."""
+    import torch
+
+    from rsprompter_tpu_torch.models.preprocess import preprocess_images
+    from rsprompter_tpu_torch.models.tta import hflip_batch
+
+    enc = det.backbone
+    rows, seen = [], set()
+    with torch.no_grad():
+        x = enc.patch_embed(preprocess_images(hflip_batch(batch)["images"]))
+        if enc.pos_embed is not None:
+            x = x + enc.pos_embed.to(x.dtype)
+        x = x.to(torch.bfloat16)
+        for layer in enc.layers:
+            kind = "window" if layer.window_size else "global"
+            if kind not in seen:
+                rows += tta_layer_rows(layer, x.contiguous(), with_mlp=not seen)
+                seen.add(kind)
+            if len(seen) == 2:
+                break
+            x = layer(x, "kernel")
+    for r in rows:
+        r["path"] = TTA_PATH
+    log_rows(rows)
+    return rows
+
+
+def check_tool_keys(what: str, metrics: dict) -> None:
+    import numpy as np
+
+    bad = [k for k in JAX_TOOL_KEYS if not np.isfinite(metrics.get(k, float("nan")))]
+    if bad:
+        raise AssertionError(f"{what}: keys missing or not finite: {bad}")
+
+
+def corruption_host_ms(img) -> dict:
+    """Host ms of each corruption at ``CORRUPTION_SEVERITY`` on one image
+    (float32, as the test tool's pipeline hands it over)."""
+    import numpy as np
+
+    from rsprompter_tpu_torch.data.corruptions import CORRUPTIONS, corrupt
+
+    x = img.astype(np.float32)
+    ms = {}
+    for name in CORRUPTIONS:
+        t0 = time.perf_counter()
+        out = corrupt(x, name, CORRUPTION_SEVERITY, seed=1)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        if out.shape != x.shape or not np.isfinite(out).all():
+            raise AssertionError(f"corruption {name}: {out.shape}, or not finite")
+    return ms
+
+
+def tta_tools_phase(kernels, config: str = CONFIG, device: str = "cuda",
+                    eval_sizes=EVAL_SIZES, vis_config: str = TRAIN_CONFIG,
+                    tool_config: Optional[str] = None) -> tuple:
+    """Phase 18 (see the module docstring). Returns (the launch counts of one
+    TTA batch, path ``tta_predict``; the kernel rows held on that path).
+    ``tool_config`` is what ``benchmark`` and ``get_flops`` run on
+    (default ``config``)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rsprompter_tpu_torch.apis.inference import init_detector
+    from rsprompter_tpu_torch.core.config import Config
+    from rsprompter_tpu_torch.core.registry import DATASETS
+    from rsprompter_tpu_torch.data.io import imread
+    from rsprompter_tpu_torch.data.loader import DataLoader
+    from rsprompter_tpu_torch.engine.runner import Runner
+    from rsprompter_tpu_torch.engine.train_state import build_trainer
+    from rsprompter_tpu_torch.models.tta import (hflip_batch, make_tta_predict, merge_views,
+                                                 tta_settings)
+    from rsprompter_tpu_torch.tools import test as tool
+    from rsprompter_tpu_torch.tools.analysis_tools import benchmark, get_flops
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_coco
+
+    t_phase = time.time()
+    on_card = device == "cuda"
+    encode_ms = jpeg_encoder_check()
+
+    # --- (b) TTA: launches, the hand merge, the kernels at the mirrored batch
+    inferencer = init_detector(config, device=device, batch_size=2, seed=0)
+    det = inferencer.model
+    settings = tta_settings(inferencer.cfg)
+    paste = inferencer.mask_mode == "paste"
+    tta = make_tta_predict(det, **settings)
+    batch, metas = inferencer.make_batch(synthetic_images(0))
+    widths = batch["img_shape"][:, 1].tolist()
+    if min(widths) == batch["images"].shape[2]:
+        raise AssertionError(f"TTA: no image narrower than the canvas ({widths})")
+    tta(batch)  # warm-up
+    for k in kernels:
+        k.reset_counts()
+    dets, probs = tta(batch)
+    if on_card:
+        torch.cuda.synchronize()
+    counts = {k.name: dict(k.variant_launches) for k in kernels}
+    if kernels:
+        want = expected_forward_launches(det, 2)
+        for name, w in want.items():
+            if counts[name] != w:
+                raise AssertionError(f"TTA {name}: launches {counts[name]}, expected {w} "
+                                     "(twice phase 3's per forward)")
+    hand = merge_views(batch, det.predict(batch), det.predict(hflip_batch(batch)),
+                       paste=paste, **settings)
+    for field, a, b in zip(dets._fields + ("probs",), tuple(dets) + (probs,),
+                           tuple(hand[0]) + (hand[1],)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"TTA {field}: not the merge of two predicts, bit for bit")
+    n_kept = dets.valid.sum(1).tolist()
+    if min(n_kept) == 0 or not torch.isfinite(dets.scores).all():
+        raise AssertionError(f"TTA: kept {n_kept}, or scores not finite")
+    log(f"TTA predict ({settings}): launches {counts}; equal bit for bit to merge_views of two "
+        f"model.predict calls; kept {n_kept} of {dets.valid.shape[1]}; valid widths {widths}")
+    rows = []
+    if on_card:
+        tta_ms = cuda_time_ms(lambda: tta(batch), warmup=1, iters=5, repeat=2)
+        plain_ms = cuda_time_ms(lambda: det.predict(batch), warmup=1, iters=5, repeat=2)
+        log(f"TTA: {tta_ms:.2f} ms a batch of 2 ({2e3 / tta_ms:.3f} images/s) against plain "
+            f"predict {plain_ms:.2f} ms ({2e3 / plain_ms:.3f} images/s), {tta_ms / plain_ms:.3f}x "
+            "(CUDA events, median of 5 runs of 2 back-to-back calls)")
+        rows = tta_kernel_rows(det, batch)
+    del inferencer, det, tta, dets, probs, hand
+    if on_card:
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- tools.test --tta over phase 9's synthetic PNG set
+        t0 = time.time()
+        png = synthetic_coco(os.path.join(tmp, "png"), NWPU_CLASSES, eval_sizes, write_png,
+                             seed=0)
+        where = ["--cfg-options", "test_dataloader.dataset.ann_file=ann.json",
+                 "test_dataloader.dataset.data_prefix.img=imgs",
+                 f"model.test_cfg.rcnn.max_per_img={TOOL_MAX_PER_IMG}"]
+        for k in kernels:
+            k.reset_counts()
+        report = tool.main([config, "--tta", "--device", device] + where
+                           + [f"test_dataloader.dataset.data_root={png}"])
+        tool_counts = {k.name: dict(k.variant_launches) for k in kernels}
+        n_batches = -(-len(eval_sizes) // report["inferencer"].batch_size)
+        if kernels:
+            want = expected_forward_launches(report["inferencer"].model, 2 * n_batches)
+            for name, w in want.items():
+                if tool_counts[name] != w:
+                    raise AssertionError(f"tools.test --tta {name}: launches "
+                                         f"{tool_counts[name]}, expected {w}")
+        check_tool_keys("tools.test --tta", report["metrics"])
+        timing = report["timing"]
+        log(f"tools.test --tta over {timing['images']} PNGs: every key of JAX's tool finite, "
+            f"A, B, C launched twice a forward's count for each of {n_batches} batches; "
+            f"{timing['images'] / timing['wall_s']:.3f} images/s, predict "
+            f"{timing['predict_s']:.3f} s; {time.time() - t0:.1f} s")
+        del report
+
+        # --- (c) corruptions over the JPEG fixtures; --show-dir on one run
+        t0 = time.time()
+        coco = jpeg_coco(os.path.join(tmp, "jpeg"))
+        names = sorted(n for n in os.listdir(os.path.join(coco, "imgs")) if n.endswith(".jpg"))
+        host_ms = corruption_host_ms(imread(os.path.join(coco, "imgs", names[0])))
+        log(f"corruptions at severity {CORRUPTION_SEVERITY}, host ms on {names[0]}: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in host_ms.items()))
+        show = os.path.join(tmp, "show")
+        for name in CORRUPTION_RUNS:
+            argv = [config, "--corruption", name, "--severity", str(CORRUPTION_SEVERITY),
+                    "--device", device] + where + [f"test_dataloader.dataset.data_root={coco}"]
+            if name == CORRUPTION_RUNS[0]:
+                argv += ["--show-dir", show]
+            report = tool.main(argv)
+            check_tool_keys(f"tools.test --corruption {name}", report["metrics"])
+            log(f"tools.test --corruption {name} --severity {CORRUPTION_SEVERITY}: bbox_mAP "
+                f"{report['metrics']['coco/bbox_mAP']}, segm_mAP "
+                f"{report['metrics']['coco/segm_mAP']}, drawing {report['timing']['visit_s']:.3f} s")
+            del report
+        if sorted(os.listdir(show)) != names:
+            raise AssertionError(f"--show-dir wrote {sorted(os.listdir(show))}, not {names}")
+        for name in names:
+            with open(os.path.join(show, name), "rb") as f:
+                if f.read(2) != b"\xff\xd8":
+                    raise AssertionError(f"--show-dir {name}: not a JPEG")
+            if imread(os.path.join(show, name)).shape != imread(
+                    os.path.join(coco, "imgs", name)).shape:
+                raise AssertionError(f"--show-dir {name}: not the image's size")
+        log(f"--show-dir: {len(names)} JPEGs under the images' names at their sizes; "
+            f"(c) in {time.time() - t0:.1f} s")
+
+        # --- (d) Runner.validate() with vis_interval=1
+        t0 = time.time()
+        vis_cfg = Config.fromfile(vis_config)
+        vis_cfg.merge_from_options([f"model.test_cfg.rcnn.max_per_img={TOOL_MAX_PER_IMG}"])
+        trainer = build_trainer(vis_cfg, device=device, seed=0)
+        val = DataLoader(DATASETS.build(dict(type="NWPUInsSegDataset", data_root=coco,
+                                             ann_file="ann.json", data_prefix=dict(img="imgs"),
+                                             test_mode=True)), batch_size=2)
+        work = os.path.join(tmp, "work")
+        results = Runner(trainer, None, val, work_dir=work, num_classes=len(NWPU_CLASSES),
+                         vis_interval=1).validate()
+        drawn = sorted(os.listdir(os.path.join(work, "vis")))
+        if drawn != ["val_0.jpg", "val_2.jpg"]:
+            raise AssertionError(f"Runner vis_interval=1 drew {drawn}")
+        shape = imread(os.path.join(work, "vis", "val_0.jpg")).shape
+        if shape != imread(os.path.join(coco, "imgs", names[0])).shape:
+            raise AssertionError(f"vis/val_0.jpg is {shape}")
+        check_tool_keys("Runner.validate", results)
+        log(f"Runner.validate with vis_interval=1: {drawn} at the images' sizes; "
+            f"{time.time() - t0:.1f} s")
+        del trainer
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # --- (e) the analysis tools on the card
+    t0 = time.time()
+    bench = benchmark.main([tool_config or config, "--task", "inference", "--batch-size", "2",
+                            "--repeat", "10", "--device", device])
+    t1 = time.time()
+    flops = get_flops.main([tool_config or config, "--device", device])
+    log(f"benchmark --task inference: {bench['images_per_s']:.3f} images/s "
+        f"({bench['ms_per_batch']:.2f} ms a batch of 2) on {bench['device']} in "
+        f"{t1 - t0:.1f} s; get_flops (predict, 1 x {flops['input'][1:]}): "
+        f"{flops['flops'] / 1e9:.2f} GFLOPs of products and convolutions, "
+        f"{flops['params'] / 1e6:.2f} M parameters, counted on {device} (the encoder's plain "
+        f"route, fp32) in {time.time() - t1:.1f} s")
+    if sys.modules.get("cv2") is not None:
+        raise AssertionError("phase 18 imported cv2")
+    log(f"phase 18: {time.time() - t_phase:.1f} s; JPEG encode "
+        f"{statistics.median(encode_ms.values()):.2f} ms an image at quality 95 (median)")
+    return counts, rows
 
 
 def main() -> int:
@@ -4379,6 +4733,8 @@ def main() -> int:
     rows += wide_backward_rows(dev)
     paths.update(wide_train_phase(kernels, WIDE_TRAIN_STEPS, dev))
     paths["serve"] = serving_phase(kernels)
+    paths[TTA_PATH], tta_rows = tta_tools_phase(kernels)
+    rows += tta_rows
     out = []
     for r in rows:
         name, variant = r["kernel"].name, r["variant"]

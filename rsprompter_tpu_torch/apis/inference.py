@@ -6,8 +6,13 @@ Counterpart of ``rsprompter_tpu/apis/inference.py`` and
 JPEG through the port's own decoder) and arrays; with ``size_buckets`` each
 chunk of ``batch_size`` inputs runs at the smallest square bucket that fits
 all its images (JAX ``:102-107``, ``:234-238``); with ``out_dir`` it writes
-one drawn PNG per input (``apis.visualization``; JAX writes the input's
-format through ``cv2.imwrite``) and ``predictions.json`` without masks.
+one drawing per input (``apis.visualization``) under JAX's names -- a path's
+basename (JPEG at OpenCV's default quality 95 through the port's encoder for
+``.jpg`` / ``.jpeg``, PNG for ``.png``, ``.png`` put in place of any other
+extension), ``img_{n}.jpg`` for the n-th array -- and ``predictions.json``
+without masks. With ``tta`` set (``models.tta.make_tta_predict``'s
+predict) every batch runs with flip TTA inside ``predict_tensors``, which
+``oom_guard`` wraps, as JAX's test tool wraps its ``tta_fn``.
 One lock is held around each chunk's predict and its host copies, so that
 threads sharing an inferencer (the server's bucket workers) do not
 interleave launches, host syncs and the kernels' launch counts on the one
@@ -38,7 +43,7 @@ from __future__ import annotations
 import json
 import os
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,7 +55,7 @@ from rsprompter_tpu_torch.apis.build import (
 )
 from rsprompter_tpu_torch.apis.visualization import draw_predictions
 from rsprompter_tpu_torch.core.config import Config
-from rsprompter_tpu_torch.data.io import encode_png, imread
+from rsprompter_tpu_torch.data.io import drawn_name, imread, imwrite
 from rsprompter_tpu_torch.engine.checkpoint import load_config_sam, load_torch_checkpoint
 from rsprompter_tpu_torch.models.roi_heads.mask_head import paste_masks_np
 from rsprompter_tpu_torch.ops.image import resize_bilinear_cv2
@@ -123,6 +128,7 @@ class DetInferencer:
         self.mask_mode = mask_mode_of(self.model)
         self.max_gt = cfg.get("max_gt", 100)
         self.oracle = False  # oracle_predict: ground-truth boxes as prompts
+        self.tta: Optional[Callable] = None  # make_tta_predict's predict
         self._lock = threading.Lock()
 
     @classmethod
@@ -142,6 +148,7 @@ class DetInferencer:
         self.mask_mode = mask_mode_of(model)
         self.max_gt = cfg.get("max_gt", 100)
         self.oracle = False
+        self.tta = None
         self._lock = threading.Lock()
         return self
 
@@ -224,11 +231,14 @@ class DetInferencer:
         mask probabilities at the decoder's resolution (full frame, or each
         detection's box in 'paste' mode), as JAX's ``tools/test.py`` hands
         them to ``CocoMetric``. With ``oracle`` set the batch's ground truth
-        prompts SAM. This is what ``oom_guard`` wraps."""
+        prompts SAM; with ``tta`` set the batch and its mirror are predicted
+        and merged. This is what ``oom_guard`` wraps."""
         if self.oracle:
             if "gt_bboxes" not in batch:
                 raise ValueError("oracle prediction needs the images' ground truth (gts)")
             dets, probs = self.model.oracle_predict(batch)
+        elif self.tta is not None:
+            dets, probs = self.tta(batch)
         else:
             dets, probs = self.model.predict(batch)
         return dets, quantize_probs_u8(probs)
@@ -296,10 +306,9 @@ class DetInferencer:
             if out_dir:
                 os.makedirs(out_dir, exist_ok=True)
                 for i, (item, img, pred) in enumerate(zip(chunk, imgs, preds)):
-                    name = (os.path.splitext(os.path.basename(os.fspath(item)))[0]
-                            if isinstance(item, (str, os.PathLike)) else f"img_{start + i}")
-                    with open(os.path.join(out_dir, name + ".png"), "wb") as f:
-                        f.write(encode_png(draw_predictions(img, pred)))
+                    name = (drawn_name(item) if isinstance(item, (str, os.PathLike))
+                            else f"img_{start + i}.jpg")
+                    imwrite(os.path.join(out_dir, name), draw_predictions(img, pred))
             predictions.extend(preds)
         if out_dir:
             dumpable = [{k: np.asarray(v).tolist() for k, v in p.items() if k != "masks"}

@@ -9,19 +9,22 @@ marker goes to the port's baseline decoder (``data/jpeg.py``), never to
 OpenCV, which raises for a JPEG it refuses. ``.npy`` files are read as they
 are. Any other format goes to ``cv2.imread`` where OpenCV imports, and
 raises ``ValueError`` otherwise. ``decode_image`` does the same for bytes
-(the server's request bodies), and ``encode_png`` writes the port's drawn
-images.
+(the server's request bodies). ``encode_png`` and ``imwrite`` write the
+port's drawn images: ``imwrite`` picks the format by the file's extension as
+``cv2.imwrite`` does (``.jpg`` / ``.jpeg``: the port's JPEG encoder at
+OpenCV's default quality 95; ``.png``: ``encode_png``).
 """
 
 from __future__ import annotations
 
 import io
+import os
 import struct
 import zlib
 
 import numpy as np
 
-from rsprompter_tpu_torch.data.jpeg import JPEG_SOI, decode_jpeg
+from rsprompter_tpu_torch.data.jpeg import JPEG_SOI, decode_jpeg, encode_jpeg
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 NPY_MAGIC = b"\x93NUMPY"
@@ -79,6 +82,33 @@ def encode_png(img: np.ndarray) -> bytes:
 
     return (PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), PNG_LEVEL)) + chunk(b"IEND", b""))
+
+
+JPEG_EXTENSIONS = (".jpg", ".jpeg")
+
+
+def drawn_name(path: str) -> str:
+    """The file name a drawing of the image at ``path`` is written under:
+    its basename, as JAX's ``cv2.imwrite`` keeps it, where the port writes
+    that format (JPEG, PNG), else the basename with ``.png``."""
+    name = os.path.basename(os.fspath(path))
+    stem, ext = os.path.splitext(name)
+    return name if ext.lower() in JPEG_EXTENSIONS + (".png",) else stem + ".png"
+
+
+def imwrite(path: str, img: np.ndarray, quality: int = 95) -> None:
+    """Write (H, W, 3) uint8 BGR to ``path``: JPEG at ``quality`` for a
+    ``.jpg`` / ``.jpeg`` name, PNG for ``.png``; any other name raises
+    ``ValueError``."""
+    ext = os.path.splitext(os.fspath(path))[1].lower()
+    if ext in JPEG_EXTENSIONS:
+        data = encode_jpeg(img, quality)
+    elif ext == ".png":
+        data = encode_png(img)
+    else:
+        raise ValueError(f"{path}: the port writes .jpg, .jpeg and .png, not {ext!r}")
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _chunks(data: bytes):

@@ -1,4 +1,6 @@
-"""JPEG files -> HWC BGR uint8 arrays, as ``cv2.imread(path, IMREAD_COLOR)``.
+"""JPEG files <-> HWC BGR uint8 arrays, as ``cv2.imread(path, IMREAD_COLOR)``
+reads them and ``cv2.imencode('.jpg', img, [IMWRITE_JPEG_QUALITY, q])``
+writes them.
 
 The card's machine has neither OpenCV nor PIL, and NWPU VHR-10 and SSDD
 ship JPEGs. The port decodes them with its own baseline decoder,
@@ -16,6 +18,13 @@ more than 2^30 pixels (OpenCV's ``CV_IO_MAX_IMAGE_PIXELS``) raise
 ``ValueError`` with the file's name and the marker; nothing falls back to
 OpenCV. The server hands it untrusted bytes. The EXIF orientation is applied as
 OpenCV's ``imread`` applies it.
+
+``encode_jpeg`` is the port's own baseline encoder,
+``rsprompter_tpu_torch/native/jpeg_encode.cpp``, built the same way: 3-channel
+BGR at a quality of 1-100, 4:2:0, libjpeg-turbo's colour conversion, ISLOW
+DCT, quantiser and standard Huffman tables, so that its bytes equal
+``cv2.imencode``'s (``tests/test_torch_jpeg_encode.py``). Any other input
+raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Dict
 
 import numpy as np
 
@@ -31,6 +40,7 @@ from rsprompter_tpu_torch.utils import native
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PACKAGE_DIR / "native" / "jpeg.cpp"
+ENCODER_SOURCE = PACKAGE_DIR / "native" / "jpeg_encode.cpp"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "native"
 JPEG_SOI = b"\xff\xd8"
 _ERR_LEN = 256
@@ -42,17 +52,30 @@ _SIGNATURES = {
     "jpeg_decode": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
                                    ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]),
 }
-_lib: Optional[ctypes.CDLL] = None
+_ENCODER_SIGNATURES = {
+    "jpeg_encode": (ctypes.c_int64, [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p,
+                                     ctypes.c_int]),
+}
+_libs: Dict[Path, ctypes.CDLL] = {}  # by source, built and loaded once per process
 _lock = threading.Lock()
 
 
-def load_library() -> ctypes.CDLL:
-    """The decoder's library, built and loaded once per process."""
-    global _lib
+def _load(source: Path, signatures) -> ctypes.CDLL:
     with _lock:
-        if _lib is None:
-            _lib = native.load_library(SOURCE, BUILD_DIR, _SIGNATURES)
-    return _lib
+        if source not in _libs:
+            _libs[source] = native.load_library(source, BUILD_DIR, signatures)
+        return _libs[source]
+
+
+def load_library() -> ctypes.CDLL:
+    """The decoder's library."""
+    return _load(SOURCE, _SIGNATURES)
+
+
+def load_encoder() -> ctypes.CDLL:
+    """The encoder's library."""
+    return _load(ENCODER_SOURCE, _ENCODER_SIGNATURES)
 
 
 def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
@@ -77,3 +100,28 @@ def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
     if lib.jpeg_decode(data, len(data), out.ctypes.data, h.value, w.value, err, _ERR_LEN):
         raise ValueError(f"{name}: {err.value.decode()}")
     return _orient(out, orientation.value)
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W, 3) uint8 BGR -> baseline JPEG bytes at ``quality`` (1-100),
+    the bytes ``cv2.imencode('.jpg', img, [IMWRITE_JPEG_QUALITY, quality])``
+    gives; 95 is OpenCV's default."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8 BGR, not {img.shape} {img.dtype}")
+    if isinstance(quality, bool) or int(quality) != quality or not 1 <= quality <= 100:
+        raise ValueError(f"JPEG quality {quality!r} is not an integer in 1..100")
+    lib = load_encoder()
+    img = np.ascontiguousarray(img)
+    h, w = img.shape[:2]
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    cap = 1024 + h * w
+    while True:
+        out = np.empty(cap, np.uint8)
+        n = lib.jpeg_encode(img.ctypes.data, h, w, int(quality), out.ctypes.data, cap,
+                            err, _ERR_LEN)
+        if n < 0:
+            raise ValueError(err.value.decode())
+        if n <= cap:
+            return out[:n].tobytes()
+        cap = n

@@ -18,8 +18,14 @@ own to a step. Batches go up from pinned memory without a wait
 Validation runs the trainer's own module, in eval mode and without
 gradients, through the loop ``tools.test`` runs (``evaluation.loop``), and
 adds JAX's digest keys ``val/num_dets``, ``val/mean_score`` and
-``val/mean_mask_prob``. Not ported: ``_visualize`` (``vis_interval`` > 0
-raises) and JAX's mesh, ``batch_fn`` and ``cache_train_batches``.
+``val/mean_mask_prob``. With ``vis_interval`` > 0 the first image of every
+batch that starts at an image offset divisible by it (padded slots counted,
+as JAX counts them) is drawn into ``WORK_DIR/vis/val_{offset}.jpg``
+(JAX's ``_visualize``, :292-331: detections over a score of 0.3 over the
+original file). As in JAX a drawing that fails does not stop training: what
+reading, drawing and writing the file raise (``OSError``, ``ValueError``)
+is logged; anything else, a CUDA error among it, propagates. Not ported:
+JAX's mesh, ``batch_fn`` and ``cache_train_batches``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from rsprompter_tpu_torch.apis.inference import DetInferencer
+from rsprompter_tpu_torch.apis.visualization import draw_slot
 from rsprompter_tpu_torch.engine.checkpoint import (
     latest_checkpoint,
     restore_checkpoint,
@@ -87,9 +94,6 @@ class Runner:
         save_best: Sequence[str] = ("coco/bbox_mAP", "coco/segm_mAP"),
         vis_interval: int = 0,
     ):
-        if vis_interval:
-            raise NotImplementedError(
-                "vis_interval > 0 (drawing validation images) is not ported (ROADMAP A7)")
         self.trainer = trainer
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -103,6 +107,7 @@ class Runner:
         os.makedirs(work_dir, exist_ok=True)
         self.vis_backends = list(vis_backends) if vis_backends else [LocalVisBackend(work_dir)]
         self.save_best = tuple(save_best)
+        self.vis_interval = vis_interval
         self.best_metrics = {k: -1.0 for k in self.save_best}
         self.save_ms: List[float] = []  # the host time of each checkpoint save
         self._last_log = (time.perf_counter(), 0)
@@ -179,10 +184,30 @@ class Runner:
         inferencer = DetInferencer.from_module(model, self.trainer.cfg,
                                                batch_size=self.val_loader.batch_size)
         metric = CocoMetric(num_classes=self.num_classes, mask_mode=inferencer.mask_mode)
+        offset = 0
+
+        def visualize(metas, dets, probs) -> None:
+            nonlocal offset
+            if offset % self.vis_interval == 0:
+                self._visualize(metas[0], dets, probs, offset, inferencer.mask_mode)
+            offset += len(metas)
+
         model.eval()
         try:
             with torch.no_grad():
-                report = evaluate(inferencer, self.val_loader, metric)
+                report = evaluate(inferencer, self.val_loader, metric,
+                                  visit=visualize if self.vis_interval else None)
         finally:
             model.train()
         return dict(report["metrics"], **report["digest"])
+
+    def _visualize(self, meta, dets, probs, index: int, mask_mode: str) -> None:
+        """Draw slot 0 of a validation batch into ``vis/val_{index}.jpg``."""
+        classes = (getattr(self.val_loader.dataset, "metainfo", None) or {}).get("classes")
+        try:
+            vis_dir = os.path.join(self.work_dir, "vis")
+            os.makedirs(vis_dir, exist_ok=True)
+            draw_slot(os.path.join(vis_dir, f"val_{index}.jpg"), dets, probs, 0, meta,
+                      classes, mask_mode)
+        except (OSError, ValueError) as err:  # a drawing never stops training
+            print(f"vis failed: {err}", flush=True)

@@ -10,13 +10,15 @@ uint8 mask probabilities copied to the host and handed to ``CocoMetric``
 with the GT of each raw sample at its original size. Beside
 the metric it sums JAX's prediction digest (:284-298): the kept detections,
 their mean score and their mean mask probability over every slot of each
-batch, padded slots included, as JAX's validation counts them.
+batch, padded slots included, as JAX's validation counts them. A
+``visit`` callback sees each batch on the host after the metric (the test
+tool's ``--show-dir`` and the runner's drawing of validation images).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -30,15 +32,19 @@ def _to_host(dets):
                         for t in dets])
 
 
-def evaluate(inferencer, loader, metric) -> Dict[str, Any]:
-    """Run ``loader`` through ``inferencer.predict_batch`` into ``metric``.
+def evaluate(inferencer, loader, metric,
+             visit: Optional[Callable] = None) -> Dict[str, Any]:
+    """Run ``loader`` through ``inferencer.predict_batch`` into ``metric``;
+    ``visit(metas, dets, probs_u8)`` then sees each batch on the host.
 
     Returns {'metrics': ``metric.compute()``, 'digest': the ``val/...`` keys,
     'timing': the loop's split (decode + GT wait, predict to the host copy,
-    ``metric.process``, ``compute``, wall, images, and on the card the
-    CUDA-event span of every predict in ``device_ms``)}."""
+    ``metric.process``, ``visit`` (``visit_s``), ``compute``, wall, images,
+    and on the card the CUDA-event span of every predict in
+    ``device_ms``)}."""
     on_card = inferencer.device.type == "cuda"
-    timing = dict(load_s=0.0, predict_s=0.0, process_s=0.0, compute_s=0.0, device_ms=0.0)
+    timing = dict(load_s=0.0, predict_s=0.0, process_s=0.0, visit_s=0.0, compute_s=0.0,
+                  device_ms=0.0)
     spans: List = []
     n_images = n_dets = 0
     score_sum = mask_prob_sum = 0.0
@@ -67,9 +73,12 @@ def evaluate(inferencer, loader, metric) -> Dict[str, Any]:
             m = float(probs_np[: len(metas)][valid].mean(dtype=np.float64)) / 255.0
             mask_prob_sum += m * int(valid.sum())
         t3 = time.perf_counter()
+        if visit is not None:
+            visit(metas, dets_np, probs_np)
         timing["load_s"] += t1 - t0
         timing["predict_s"] += t2 - t1
         timing["process_s"] += t3 - t2
+        timing["visit_s"] += time.perf_counter() - t3
         n_images += len(samples)
         t0 = time.perf_counter()
     results = metric.compute()

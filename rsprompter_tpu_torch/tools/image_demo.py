@@ -1,4 +1,4 @@
-"""Single / batch image inference demo: a drawn PNG an image, and the boxes.
+"""Single / batch image inference demo: a drawing an image, and the boxes.
 
     python -m rsprompter_tpu_torch.tools.image_demo IMG|DIR CONFIG \\
         [--weights CKPT] [--out-dir DIR] [--score-thr T] [--device cuda|cpu]
@@ -6,8 +6,10 @@
 The port's counterpart of the JAX package's ``tools/image_demo.py`` (CLI
 parity with the reference's ``demo/image_demo.py``): ``DetInferencer`` over
 one image or every ``.jpg`` / ``.jpeg`` / ``.png`` / ``.tif`` file of a
-directory, batch 1, writing ``OUT_DIR/<name>.png`` (boxes, labels, masks
-drawn; PNG where JAX writes the input's format through OpenCV) and
+directory, batch 1, writing each drawing (boxes, labels, masks) under the
+image's own name, as JAX does: JPEG at quality 95 for ``.jpg`` / ``.jpeg``
+(the port's encoder, OpenCV's bytes), PNG for ``.png`` and, since the port
+writes no TIFF, for ``.tif`` with the extension made ``.png``; and
 ``OUT_DIR/predictions.json`` (boxes, scores, labels a image). ``--weights``
 is a state_dict of the whole detector; without it the weights are seeded,
 with the config's SAM file where it exists. Runs on the card unless

@@ -9,9 +9,11 @@ The port's counterpart of the JAX package's ``tools/large_image_demo.py``
 inference -> shift -> NMS merge): the scene is cut into patches of one size
 (``utils.large_image.slice_offsets``), which run through ``DetInferencer``
 at that size in batches of ``--batch-size``; the detections are shifted
-into the scene and merged by class-wise NMS. Writes ``OUT/<name>.png`` (the
-merged masks blended in green, then boxes and labels; PNG where JAX writes
-the input's format through OpenCV) and ``OUT/predictions.json`` (the merged
+into the scene and merged by class-wise NMS. Writes the drawing (the merged
+masks blended in green, then boxes and labels) under the scene's own name as
+JAX does (``data.io.drawn_name``: JPEG at quality 95 through the port's
+encoder for ``.jpg``, PNG for ``.png``, ``.png`` in place of any other
+extension) and ``OUT/predictions.json`` (the merged
 boxes, scores, labels). ``CKPT`` is a state_dict of the whole detector.
 Runs on the card unless ``--device cpu`` is given.
 """
@@ -28,7 +30,7 @@ import numpy as np
 from rsprompter_tpu_torch.apis.inference import DetInferencer
 from rsprompter_tpu_torch.apis.visualization import draw_predictions
 from rsprompter_tpu_torch.core.config import Config
-from rsprompter_tpu_torch.data.io import encode_png, imread
+from rsprompter_tpu_torch.data.io import drawn_name, imread, imwrite
 from rsprompter_tpu_torch.utils.large_image import (
     merge_patch_predictions, paste_scene_masks, slice_offsets)
 
@@ -79,10 +81,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         for m in paste_scene_masks(merged["masks"], (h, w)):
             vis[m] = (0.5 * vis[m] + 0.5 * GREEN).astype(np.uint8)
     vis = draw_predictions(vis, vis_pred)
-    name = os.path.splitext(os.path.basename(args.image))[0] + ".png"
-    image_path = os.path.join(args.out_dir, name)
-    with open(image_path, "wb") as f:
-        f.write(encode_png(vis))
+    image_path = os.path.join(args.out_dir, drawn_name(args.image))
+    imwrite(image_path, vis)
     json_path = os.path.join(args.out_dir, "predictions.json")
     with open(json_path, "w") as f:
         json.dump(vis_pred, f)

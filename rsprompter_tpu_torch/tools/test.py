@@ -2,6 +2,7 @@
 
     python -m rsprompter_tpu_torch.tools.test CONFIG [CHECKPOINT] \\
         [--cfg-options k=v ...] [--classwise] [--out PATH] [--oracle] \\
+        [--tta] [--corruption NAME --severity S] [--show-dir DIR] \\
         [--device cuda|cpu]
 
 The port's counterpart of the JAX package's ``tools/test.py`` (``main``
@@ -29,10 +30,23 @@ quantises it to uint8 and hands it to ``CocoMetric`` with the GT of
 ``load_raw`` at the original size. Prints the same ``coco/...`` keys as the
 JAX tool, then one line with the loop's throughput and where its time went.
 
-Runs on the card unless ``--device cpu`` is given. Not taken (argparse
-refuses them): ``--tta`` (JAX also refuses it beside ``--oracle``),
-``--show-dir``, ``--corruption`` / ``--severity`` and the multi-device mesh
-(ROADMAP A7).
+The evaluation options, with JAX's flags and defaults (:21-32):
+
+- ``--tta``: horizontal-flip test-time augmentation (``models.tta``): each
+  batch and its mirror are predicted and merged by per-class NMS with
+  ``model.test_cfg.rcnn``'s ``nms_iou_thr`` and ``max_per_img`` (0.5, 100
+  where absent). Refused beside ``--oracle``, as JAX refuses it.
+- ``--corruption NAME --severity S`` (1-5, default 1): each raw image is
+  corrupted (``data.corruptions``) as float32 before the batch is made,
+  with the seed ``img_id``, the order JAX's pipeline applies it in; the
+  ground truth is untouched.
+- ``--show-dir DIR``: each image's detections over a score of 0.3 drawn over
+  its original file (``apis.visualization.draw_slot``) and written under
+  the image's basename, JPEG at quality 95 for a ``.jpg`` through the port's
+  encoder, as JAX's ``cv2.imwrite`` writes it.
+
+Runs on the card unless ``--device cpu`` is given. Not taken: the
+multi-device mesh (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -44,15 +58,19 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from rsprompter_tpu_torch.apis.inference import init_detector, resolve_device
+from rsprompter_tpu_torch.apis.visualization import draw_slot
 from rsprompter_tpu_torch.core.config import Config
 from rsprompter_tpu_torch.core.registry import DATASETS
 from rsprompter_tpu_torch.data import coco as _coco  # noqa: F401  (registers the datasets)
+from rsprompter_tpu_torch.data.corruptions import CORRUPTIONS, CorruptImage
+from rsprompter_tpu_torch.data.io import drawn_name
 from rsprompter_tpu_torch.data.loader import DataLoader
 from rsprompter_tpu_torch.engine.checkpoint import (
     CKPT_FILE, is_reference_state_dict, load_reference_checkpoint, load_torch_checkpoint,
     restore_train_params)
 from rsprompter_tpu_torch.evaluation.coco_metric import CocoMetric
 from rsprompter_tpu_torch.evaluation.loop import _to_host, evaluate  # noqa: F401
+from rsprompter_tpu_torch.models.tta import make_tta_predict, tta_settings
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -67,8 +85,21 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "layout, for offline re-evaluation")
     p.add_argument("--oracle", action="store_true",
                    help="SAM-det oracle mode: the ground-truth boxes, at score 1, prompt SAM")
+    p.add_argument("--tta", action="store_true",
+                   help="horizontal-flip test-time augmentation (reference tools/test.py --tta "
+                        "/ DetTTAModel)")
+    p.add_argument("--show-dir", default=None,
+                   help="draw each image's predictions over it into this directory")
+    p.add_argument("--corruption", default=None, choices=CORRUPTIONS,
+                   help="corrupt each image before the pipeline (robustness benchmark; "
+                        "see data/corruptions.py)")
+    p.add_argument("--severity", type=int, default=1, choices=range(1, 6))
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.tta and args.oracle:
+        p.error("--tta and --oracle are mutually exclusive: the TTA predict always runs "
+                "predict, which would ignore --oracle")
+    return args
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> str:
@@ -110,23 +141,36 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             raise SystemExit(f"--oracle: '{cfg['model']['type']}' has no oracle_predict "
                              "(SAM-det has)")
         inferencer.oracle = True
+    if args.tta:
+        inferencer.tta = make_tta_predict(inferencer.model, **tta_settings(cfg))
 
     ds_cfg = dict((cfg.get("test_dataloader") or cfg["val_dataloader"])["dataset"])
+    if args.corruption:
+        ds_cfg["pipeline"] = [CorruptImage(args.corruption, args.severity)]
     dataset = DATASETS.build(ds_cfg)
     loader = DataLoader(dataset, batch_size=batch_size, prefetch=1)
+    classes = (dataset.metainfo or {}).get("classes")
     metric = CocoMetric(
         num_classes=cfg["model"].get("num_classes", 1), mask_mode=inferencer.mask_mode,
-        dump_path=args.out,
-        classwise=args.classwise, class_names=(dataset.metainfo or {}).get("classes"),
+        dump_path=args.out, classwise=args.classwise, class_names=classes,
     )
-    report = evaluate(inferencer, loader, metric)
+
+    def show(metas, dets, probs) -> None:
+        os.makedirs(args.show_dir, exist_ok=True)
+        for i, meta in enumerate(metas):
+            if meta.get("img_id", -1) != -1:
+                draw_slot(os.path.join(args.show_dir, drawn_name(meta["img_path"])), dets,
+                          probs, i, meta, classes, inferencer.mask_mode)
+
+    report = evaluate(inferencer, loader, metric, visit=show if args.show_dir else None)
     results, timing, n_images = report["metrics"], report["timing"], report["timing"]["images"]
     for k, v in results.items():
         print(f"{k}: {v}")
     print(f"{n_images} images in {timing['wall_s']:.3f} s "
           f"({n_images / timing['wall_s']:.3f} images/s) on {device}: decode + GT "
           f"{timing['load_s']:.3f} s (waiting on the loader), predict {timing['predict_s']:.3f} s, "
-          f"metric.process {timing['process_s']:.3f} s, compute {timing['compute_s']:.3f} s")
+          f"metric.process {timing['process_s']:.3f} s, drawing {timing['visit_s']:.3f} s, "
+          f"compute {timing['compute_s']:.3f} s")
     return dict(report, inferencer=inferencer)
 
 

@@ -21,8 +21,8 @@ from the newest ``ckpts/step_{n}``; ``tools.test CONFIG
 WORK_DIR/ckpts/step_{n}`` evaluates one.
 
 Runs on the card unless ``--device cpu`` is given, on one device: a config
-whose ``dist`` names more than one raises (ROADMAP A7), as does
-``vis_interval`` > 0.
+whose ``dist`` names more than one raises (ROADMAP A13). A config's
+``vis_interval`` > 0 draws validation images into ``WORK_DIR/vis/``.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def check_single_device(dist_cfg) -> None:
     dist_cfg = dict(dist_cfg or {})
     if dist_cfg.get("enable") or int(dist_cfg.get("model_parallel", 1)) > 1:
         raise NotImplementedError(
-            f"dist={dist_cfg}: training across devices is not ported (ROADMAP A7)")
+            f"dist={dist_cfg}: training across devices is not ported (ROADMAP A13)")
 
 
 def check_num_classes(model_cfg, dataset) -> None:

@@ -557,8 +557,16 @@ def test_tool_matches_jax_metric(coco_dir, tmp_path, capsys, monkeypatch):
 
 
 def test_tool_refuses_untaken_flags(tmp_path):
+    """``--tta``, ``--show-dir`` and ``--corruption`` are taken; the weather
+    corruptions (no texture files), a severity out of 1..5 and ``--tta``
+    beside ``--oracle`` are refused, as JAX's tool refuses them."""
     from rsprompter_tpu_torch.tools import test as tool
 
-    for flag in (["--tta"], ["--show-dir", "x"], ["--corruption", "fog"]):
+    args = tool.parse_args(["cfg.py", "--tta", "--show-dir", "x", "--corruption",
+                            "motion_blur", "--severity", "5"])
+    assert args.tta and args.show_dir == "x" and (args.corruption, args.severity) == (
+        "motion_blur", 5)
+    for flag in (["--corruption", "fog"], ["--corruption", "pixelate", "--severity", "6"],
+                 ["--tta", "--oracle"]):
         with pytest.raises(SystemExit):
             tool.parse_args(["cfg.py"] + flag)

@@ -10,8 +10,10 @@ the JAX package's ``apis/inferencer.py`` on the CPU at tiny width.
   differently), with the same metas.
 - A JPEG path (the port's decoder), a PNG path and the array give the same
   predictions.
-- ``out_dir``: one PNG an input (``.jpg`` names become ``.png``) at the
-  input's shape, and ``predictions.json`` with JAX's keys, no masks.
+- ``out_dir``: one drawing an input under JAX's names (the path's basename,
+  ``img_{n}.jpg`` for an array) at the input's shape, a ``.jpg`` one the
+  bytes ``cv2.imencode`` gives the drawing at quality 95, and
+  ``predictions.json`` with JAX's keys, no masks.
 - ``verify_weights`` raises on a garbage SAM file or weights file; JAX's
   ``mask_transfer`` and ``exported`` are not parameters of the port's.
 - ``draw_predictions``: boxes and the mask blend equal JAX's (OpenCV's
@@ -33,7 +35,7 @@ from rsprompter_tpu.apis.inferencer import make_infer_batch
 from rsprompter_tpu_torch.apis.inference import DetInferencer
 from rsprompter_tpu_torch.apis.visualization import draw_predictions
 from rsprompter_tpu_torch.core.config import Config
-from rsprompter_tpu_torch.data.io import decode_png
+from rsprompter_tpu_torch.data.io import decode_png, imread
 from test_torch_eval import TINY_MODEL
 
 CROP = (64, 64)
@@ -113,10 +115,15 @@ def test_paths_and_arrays_and_out_dir(inferencer, tmp_path):
     mixed = inferencer([str(png), decoded, str(jpg)], out_dir=str(out_dir))["predictions"]
     _assert_same_predictions(by_jpeg, by_array)
     _assert_same_predictions(mixed, by_array * 3)
-    assert sorted(os.listdir(out_dir)) == ["img_1.png", "predictions.json", "scene.png",
+    assert sorted(os.listdir(out_dir)) == ["img_1.jpg", "predictions.json", "scene.jpg",
                                            "scene_png.png"]
-    for name in ("img_1.png", "scene.png", "scene_png.png"):
-        assert decode_png((out_dir / name).read_bytes()).shape == img.shape
+    for name in ("img_1.jpg", "scene.jpg", "scene_png.png"):
+        assert imread(str(out_dir / name)).shape == img.shape
+    assert decode_png((out_dir / "scene_png.png").read_bytes()).shape == img.shape
+    for name, pred in (("scene.jpg", mixed[2]), ("img_1.jpg", mixed[1])):
+        want = cv2.imencode(".jpg", draw_predictions(decoded, pred),
+                            [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes()
+        assert (out_dir / name).read_bytes() == want, name
     dumped = json.loads((out_dir / "predictions.json").read_text())
     assert len(dumped) == 3
     for entry, pred in zip(dumped, mixed):

@@ -28,8 +28,11 @@
   float64 here), the ``coco/*`` and ``val/*`` keys; ``ckpts/`` pruned to
   JAX's ``keep`` of 5; both ``best_*`` directories; and ``tools.test`` on the
   last checkpoint gives the last validation's keys exactly (fp32, the same
-  module state). A mismatched ``num_classes``, a multi-device ``dist`` and
-  ``vis_interval`` raise.
+  module state). A mismatched ``num_classes`` and a multi-device ``dist``
+  (``enable``, ``model_parallel``) raise.
+- ``Runner.validate`` with ``vis_interval``: JAX's ``vis/val_{offset}.jpg``
+  drawings at the images' sizes, the metrics unchanged; a drawing that
+  cannot read its file is logged, any other error propagates.
 
 JAX's references here are its numpy / cv2 transforms, its loader and optax:
 no JAX model is compiled.
@@ -60,6 +63,7 @@ from rsprompter_tpu_torch.data.loader import TrainLoader
 from rsprompter_tpu_torch.engine.checkpoint import (
     CKPT_FILE, latest_checkpoint, load_train_checkpoint, restore_checkpoint, save_checkpoint)
 from rsprompter_tpu_torch.engine.optim import build_optimizer
+from rsprompter_tpu_torch.engine.runner import Runner
 from rsprompter_tpu_torch.engine.train_state import build_trainer
 from rsprompter_tpu_torch.ops.masks import unpack_batch_masks
 from rsprompter_tpu_torch.tools import test as test_tool
@@ -451,10 +455,64 @@ def test_train_tool_end_to_end(coco_dir, scratch, capsys):
 
 @pytest.mark.parametrize("option,error", [
     ("model.num_classes=5", ValueError), ("dist.enable=True", NotImplementedError),
-    ("vis_interval=1", NotImplementedError),
+    ("dist.model_parallel=2", NotImplementedError),
 ])
 def test_train_tool_refuses(coco_dir, tmp_path, option, error):
     cfg = _write_config(tmp_path, coco_dir)
     with pytest.raises(error):
         train_tool.main([cfg, "--work-dir", str(tmp_path / "w"), "--device", "cpu",
                          "--cfg-options", option])
+
+
+def _val_runner(cfg_path, work_dir, vis_interval):
+    from rsprompter_tpu_torch.core.config import Config
+    from rsprompter_tpu_torch.core.registry import DATASETS
+    from rsprompter_tpu_torch.data.loader import DataLoader
+
+    cfg = Config.fromfile(cfg_path)
+    trainer = build_trainer(cfg, device="cpu", seed=0)
+    val = DataLoader(DATASETS.build(dict(cfg["val_dataloader"]["dataset"])), batch_size=2)
+    return Runner(trainer, None, val, work_dir=work_dir, num_classes=len(CLASSES),
+                  vis_interval=vis_interval)
+
+
+def test_validate_draws_vis_interval(coco_dir, scratch, capsys, monkeypatch):
+    """``vis_interval`` 1: slot 0 of every batch is drawn over its file into
+    ``vis/val_{offset}.jpg`` (JAX's ``_visualize``), a JPEG at the image's
+    size; the metrics are those of a run that draws nothing. A drawing that
+    cannot read its file is logged and validation goes on; any other error
+    propagates."""
+    from rsprompter_tpu_torch.apis import visualization
+    from rsprompter_tpu_torch.data.io import imread
+    from rsprompter_tpu_torch.engine import runner as runner_mod
+
+    cfg = _write_config(scratch, coco_dir)
+    work = scratch / "vis_run"
+    drawn = _val_runner(cfg, str(work), 1).validate()
+    plain = _val_runner(cfg, str(scratch / "plain"), 0).validate()
+    for k, v in plain.items():
+        assert (math.isnan(v) and math.isnan(drawn[k])) or drawn[k] == v, k
+    assert sorted(os.listdir(work / "vis")) == ["val_0.jpg", "val_2.jpg"]
+    for name, src in (("val_0.jpg", "000.png"), ("val_2.jpg", "002.png")):
+        assert imread(str(work / "vis" / name)).shape == imread(
+            os.path.join(coco_dir, "imgs", src)).shape
+    assert not os.path.exists(scratch / "plain" / "vis")
+
+    runner = _val_runner(cfg, str(scratch / "broken"), 2)
+    real = runner_mod.draw_slot
+
+    def unreadable(path, dets, probs, i, meta, *args):
+        return real(path, dets, probs, i, dict(meta, img_path=str(scratch / "gone.png")),
+                    *args)
+
+    monkeypatch.setattr(runner_mod, "draw_slot", unreadable)
+    assert runner.validate().keys() == plain.keys()
+    assert "vis failed:" in capsys.readouterr().out
+
+    def fails(*args):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    monkeypatch.setattr(runner_mod, "draw_slot", fails)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        runner.validate()
+    assert visualization.draw_slot is real
