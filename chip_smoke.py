@@ -248,7 +248,43 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    the images' sizes; (e) ``tools.analysis_tools.benchmark --task
    inference`` (batch 2) and ``get_flops`` (predict, 1024^2, batch 1,
    counted on the card over the encoder's plain route) print their numbers.
-   OpenCV is never imported.
+   OpenCV is never imported;
+19. data parallelism and ``mode='tensor'``: A', B' and C' against their
+   plain versions at a rank's shapes (512^2, batch 2; path
+   ``dp_train_step``); (a) two ranks on card 0 over gloo
+   (``parallel.launch``; NCCL refuses two ranks on one card), ZeRO on, run
+   ``build_trainer`` on ``rsprompter_anchor-nwpu-scratch-512.py`` with two
+   images a rank, against one process on the same four from the same
+   weights, draws and (phase 6's reason) proposals: the metrics within
+   ``DP_LOSS_TOL``, every trained gradient within ``DP_GRAD_TOL`` of its
+   largest and the median within ``DP_GRAD_MEDIAN_TOL``, or else phase 6's
+   rule: the median and the worst tensor within ``FLOOR_FACTOR`` times the
+   bf16 noise floor measured on the one process's batch (phase 6's own
+   runs, ``CutLossRuns``: its plain bf16 step against its step with the
+   encoder in fp32); AdamW's moments after the step, which
+   ``Trainer.state_dict()`` gathers from ZeRO's shards, held to the same
+   rule against the one process's AdamW and equal bit for bit to their
+   owners'; BatchNorm's statistics within ``DP_STATS_TOL`` and
+   equal on both ranks, the parameters equal on both ranks bit for bit
+   after ``DP_STEPS`` steps, each rank's launches of A, B, C, A', B', C' a
+   step as phase 5 counts; then the two ranks run ``tools.test`` on phase
+   9's set and checkpoint, each its block of the set, and the gathered
+   metrics must be phase 9's within ``DP_METRIC_TOL`` with each image
+   evaluated once; the step at world 1 (NCCL) without DDP, as the trainer
+   takes it there, against DDP with ``find_unused_parameters`` and with
+   ``static_graph``, and the bytes a step all-reduces; (b) ``python -m
+   torch.distributed.run --standalone --nproc_per_node <cards>`` (NCCL)
+   runs ``tools.train`` on phase 11's synthetic set (two epochs, then a
+   resumed third with a validation) and ``tools.test`` on phase 9's set
+   and checkpoint, whose metrics must be phase 9's within
+   ``DP_METRIC_TOL`` with each image evaluated once (on one card that is
+   world 1, where every collective is the identity: the launcher's
+   environment, ``initialize()`` and NCCL's group are what it runs; (a)
+   runs the collectives); (c)
+   ``forward(batch, mode='tensor')`` of the anchor detector at ViT-B
+   1024^2, batch 2, on phase 3's images: every output finite, JAX's order
+   and shapes, A, B and C launched as phase 3 counts (path
+   ``tensor_mode``).
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -1289,15 +1325,92 @@ def check_floor(what: str, got_rel, floor_rel) -> None:
             raise AssertionError(msg)
 
 
+class CutLossRuns:
+    """Phase 6's runs of one batch's whole loss, ``loss_fn()``, with the
+    encoder's outputs cut into bf16 leaves (the fp32 encoder's rounded as
+    the others' are, before the neck and heads read them) and the encoder's
+    gradients taken apart, from those leaves' cotangents. The caller holds
+    the proposals (phase 6's reason: on random weights the RPN's top-k is
+    full of near-ties that bf16 noise reorders, and the runs would
+    otherwise sample different RoIs)."""
+
+    def __init__(self, model, opt, loss_fn, enc_trains: bool = True):
+        self.model, self.opt, self.loss_fn = model, opt, loss_fn
+        self.enc, self.enc_trains = model.backbone, enc_trains
+        self.seen = {}
+
+    def _cut(self, mod, inputs, outputs):
+        import torch
+
+        leaves = [t.detach().to(torch.bfloat16).requires_grad_(True)
+                  for t in (outputs[0],) + tuple(outputs[1])]
+        self.seen["images"], self.seen["leaves"] = inputs[0].detach(), leaves
+        return leaves[0], tuple(leaves[1:])
+
+    def encoder_grads(self, impl: str, cot) -> dict:
+        """The encoder's parameter gradients on the last run's images, given
+        the cotangents ``cot`` of its outputs."""
+        import torch
+
+        if not self.enc_trains:
+            return {}
+        enc = self.enc
+        enc.impl = impl
+        enc.zero_grad(set_to_none=True)
+        neck, hidden = enc(self.seen["images"])
+        outs = (neck,) + tuple(hidden)
+        torch.autograd.backward(outs, [c.to(o.dtype) for c, o in zip(cot, outs)])
+        return {f"backbone.{n}": p.grad.float().clone() for n, p in enc.named_parameters()}
+
+    def whole_loss_grads(self, impl: str):
+        """Every parameter's gradient through the encoder's ``impl`` route,
+        and the cotangents of the encoder's outputs."""
+        import torch
+
+        from rsprompter_tpu_torch.engine.train_state import total_loss
+
+        self.enc.impl = impl
+        self.opt.zero_grad()
+        hook = self.enc.register_forward_hook(self._cut)
+        try:
+            total_loss(self.loss_fn()).backward()
+        finally:
+            hook.remove()
+        cot = [t.grad if t.grad is not None else torch.zeros_like(t)
+               for t in self.seen["leaves"]]
+        grads = {n: p.grad.float().clone() for n, p in self.model.named_parameters()
+                 if p.grad is not None}
+        return {**grads, **self.encoder_grads(impl, cot)}, cot
+
+    def noise_floor(self, cot=None, ref_cot: bool = False):
+        """The bf16 noise floor's two runs: the plain versions in bf16
+        (``plain``) and with the encoder computing in fp32 (``ref``, the
+        reference). With ``cot``, also the encoder alone given those
+        cotangents, in bf16 (``same_cot``) and, with ``ref_cot``, in fp32.
+        Returns (plain, ref, same_cot, ref_cot)."""
+        import torch
+
+        from rsprompter_tpu_torch.apis.build import set_compute_dtype
+
+        try:
+            plain, _ = self.whole_loss_grads("plain")
+            same = self.encoder_grads("plain", cot) if cot is not None else {}
+            set_compute_dtype(self.enc, torch.float32, cast_params=False)
+            ref, _ = self.whole_loss_grads("plain")
+            ref_same = self.encoder_grads("plain", cot) if ref_cot else None
+        finally:
+            set_compute_dtype(self.enc, torch.bfloat16, cast_params=False)
+            self.enc.impl = "kernel"
+        return plain, ref, same, ref_same
+
+
 def gradient_phase(model, opt, loss_fn, only=None, encoder_floor: bool = False):
     """Phase 6 (and phase 12's, ``only`` naming the parameters compared:
     those that train). ``loss_fn()`` runs one batch with fixed draws through the
-    whole loss three times: through the kernels, through the plain versions,
-    and through the plain versions with the encoder computing in fp32 (the
-    reference; its outputs are rounded to bf16, as the others', before the
-    neck and heads read them). All three take the kernels' run's proposals:
-    on random weights the RPN's top-k is full of near-ties that bf16 noise
-    reorders, and the runs would otherwise sample different RoIs. Every
+    whole loss three times (:class:`CutLossRuns`): through the kernels,
+    through the plain versions, and through the plain versions with the
+    encoder computing in fp32 (the reference). All three take the kernels'
+    run's proposals. Every
     parameter's gradient is compared on its own, and the kernels' distance
     from the reference is held to ``FLOOR_FACTOR`` times the plain bf16
     run's. The encoder is also run through the kernels and the plain
@@ -1313,45 +1426,10 @@ def gradient_phase(model, opt, loss_fn, only=None, encoder_floor: bool = False):
     too, and reports its kernels-vs-plain reading without a limit. Where
     ``only`` names no encoder tensor (phase 14's frozen SAM-seg encoder) the
     encoder has no gradient to compare, and that part is skipped."""
-    import torch
-
-    from rsprompter_tpu_torch.apis.build import set_compute_dtype
-    from rsprompter_tpu_torch.engine.train_state import total_loss
     from rsprompter_tpu_torch.models.dense_heads import rpn_head as rpn_mod
 
-    enc = model.backbone
     enc_trains = only is None or any(n.startswith("backbone.") for n in only)
-    seen = {}
-
-    def cut(mod, inputs, outputs):  # the encoder's outputs become bf16 leaves
-        leaves = [t.detach().to(torch.bfloat16).requires_grad_(True)
-                  for t in (outputs[0],) + tuple(outputs[1])]
-        seen["images"], seen["leaves"] = inputs[0].detach(), leaves
-        return leaves[0], tuple(leaves[1:])
-
-    def encoder_grads(impl, cot):
-        if not enc_trains:
-            return {}
-        enc.impl = impl
-        enc.zero_grad(set_to_none=True)
-        neck, hidden = enc(seen["images"])
-        outs = (neck,) + tuple(hidden)
-        torch.autograd.backward(outs, [c.to(o.dtype) for c, o in zip(cot, outs)])
-        return {f"backbone.{n}": p.grad.float().clone() for n, p in enc.named_parameters()}
-
-    def whole_loss_grads(impl):
-        enc.impl = impl
-        opt.zero_grad()
-        hook = enc.register_forward_hook(cut)
-        try:
-            total_loss(loss_fn()).backward()
-        finally:
-            hook.remove()
-        cot = [t.grad if t.grad is not None else torch.zeros_like(t) for t in seen["leaves"]]
-        grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
-                 if p.grad is not None}
-        return {**grads, **encoder_grads(impl, cot)}, cot
-
+    runs = CutLossRuns(model, opt, loss_fn, enc_trains)
     rpn_predict, kept = rpn_mod.rpn_predict, []
 
     def keep_first(*a, **kw):
@@ -1361,16 +1439,11 @@ def gradient_phase(model, opt, loss_fn, only=None, encoder_floor: bool = False):
 
     rpn_mod.rpn_predict = keep_first
     try:
-        kernel, cot = whole_loss_grads("kernel")
-        plain, _ = whole_loss_grads("plain")
-        same_cot = encoder_grads("plain", cot)
-        set_compute_dtype(enc, torch.float32, cast_params=False)
-        ref, _ = whole_loss_grads("plain")
-        ref_cot = encoder_grads("plain", cot) if only is not None or encoder_floor else None
+        kernel, cot = runs.whole_loss_grads("kernel")
+        plain, ref, same_cot, ref_cot = runs.noise_floor(
+            cot, ref_cot=only is not None or encoder_floor)
     finally:
         rpn_mod.rpn_predict = rpn_predict
-        set_compute_dtype(enc, torch.bfloat16, cast_params=False)
-        enc.impl = "kernel"
     if only is not None:
         kernel, plain, ref, same_cot, ref_cot = ({n: g for n, g in d.items() if n in only}
                                                  for d in (kernel, plain, ref, same_cot, ref_cot))
@@ -1917,8 +1990,9 @@ def eval_phase(kernels, config: str = CONFIG, device: str = "cuda") -> dict:
         f"the {n_batches} predicts {timing['device_ms']:.2f} ms, device idle at least "
         f"{1 - timing['device_ms'] / 1e3 / wall:.4f} of the loop")
     log("evaluation metrics (random weights): " + json.dumps(metrics))
+    digest = report["digest"]
     del det, report
-    return timing
+    return dict(timing, metrics=metrics, digest=digest)
 
 
 # ---------------------------------------------------------------------------
@@ -4677,6 +4751,587 @@ def tta_tools_phase(kernels, config: str = CONFIG, device: str = "cuda",
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 19: data parallelism and mode='tensor'
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2  # on card 0, over gloo: NCCL refuses two ranks on one card
+DP_BATCH = 2  # images a rank: the scratch-512 config's batch of 4 over two ranks
+DP_STEPS = 3
+DP_PATH, TENSOR_PATH = "dp_train_step", "tensor_mode"
+DP_LOSS_TOL = 1e-2  # relative: the losses and grad_norm, world 2 against one process
+DP_GRAD_TOL = 2e-2  # of each trained tensor's largest gradient ...
+DP_GRAD_MEDIAN_TOL = 1e-3  # ... at the median tensor
+DP_STATS_TOL = 1e-3  # BatchNorm's statistics after the first step
+DP_METRIC_TOL = 1e-3  # torchrun's tools.test against phase 9's metrics
+DDP_TIMED_STEPS = 5  # each way, twice, in turns
+TORCHRUN_TIMEOUT_S = 600
+
+
+def _held_proposals(proposals, rows: slice):
+    """An ``rpn_predict`` that returns ``proposals``' rows: the train step's
+    proposals held to the ones given (phase 6 holds its runs' alike)."""
+    from rsprompter_tpu_torch.models.dense_heads.rpn_head import Proposals
+
+    def held(*_args, **_kwargs):
+        return Proposals(*(t[rows] for t in proposals))
+
+    return held
+
+
+def _dp_rank(config: str, batch_np, ref_path: str, steps: int, device: str, eval_args):
+    """One rank of phase 19(a) (spawned by ``parallel.launch``, on card 0
+    over gloo): ``build_trainer`` on its rows of the global batch, ``steps``
+    steps from the generator's seeds 0, 1, ...; the first with the one
+    process's proposals (its rows of them, from ``ref_path``). After the
+    first step, ``Trainer.state_dict()`` (a collective: ZeRO's moments
+    gathered from their owners) and, on rank 0, each trained tensor's
+    gradient and gathered moments against the one process's; every rank
+    sends digests of the moments it owns, which the gathered ones must
+    equal. After the last step, ``tools.test`` on phase 9's set and
+    checkpoint (``eval_args``), each rank its block of the set. Returns the
+    first step's global metrics, its launches, its BatchNorm statistics,
+    those ratios, the step times, the launches over every step, the
+    parameters that differ from rank 0's after the last step and the
+    sharded evaluation's metrics and image count."""
+    import torch
+    import torch.distributed as dist
+
+    from rsprompter_tpu_torch.engine.train_state import build_trainer
+    from rsprompter_tpu_torch.models.dense_heads import rpn_head as rpn_mod
+    from rsprompter_tpu_torch.ops import _cuda
+    from rsprompter_tpu_torch.parallel import distributed
+    from rsprompter_tpu_torch.tools import test as test_tool
+
+    rank, world = distributed.rank(), distributed.world_size()
+    on_card = device == "cuda"
+    dev = torch.device("cuda", torch.cuda.current_device()) if on_card else torch.device("cpu")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    kernels = _cuda.all_kernels()
+    trainer = build_trainer(config, device=dev, seed=0, steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    b = batch_np["images"].shape[0] // world
+    local = {k: torch.as_tensor(v[rank * b:(rank + 1) * b], device=dev)
+             for k, v in batch_np.items()}
+    gen = torch.Generator(device=dev)
+    ref = torch.load(ref_path, map_location="cpu", weights_only=True)
+    for k in kernels:
+        k.reset_counts()
+    rpn_predict = rpn_mod.rpn_predict
+    rpn_mod.rpn_predict = _held_proposals(tuple(t.to(dev) for t in ref["proposals"]),
+                                          slice(rank * b, (rank + 1) * b))
+    try:
+        metrics = trainer.step(local, gen.manual_seed(0))
+    finally:
+        rpn_mod.rpn_predict = rpn_predict
+    sync()
+    out = dict(metrics={k: float(v) for k, v in metrics.items()},
+               counts={k.name: dict(k.variant_launches) for k in kernels},
+               stats={k: v.float().cpu().clone() for k, v in trainer.model.state_dict().items()
+                      if "running" in k})
+    names = [n for n, _ in trainer.optimizer.trained]
+    if rank == 0:
+        out["grad_ratios"] = relative_grad_diffs(
+            {n: p.grad.float().cpu() for n, p in trainer.optimizer.trained}, ref["grads"])
+    state = trainer.state_dict()["optimizer"]["adamw"]  # every rank: a collective
+    local_state = trainer.optimizer.adamw.optim.state
+    owned = {i: [_digest(local_state[p][k]) for k in ("exp_avg", "exp_avg_sq")]
+             for i, (_, p) in enumerate(trainer.optimizer.trained) if p in local_state}
+    out["owned"] = len(owned)
+    owned_all = distributed.all_gather_object(owned)
+    if rank == 0:
+        gathered = state["state"]
+        out["moments"] = dict(
+            n=len(gathered), trained=len(names),
+            steps=sorted({float(v["step"]) for v in gathered.values()}),
+            owners=[len(o) for o in owned_all],
+            unequal=[i for o in owned_all for i, d in o.items()
+                     if d != [_digest(gathered[i][k]) for k in ("exp_avg", "exp_avg_sq")]],
+            avg_ratios=relative_grad_diffs(
+                {n: gathered[i]["exp_avg"] for i, n in enumerate(names)}, ref["exp_avg"]),
+            sq_ratios=relative_grad_diffs(
+                {n: gathered[i]["exp_avg_sq"].sqrt() for i, n in enumerate(names)},
+                {n: v.sqrt() for n, v in ref["exp_avg_sq"].items()}))
+    del ref, state
+    times = []
+    for i in range(1, steps):
+        t0 = time.perf_counter()
+        trainer.step(local, gen.manual_seed(i))
+        sync()
+        times.append(time.perf_counter() - t0)
+    out["counts_all"] = {k.name: dict(k.variant_launches) for k in kernels}
+    unequal = []
+    for n, p in trainer.model.named_parameters():  # rank 0's, sent to every rank
+        t = p.detach().clone()
+        dist.broadcast(t, 0)
+        if not torch.equal(t, p.detach()):
+            unequal.append(n)
+    out.update(unequal=unequal, step_s=times)
+    del trainer
+    if on_card:
+        torch.cuda.empty_cache()
+    eval_root, ckpt_path, eval_config = eval_args
+    report = test_tool.main([eval_config, ckpt_path, "--device", device,
+                             "--cfg-options", *_eval_options(eval_root)])
+    out["eval"] = dict(metrics=report["metrics"], digest=report["digest"],
+                       images=report["timing"]["images"])
+    return out
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().float().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def write_eval_set(root: str, config: str = CONFIG):
+    """Phase 9's evaluation set (synthetic PNGs, seed 0) and checkpoint
+    (seed 1) under ``root``: (data root, checkpoint path)."""
+    import torch
+
+    from rsprompter_tpu_torch.core.config import Config
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_coco
+
+    data = synthetic_coco(os.path.join(root, "eval"), NWPU_CLASSES, EVAL_SIZES, write_png,
+                          seed=0)
+    _, ckpt = reference_state_dict(Config.fromfile(config)["model"], seed=1)
+    path = os.path.join(root, "epoch_12.pth")
+    torch.save(ckpt, path)
+    return data, path
+
+
+def _eval_options(data_root: str) -> list:
+    return [f"test_dataloader.dataset.data_root={data_root}",
+            "test_dataloader.dataset.ann_file=ann.json",
+            "test_dataloader.dataset.data_prefix.img=imgs"]
+
+
+def _dp_batch(cfg, images: int):
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_batch
+
+    return synthetic_batch(images, tuple(cfg["crop_size"]), cfg["model"]["num_classes"],
+                           max_gt=8, seed=0)
+
+
+def dp_gate(what: str, ratios: dict, floor: Optional[dict]) -> Optional[str]:
+    """Phase 19(a)'s rule for per-tensor distances from the one process
+    (``relative_grad_diffs``): the fixed limits (``DP_GRAD_TOL`` at the
+    worst tensor, ``DP_GRAD_MEDIAN_TOL`` at the median), or else phase 6's
+    rule against the bf16 noise ``floor``. Returns the fault, or None."""
+    worst = max(ratios, key=ratios.get)
+    med = statistics.median(ratios.values())
+    fixed = ratios[worst] <= DP_GRAD_TOL and med <= DP_GRAD_MEDIAN_TOL
+    check_grads(what, ratios, None)
+    log(f"{what}: gate {'fixed' if fixed else 'noise floor'} (worst {ratios[worst]:.4g} "
+        f"against {DP_GRAD_TOL}, median {med:.4g} against {DP_GRAD_MEDIAN_TOL})")
+    if fixed:
+        return None
+    if floor is None:
+        return (f"{what}: {worst} {ratios[worst]:.4g} > {DP_GRAD_TOL} or median {med:.4g} > "
+                f"{DP_GRAD_MEDIAN_TOL}")
+    try:
+        check_floor(what, ratios, floor)
+    except AssertionError as err:
+        return str(err)
+    return None
+
+
+def dp_phase(kernels, evaluation: dict, config: str = TRAIN_CONFIG,
+             eval_config: str = CONFIG, device: str = "cuda", ranks: int = DP_RANKS,
+             steps: int = DP_STEPS) -> dict:
+    """Phase 19(a). The scratch-512 step at world ``ranks`` (spawned ranks
+    on card 0, gloo, ZeRO on, the config's per-device batch split over
+    them) against one process on the whole batch from the same weights,
+    draws and proposals (phase 6's reason: bf16 noise reorders the near
+    ties of a random RPN's top-k, and the runs would sample other RoIs):
+    the metrics, every trained gradient and AdamW's moments after the step
+    (ZeRO's, gathered by ``Trainer.state_dict()``), BatchNorm's statistics,
+    the parameters on every rank after ``steps`` steps, the launches; then
+    the ranks' sharded ``tools.test`` against phase 9's metrics and its
+    digest (``evaluation``; on random weights every mAP is 0, and the
+    detections' count and mean score and mask probability are what tell
+    one prediction from another): the ranks' blocks of the set make the
+    batches phase 9 made. Returns rank 0's launches over its steps."""
+    import tempfile
+
+    import torch
+
+    from rsprompter_tpu_torch.engine.train_state import build_trainer
+    from rsprompter_tpu_torch.models.dense_heads import rpn_head as rpn_mod
+    from rsprompter_tpu_torch.parallel import launch
+
+    t_phase = time.time()
+    on_card = device == "cuda"
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    ref = build_trainer(config, device=dev, seed=0, steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+    cfg, opt = ref.cfg, ref.optimizer
+    bsz = cfg["train_dataloader"]["batch_size"]
+    batch_np = _dp_batch(cfg, bsz)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch_np.items()}
+    gen = torch.Generator(device=dev)
+    start = {k: v.clone() for k, v in ref.model.state_dict().items()}
+    rpn_predict, kept = rpn_mod.rpn_predict, []
+
+    def keep_first(*a, **kw):
+        if not kept:
+            kept.append(rpn_predict(*a, **kw))
+        return kept[0]
+
+    def one_step():  # from the same start and a fresh AdamW
+        ref.model.load_state_dict(start)
+        opt.adamw.state.clear()
+        rpn_mod.rpn_predict = keep_first
+        try:
+            m = ref.step(batch, gen.manual_seed(0))
+        finally:
+            rpn_mod.rpn_predict = rpn_predict
+        sync()
+        return ({k: float(v) for k, v in m.items()},
+                {n: p.grad.float().cpu() for n, p in opt.trained},
+                {k: v.float().cpu().clone() for k, v in ref.model.state_dict().items()
+                 if "running" in k},
+                {k: {n: opt.adamw.state[p][k].float().cpu() for n, p in opt.trained}
+                 for k in ("exp_avg", "exp_avg_sq")})
+
+    metrics, grads, stats, moments = one_step()
+    _, again, _, _ = one_step()  # the one process's own spread
+    spread = relative_grad_diffs(again, grads)
+    floor = None
+    if on_card:  # phase 6's floor on the one process's batch, weights, draws and proposals
+        ref.model.load_state_dict(start)
+
+        def loss_fn():
+            return ref.model(batch, mode="loss", generator=gen.manual_seed(0))
+
+        rpn_mod.rpn_predict = keep_first
+        try:
+            plain, fp32, _, _ = CutLossRuns(ref.model, opt, loss_fn).noise_floor()
+        finally:
+            rpn_mod.rpn_predict = rpn_predict
+        zero = {n: torch.zeros_like(g) for n, g in grads.items()}  # unreached: zero
+        floor = relative_grad_diffs({n: plain.get(n, zero[n]).cpu() for n in grads},
+                                    {n: fp32.get(n, zero[n]).cpu() for n in grads})
+        check_grads("plain bf16 against the fp32-encoder step (the floor)", floor, None)
+        del plain, fp32, zero
+    ref.optimizer.zero_grad()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "ref.pt")
+        torch.save({"grads": grads, "proposals": tuple(t.cpu() for t in kept[0]), **moments},
+                   ref_path)
+        del moments
+        eval_args = (*write_eval_set(tmp, eval_config), eval_config)
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.time()
+        res = launch.run_ranks(_dp_rank, ranks,
+                               (config, batch_np, ref_path, steps, device, eval_args),
+                               device="cuda:0" if on_card else "cpu", backend="gloo",
+                               timeout_s=900)
+        wall = time.time() - t0
+
+    r0, faults = res[0], []
+    # losses and grad_norm: the ranks' means are the global batch's
+    bad = {k: (r0["metrics"][k], v) for k, v in metrics.items()
+           if abs(r0["metrics"][k] - v) > DP_LOSS_TOL * max(abs(v), 1e-4)}
+    if bad or r0["metrics"].keys() != metrics.keys():
+        faults.append(f"metrics differ from one process: {bad}")
+    log(f"data parallel, {ranks} ranks on card 0 over gloo, ZeRO on, {bsz // ranks} images a "
+        f"rank, against one process on the {bsz} (the same weights, draws and proposals): "
+        f"metrics {json.dumps(r0['metrics'])}; one process {json.dumps(metrics)}")
+    check_grads("one process against itself, the same step twice", spread, None)
+    # every trained tensor's gradient, then AdamW's moments after the step
+    mom = r0["moments"]
+    for what, ratios in (("data parallel gradients against one process", r0["grad_ratios"]),
+                         ("gathered exp_avg against one process's AdamW", mom["avg_ratios"]),
+                         ("gathered sqrt(exp_avg_sq) against one process's AdamW",
+                          mom["sq_ratios"])):
+        fault = dp_gate(what, ratios, floor)
+        if fault:
+            faults.append(fault)
+    if (mom["n"] != mom["trained"] or mom["steps"] != [1.0] or mom["unequal"]
+            or sum(mom["owners"]) != mom["trained"] or min(mom["owners"]) == 0):
+        faults.append(f"ZeRO's gathered moments: {mom['n']} of {mom['trained']} tensors, steps "
+                      f"{mom['steps']}, owned {mom['owners']}, differing from their owner's "
+                      f"{mom['unequal'][:3]}")
+    log(f"ZeRO: the ranks own {mom['owners']} of {mom['trained']} trained tensors' moments; "
+        f"Trainer.state_dict() gathered all {mom['n']} to rank 0, each equal bit for bit to "
+        f"its owner's, step {mom['steps']}")
+    # BatchNorm statistics: the global batch's, equal on every rank
+    worst_bn = 0.0
+    for r, rr in enumerate(res):
+        for k, v in stats.items():
+            diff = (rr["stats"][k] - v).abs().max().item()
+            worst_bn = max(worst_bn, diff / max(v.abs().max().item(), 1.0))
+            if not torch.allclose(rr["stats"][k], v, rtol=DP_STATS_TOL, atol=DP_STATS_TOL):
+                faults.append(f"rank {r} BN {k} off by {diff:.3e}, its largest "
+                              f"{v.abs().max().item():.3e}")
+            if not torch.equal(rr["stats"][k], r0["stats"][k]):
+                faults.append(f"BN {k} differs between ranks")
+        if rr["unequal"]:
+            faults.append(f"rank {r}'s parameters differ from rank 0's after {steps} steps: "
+                          f"{rr['unequal'][:3]}")
+        if on_card:
+            try:
+                check_train_launches(f"data parallel rank {r}", rr["counts"], ref.model, 1)
+            except AssertionError as err:
+                faults.append(str(err))
+        # the sharded evaluation: phase 9's metrics, every image once
+        ev = rr["eval"]
+        differ = {k: (ev["metrics"].get(k), v) for k, v in evaluation["metrics"].items()
+                  if not (k in ev["metrics"] and metric_close(ev["metrics"][k], v))}
+        differ.update({k: (ev["digest"].get(k), v) for k, v in evaluation["digest"].items()
+                       if not (k in ev["digest"] and metric_close(ev["digest"][k], v))})
+        if (differ or ev["images"] != len(EVAL_SIZES)
+                or ev["digest"]["val/num_dets"] != evaluation["digest"]["val/num_dets"]):
+            faults.append(f"rank {r}'s sharded tools.test: {ev['images']} images; against "
+                          f"phase 9: {differ}")
+    step_ms = [round(s * 1e3, 2) for s in r0["step_s"]]
+    log(f"data parallel: {len(stats)} BN statistics within {worst_bn:.3e} (relative, over 1) "
+        f"of one process's, equal on every rank: {not any('BN' in f for f in faults)}; "
+        f"parameters equal on every rank after {steps} steps: "
+        f"{not any('parameters' in f for f in faults)}; rank 0's launches over its steps "
+        f"{r0['counts_all']}; steps 2..{steps} {step_ms} ms a rank; {wall:.1f} s for the "
+        f"ranks (spawn, build, steps, evaluation)")
+    log(f"data parallel tools.test, {ranks} ranks on card 0 over gloo, phase 9's set and "
+        f"checkpoint: {r0['eval']['images']} images, each once; every metric within "
+        f"{DP_METRIC_TOL} of phase 9's: {not any('tools.test' in f for f in faults)}; "
+        + json.dumps({**r0["eval"]["metrics"], **r0["eval"]["digest"]}) + "; phase 9's digest "
+        + json.dumps(evaluation["digest"]))
+    if faults:
+        raise AssertionError("data parallel: " + "; ".join(faults))
+    del ref, start, batch
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"phase 19(a): {time.time() - t_phase:.1f} s")
+    return r0["counts_all"]
+
+
+def metric_close(got: float, want: float) -> bool:
+    import math
+
+    return abs(got - want) <= DP_METRIC_TOL or (math.isnan(want) and math.isnan(got))
+
+
+def ddp_overhead(config: str = TRAIN_CONFIG, device: str = "cuda",
+                 iters: int = DDP_TIMED_STEPS) -> None:
+    """Phase 19: the step at world 1 (a process group of one, NCCL on the
+    card) without DDP, as ``Trainer`` takes it at world 1, against the same
+    step through ``data_parallel`` (``find_unused_parameters``: a walk of
+    the autograd graph every step) and through DDP with ``static_graph``
+    (the unreached parameters found once), in turns; the bytes the
+    step all-reduces (DDP's gradient buckets) and, at world N with ZeRO,
+    broadcasts (the updated shards)."""
+    import tempfile
+
+    import torch
+
+    from rsprompter_tpu_torch.engine.train_state import (build_trainer, data_parallel,
+                                                         make_train_step)
+    from rsprompter_tpu_torch.parallel import distributed
+
+    on_card = device == "cuda"
+    dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize(dev, backend="nccl" if on_card else "gloo",
+                               init_method=f"file://{os.path.join(tmp, 'init')}",
+                               world_size=1, rank=0)
+        try:
+            steps = {}
+            for name in ("plain", "find_unused", "static_graph"):
+                tr = build_trainer(config, device=dev, seed=0,
+                                   steps_per_epoch=TRAIN_STEPS_PER_EPOCH)
+                if tr.ddp is not None:
+                    raise AssertionError("DDP overhead: the trainer wrapped a world of one")
+                if name == "plain":
+                    model = tr.model
+                elif name == "find_unused":
+                    model = data_parallel(tr.model)
+                else:
+                    model = torch.nn.parallel.DistributedDataParallel(
+                        tr.model, broadcast_buffers=False, static_graph=True)
+                steps[name] = (tr, make_train_step(model, tr.optimizer))
+            tr = steps["plain"][0]
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in _dp_batch(
+                tr.cfg, tr.cfg["train_dataloader"]["batch_size"]).items()}
+            gen = torch.Generator(device=dev)
+            times = {name: [] for name in steps}
+            for name in ("plain", "find_unused", "static_graph", "static_graph", "find_unused",
+                         "plain"):
+                step = steps[name][1]
+                step(batch, gen.manual_seed(0))  # warm-up (static_graph's first step)
+                sync()
+                for i in range(iters):
+                    t0 = time.perf_counter()
+                    step(batch, gen.manual_seed(1 + i))
+                    sync()
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+            grad_bytes = sum(p.numel() * p.element_size() for p in tr.model.parameters()
+                             if p.requires_grad)
+            trained_bytes = sum(p.numel() * p.element_size() for _, p in tr.optimizer.trained)
+        finally:
+            distributed.shutdown()
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"DDP overhead, world 1 ({'NCCL' if on_card else 'gloo'}), scratch-512 step, batch "
+        f"{batch['images'].shape[0]}, median of {2 * iters} steps each in turns: "
+        f"{med['plain']:.2f} ms without DDP (the trainer's step at world 1), "
+        f"{med['find_unused']:.2f} ms with DDP and find_unused_parameters "
+        f"({med['find_unused'] / med['plain']:.4f}x), {med['static_graph']:.2f} ms with "
+        f"static_graph ({med['static_graph'] / med['plain']:.4f}x); a step all-reduces "
+        f"{grad_bytes / 1e6:.1f} MB of fp32 gradients (DDP's buckets) plus the metrics, the "
+        f"loss normalisers and BatchNorm's sums; with ZeRO at world N it also broadcasts the "
+        f"{trained_bytes / 1e6:.1f} MB of updated parameters, each from its shard's rank")
+    del steps, tr
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def _torchrun(module: str, args, nproc: int, what: str) -> str:
+    """``python -m torch.distributed.run --standalone --nproc_per_node N -m
+    MODULE ARGS`` from the repository root; raises with its output's tail
+    if it fails. Returns its standard output."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", "-m", module, *args]
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="4")
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=TORCHRUN_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun {what}: exit {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
+    log(f"torchrun {what}: {time.time() - t0:.1f} s")
+    return proc.stdout
+
+
+def torchrun_phase(eval_metrics: dict, config: str = TRAIN_CONFIG, eval_config: str = CONFIG,
+                   device: str = "cuda", nproc: Optional[int] = None) -> None:
+    """Phase 19(b). ``tools.train`` under torchrun, one rank a card (NCCL),
+    on phase 11's synthetic set: two epochs, then a resumed third with a
+    validation (sharded where there is more than one card); then
+    ``tools.test`` under torchrun on phase 9's set and checkpoint, whose
+    metrics must be phase 9's (``eval_metrics``) within ``DP_METRIC_TOL``,
+    every image evaluated once. On one card this is world 1: the
+    launcher's environment, ``initialize()`` and an NCCL group of one,
+    with no collective to run (phase 19(a) runs them)."""
+    import math
+    import tempfile
+
+    import torch
+
+    from rsprompter_tpu_torch.core.config import Config
+    from rsprompter_tpu_torch.utils.synthetic import synthetic_coco
+
+    t_phase = time.time()
+    nproc = nproc or torch.cuda.device_count()
+    dev_args = [] if device == "cuda" else ["--device", device]
+    with tempfile.TemporaryDirectory() as tmp:
+        train_root = synthetic_coco(os.path.join(tmp, "train"), NWPU_CLASSES, LOOP_TRAIN_SIZES,
+                                    write_png, seed=2)
+        val_root = synthetic_coco(os.path.join(tmp, "val"), NWPU_CLASSES, LOOP_VAL_SIZES,
+                                  write_png, seed=3)
+        work = os.path.join(tmp, "work")
+        opts = _loop_options(train_root, val_root) + ["ckpt_interval=2", "val_interval=3",
+                                                      "log_interval=1"]
+        bsz = Config.fromfile(config)["train_dataloader"]["batch_size"]
+        spe = len(LOOP_TRAIN_SIZES) // (bsz * nproc)
+        out1 = _torchrun("rsprompter_tpu_torch.tools.train",
+                         [config, "--work-dir", work, *dev_args, "--cfg-options", *opts,
+                          "max_epochs=2"], nproc, f"tools.train, {nproc} rank(s), 2 epochs")
+        out2 = _torchrun("rsprompter_tpu_torch.tools.train",
+                         [config, "--work-dir", work, "--resume", *dev_args, "--cfg-options",
+                          *opts, "max_epochs=3"], nproc, "tools.train --resume, epoch 3")
+        recs = _read_records(work)
+        train = [r for r in recs if "loss" in r]
+        val = [r for r in recs if "coco/bbox_mAP" in r]
+        iters = [r["iter"] for r in train]
+        if (iters != list(range(1, 3 * spe + 1)) or len(val) != 1
+                or not all(math.isfinite(r["loss"]) for r in train)
+                or "resumed from" not in out2):
+            raise AssertionError(f"torchrun tools.train: iters {iters}, {len(val)} validations, "
+                                 f"losses {[r['loss'] for r in train]}")
+        for step in (2 * spe, 3 * spe):
+            if not os.path.isdir(os.path.join(work, "ckpts", f"step_{step}")):
+                raise AssertionError(f"torchrun tools.train: no checkpoint at step {step}")
+        log(f"torchrun tools.train: {nproc} rank(s) x batch {bsz}, {spe} steps an epoch, "
+            f"losses {[round(r['loss'], 5) for r in train]}; resumed at step {2 * spe}; "
+            f"validation over {nproc} rank(s): " + json.dumps({k: v for k, v in val[0].items()
+                                                  if k.startswith(("coco/bbox_mAP",
+                                                                   "val/"))}))
+
+        eval_root, ckpt_path = write_eval_set(tmp, eval_config)
+        out3 = _torchrun("rsprompter_tpu_torch.tools.test", [
+            eval_config, ckpt_path, *dev_args, "--cfg-options", *_eval_options(eval_root)],
+            nproc, "tools.test")
+    got = {}
+    n_images = None
+    for line in out3.splitlines():
+        key, sep, value = line.partition(": ")
+        if sep and key.startswith("coco/"):
+            got[key] = float(value)
+        elif " images in " in line:
+            n_images = int(line.split()[0])
+    differ = {k: (got.get(k), v) for k, v in eval_metrics.items()
+              if not (k in got and metric_close(got[k], v))}
+    if differ or n_images != len(EVAL_SIZES):
+        raise AssertionError(f"torchrun tools.test: {n_images} images; against phase 9: "
+                             f"{differ}")
+    log(f"torchrun tools.test, {nproc} rank(s): {n_images} images, each once; every metric "
+        f"within {DP_METRIC_TOL} of phase 9's: {json.dumps(got)}")
+    log(f"phase 19(b): {time.time() - t_phase:.1f} s")
+
+
+def tensor_mode_phase(kernels, config: str = CONFIG, device: str = "cuda") -> dict:
+    """Phase 19(c). ``forward(batch, mode='tensor')`` of the anchor
+    detector at ViT-B 1024^2, batch 2, on phase 3's images: every output
+    finite, in JAX's order and shapes (per-level RPN scores and deltas,
+    then the RoI head's class logits and deltas on the NMS'd proposals and
+    SAM's mask logits and IoU on the first ``num_mask_slots``), A, B and C
+    launched as phase 3 counts a forward. Returns the launches."""
+    import torch
+
+    from rsprompter_tpu_torch.apis.inference import init_detector
+
+    inf = init_detector(config, device=device, batch_size=2, seed=0)
+    det = inf.model
+    batch, _ = inf.make_batch(synthetic_images(0))
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    det(batch, mode="tensor")  # warm-up
+    sync()
+    for k in kernels:
+        k.reset_counts()
+    t0 = time.perf_counter()
+    out = det(batch, mode="tensor")
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {k.name: dict(k.variant_launches) for k in kernels}
+    if device == "cuda":
+        for name, want in expected_forward_launches(det, 1).items():
+            if counts[name] != want:
+                raise AssertionError(f"tensor mode: {name} launches {counts[name]}, "
+                                     f"expected {want}")
+    b, h = batch["images"].shape[:2]
+    a = det.anchor_generator.num_base_priors
+    strides = det.anchor_generator.strides
+    n = dict(det.test_cfg.get("rpn", {})).get("max_per_img", 1000)
+    c = det.roi_head.num_classes
+    m = min(n, det.roi_head.num_mask_slots)
+    s = 4 * (h // det.backbone.config.patch_size)
+    want = ([(b, h // st, h // st, a) for st in strides]
+            + [(b, h // st, h // st, 4 * a) for st in strides]
+            + [(b, n, c + 1), (b, n, 4 * c), (b, m, s, s), (b, m)])
+    flat = list(out[0]) + list(out[1]) + list(out[2:])
+    shapes = [tuple(t.shape) for t in flat]
+    if shapes != want:
+        raise AssertionError(f"tensor mode: shapes {shapes}, expected {want}")
+    bad = [i for i, t in enumerate(flat) if not torch.isfinite(t).all()]
+    if bad:
+        raise AssertionError(f"tensor mode: non-finite outputs {bad}")
+    log(f"tensor mode: RSPrompter-anchor, ViT-B {h}^2, batch {b}: {len(flat)} raw outputs, "
+        f"finite, JAX's shapes {shapes}; {ms:.2f} ms a forward; launches {counts}")
+    del inf, det, out
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10,
@@ -4717,7 +5372,7 @@ def main() -> int:
     query = query_phase(kernels, args.iters, args.profile_dir)
     paths["query_fused"], paths["query_flash"] = query["fused"], query["flash"]
     sam_checkpoint_phase()
-    eval_phase(kernels)
+    evaluation = eval_phase(kernels)
     paths["query_train_step"] = query_train_phase(kernels, args.train_steps, args.profile_dir)
     paths["train_loop"] = train_loop_phase(kernels, args.profile_dir)
     rows += lora_kernel_rows(dev)
@@ -4735,6 +5390,11 @@ def main() -> int:
     paths["serve"] = serving_phase(kernels)
     paths[TTA_PATH], tta_rows = tta_tools_phase(kernels)
     rows += tta_rows
+    rows += backward_kernel_phase(dev, bsz=DP_BATCH, kinds=("A'", "B'", "C'"), path=DP_PATH)
+    paths[DP_PATH] = dp_phase(kernels, evaluation)
+    ddp_overhead()
+    torchrun_phase(evaluation["metrics"])
+    paths[TENSOR_PATH] = tensor_mode_phase(kernels)
     out = []
     for r in rows:
         name, variant = r["kernel"].name, r["variant"]

@@ -9,14 +9,23 @@ Counterpart of ``rsprompter_tpu/data/loader.py`` (``DataLoader`` :19-97).
   (``apis/inference.py``), so a batch is the dataset's raw samples (the
   uint8 BGR image and its GT at the original size) with one meta per slot;
   the last partial batch's empty slots get a copy of the last meta with
-  ``img_id=-1``, which the metric skips.
+  ``img_id=-1``, which the metric skips. With ``num_shards`` > 1 (sharded
+  evaluation, one shard a rank) shard ``shard_id`` is the ``shard_id``-th
+  of ``num_shards`` contiguous blocks of the dataset, their sizes apart by
+  at most one: no image is read twice, none is dropped, and the shards in
+  rank order are the dataset in order.
 - :class:`TrainLoader` is JAX's loader as ``tools/train.py`` uses it: the
   indices shuffled by ``RandomState(seed + epoch)``, ``epoch`` advancing on
   each iteration, every ``num_shards``-th index from ``shard_id``, batches
   collated (``max_gt``, ``pad_shape``, bit-packed masks). Where it is given
   the ``rng`` its dataset's transforms draw from, it re-seeds that rng with
-  ``(seed, epoch)`` before each epoch, so a run resumed at an epoch draws
-  the samples an uninterrupted one would.
+  ``(seed, epoch)`` before each epoch (``(seed, epoch, shard_id)`` with more
+  than one shard, so the ranks augment with their own streams), so a run
+  resumed at an epoch draws the samples an uninterrupted one would. With
+  more than one shard the shuffled indices are cut to a multiple of
+  ``num_shards`` first (as ``DistributedSampler(drop_last=True)`` cuts
+  them): every rank takes as many steps, which data-parallel training
+  needs.
 
 Both decode ``prefetch`` batches ahead in a background thread when asked
 (the num_workers analogue of the reference's torch DataLoader); an error in
@@ -65,13 +74,17 @@ def prefetched(make_iter: Callable[[], Iterator], depth: int) -> Iterator:
 
 
 class DataLoader:
-    def __init__(self, dataset, batch_size: int = 2, prefetch: int = 0):
+    def __init__(self, dataset, batch_size: int = 2, prefetch: int = 0, shard_id: int = 0,
+                 num_shards: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.prefetch = prefetch
+        block = np.array_split(np.arange(len(dataset)), num_shards)[shard_id]
+        self.start = int(block[0]) if len(block) else len(dataset)  # the shard's first index
+        self.stop = self.start + len(block)
 
     def __len__(self) -> int:
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        return (self.stop - self.start + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[Tuple[List[Dict], List[Dict]]]:
         if self.prefetch > 0:
@@ -79,9 +92,9 @@ class DataLoader:
         return self._iter_sync()
 
     def _iter_sync(self):
-        n = len(self.dataset)
-        for start in range(0, n, self.batch_size):
-            samples = [self.dataset[i] for i in range(start, min(start + self.batch_size, n))]
+        for start in range(self.start, self.stop, self.batch_size):
+            samples = [self.dataset[i]
+                       for i in range(start, min(start + self.batch_size, self.stop))]
             metas = [{k: s[k] for k in META_KEYS} for s in samples]
             while len(metas) < self.batch_size:
                 metas.append(dict(metas[-1], img_id=-1))
@@ -117,7 +130,7 @@ class TrainLoader:
         self.epoch = 0
 
     def __len__(self) -> int:
-        n = len(self.dataset) // self.num_shards
+        n = len(self.dataset) // self.num_shards  # the cut shard's length
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -132,9 +145,11 @@ class TrainLoader:
         if self.shuffle:
             rs = np.random.RandomState(self.seed + self.epoch)
             rs.shuffle(indices)
+        if self.num_shards > 1:
+            indices = indices[: len(indices) // self.num_shards * self.num_shards]
         indices = indices[self.shard_id :: self.num_shards]
         if self.rng is not None:
-            self.rng.seed([self.seed, self.epoch])
+            self.rng.seed([self.seed, self.epoch] + ([self.shard_id] if self.num_shards > 1 else []))
         self.epoch += 1
         for start in range(0, len(indices), self.batch_size):
             chunk = indices[start : start + self.batch_size]

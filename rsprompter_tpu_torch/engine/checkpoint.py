@@ -61,6 +61,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from rsprompter_tpu_torch.parallel.distributed import barrier, is_main
+
 # the port's module prefix -> the HF SAM key prefix, per detector family
 # (JAX's SAM_SUBTREE_PREFIXES with its flax paths as the port's module
 # paths; a prefix the model does not have is skipped, as JAX skips it)
@@ -290,13 +292,18 @@ def save_checkpoint(ckpt_dir: str, trainer, step: int, keep: int = 5) -> str:
     """Write ``trainer.state_dict()`` (fp32 master parameters, BN buffers,
     the optimizer's moments and counts, the step) as one ``torch.save`` in
     ``ckpt_dir/step_{step}/state.pt``, then keep only the newest ``keep``
-    step directories. Returns the directory."""
+    step directories. Returns the directory. In a process group every rank
+    calls it (the state is a collective under ZeRO); rank 0 writes the same
+    file as a single process, and every rank leaves after it is written."""
     path = os.path.abspath(os.path.join(ckpt_dir, f"step_{step}"))
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, CKPT_FILE + ".tmp")
-    torch.save(trainer.state_dict(), tmp)
-    os.replace(tmp, os.path.join(path, CKPT_FILE))
-    _prune(ckpt_dir, keep)
+    state = trainer.state_dict()
+    if is_main():
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, CKPT_FILE + ".tmp")
+        torch.save(state, tmp)
+        os.replace(tmp, os.path.join(path, CKPT_FILE))
+        _prune(ckpt_dir, keep)
+    barrier()
     return path
 
 

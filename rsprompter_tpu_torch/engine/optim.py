@@ -23,6 +23,17 @@ the update, as optax reads it.
 (Welford's update, as optax's), and only the k-th clips, updates and
 advances the schedule's count; the parameters stay as they are on the
 others.
+
+With ``zero`` (a process group of more than one rank; the config's
+``dist.zero``, default True), AdamW's moments are sharded over the ranks
+by ``torch.distributed.optim.ZeroRedundancyOptimizer``, JAX's
+``zero_shardings`` (``parallel/mesh.py:84-101``): each rank updates its
+share of the parameters and broadcasts them. The gradients it reads are
+DDP's means, the same on every rank, so the clip's norm is the global
+one. :meth:`Optimizer.state_dict` is then a collective that every rank
+calls; rank 0 gets the whole state, in the layout of one
+``torch.optim.AdamW``'s ``state_dict``, so a checkpoint resumes at any
+world size.
 """
 
 from __future__ import annotations
@@ -32,6 +43,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+
+from rsprompter_tpu_torch.parallel.distributed import all_gather_object, is_main
 
 Schedule = Callable[[int], float]
 
@@ -61,7 +74,8 @@ class Optimizer:
 
     def __init__(self, model: nn.Module, schedule: Schedule, weight_decay: float,
                  freeze_paths: Sequence[str] = (), grad_clip: Optional[float] = None,
-                 accumulate_steps: int = 1, train_paths_override: Sequence[str] = ()):
+                 accumulate_steps: int = 1, train_paths_override: Sequence[str] = (),
+                 zero: bool = False):
         self.model = model
         self.schedule = schedule
         self.grad_clip = grad_clip
@@ -72,10 +86,15 @@ class Optimizer:
                       and any(f in name for f in freeze_paths))
             (self.frozen if frozen else self.trained).append((name, p))
         params = [p for _, p in self.trained]
-        self.adamw = torch.optim.AdamW(
-            params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=weight_decay,
-        )
+        hyper = dict(lr=schedule(0), betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+        self.zero = zero
+        if zero:  # imported here: the module costs seconds to import
+            from torch.distributed.optim import ZeroRedundancyOptimizer
+
+            self.adamw = ZeroRedundancyOptimizer(params, optimizer_class=torch.optim.AdamW,
+                                                 **hyper)
+        else:
+            self.adamw = torch.optim.AdamW(params, **hyper)
         self.count = 0  # updates made (the schedule's count)
         self.accumulate_steps = accumulate_steps
         self.mini_step = 0  # micro-steps folded into ``acc_grads`` since the last update
@@ -136,12 +155,52 @@ class Optimizer:
 
     def state_dict(self) -> Dict[str, Any]:
         """AdamW's moments and step, the update count and the accumulation
-        state: everything :meth:`step` reads besides the parameters."""
-        return {"adamw": self.adamw.state_dict(), "count": self.count,
+        state: everything :meth:`step` reads besides the parameters. Under
+        ZeRO a collective: every rank calls it, and only rank 0's holds the
+        moments (``adamw`` is None on the others)."""
+        if self.zero:
+            adamw = self._gather_zero_state()
+            adamw = adamw if is_main() else None
+        else:
+            adamw = self.adamw.state_dict()
+        return {"adamw": adamw, "count": self.count,
                 "mini_step": self.mini_step, "acc_grads": list(self.acc_grads)}
 
+    def _gather_zero_state(self) -> Dict[str, Any]:
+        """Every rank's shard of the moments, each tensor broadcast from its
+        owner (``ZeroRedundancyOptimizer.consolidate_state_dict`` sends each
+        shard as one pickle through a Python-built byte tensor: minutes at
+        ViT-B), in the layout of one ``torch.optim.AdamW``'s state_dict, on
+        the CPU."""
+        local = self.adamw.optim.state  # this rank's shard, by parameter
+        owned = all_gather_object([i for i, (_, p) in enumerate(self.trained) if p in local])
+        owner = {i: r for r, indices in enumerate(owned) for i in indices}
+        state = {}
+        for i, (_, p) in enumerate(self.trained):
+            if i not in owner:  # no update has reached it yet
+                continue
+            mine = local.get(p)
+            tensors = ([mine["step"].float().reshape(1).to(p.device), mine["exp_avg"],
+                        mine["exp_avg_sq"]] if mine else
+                       [torch.zeros(1, device=p.device), torch.empty_like(p),
+                        torch.empty_like(p)])
+            for t in tensors:
+                torch.distributed.broadcast(t, src=owner[i])
+            step, avg, sq = (t.cpu() for t in tensors)
+            state[i] = {"step": step.reshape(()), "exp_avg": avg, "exp_avg_sq": sq}
+        groups = [dict({k: v for k, v in g.items() if k != "params"},
+                       params=list(range(len(self.trained))))
+                  for g in self.adamw.param_groups]
+        return {"state": state, "param_groups": groups}
+
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.adamw.load_state_dict(state["adamw"])
+        """Restore a :meth:`state_dict` written at any world size, with or
+        without ZeRO: the moments by parameter index, the hyperparameters
+        this optimizer's own (the learning rate follows the schedule)."""
+        saved = state["adamw"]
+        groups = [dict({k: v for k, v in own.items() if k != "params"}, params=g["params"])
+                  for own, g in zip(self.adamw.param_groups, saved["param_groups"])]
+        self.adamw.load_state_dict({"state": dict(saved["state"]), "param_groups": groups})
         self.count = int(state["count"])
         self.mini_step = int(state["mini_step"])
         self.acc_grads = [a.to(p.device) for a, (_, p) in zip(state["acc_grads"], self.trained)]
@@ -154,10 +213,11 @@ def build_optimizer(model: nn.Module, base_lr: float = 1e-4, weight_decay: float
                     grad_clip: Optional[float] = None,
                     schedule: Optional[Schedule] = None,
                     accumulate_steps: int = 1,
-                    train_paths_override: Sequence[str] = ()) -> Optimizer:
+                    train_paths_override: Sequence[str] = (),
+                    zero: bool = False) -> Optimizer:
     """AdamW + warm-up cosine over the parameters that train, with gradients
     averaged over ``accumulate_steps`` micro-steps (JAX's ``build_optimizer``
-    :86)."""
+    :86); with ``zero``, its moments sharded over the process group."""
     sched = schedule or warmup_cosine_schedule(base_lr, total_steps, warmup_steps)
     return Optimizer(model, sched, weight_decay, freeze_paths, grad_clip, accumulate_steps,
-                     train_paths_override)
+                     train_paths_override, zero)

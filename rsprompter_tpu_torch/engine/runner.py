@@ -24,8 +24,16 @@ as JAX counts them) is drawn into ``WORK_DIR/vis/val_{offset}.jpg``
 (JAX's ``_visualize``, :292-331: detections over a score of 0.3 over the
 original file). As in JAX a drawing that fails does not stop training: what
 reading, drawing and writing the file raise (``OSError``, ``ValueError``)
-is logged; anything else, a CUDA error among it, propagates. Not ported:
-JAX's mesh, ``batch_fn`` and ``cache_train_batches``.
+is logged; anything else, a CUDA error among it, propagates.
+
+In a process group (``tools.train`` under torchrun; JAX's mesh, :213-250)
+every rank runs the loop on its shard of the train loader, the trainer's
+metrics already the global batch's; validation runs sharded (each rank's
+val loader one block, ``evaluation.loop``), and every rank gets rank 0's
+metrics, so all take the same checkpoint branches. Rank 0 alone logs and
+writes checkpoints (every rank calls the save, a collective under ZeRO);
+each rank draws its own validation images, named by their offset in the
+whole set. Not ported: JAX's ``batch_fn`` and ``cache_train_batches``.
 """
 
 from __future__ import annotations
@@ -49,6 +57,7 @@ from rsprompter_tpu_torch.engine.vis_backend import LocalVisBackend
 from rsprompter_tpu_torch.evaluation.coco_metric import CocoMetric
 from rsprompter_tpu_torch.evaluation.loop import evaluate
 from rsprompter_tpu_torch.ops.masks import unpack_batch_masks
+from rsprompter_tpu_torch.parallel.distributed import is_main
 
 
 def _host_rss_mb() -> float:
@@ -113,6 +122,8 @@ class Runner:
         self._last_log = (time.perf_counter(), 0)
 
     def _log(self, record: Dict[str, Any]) -> None:
+        if not is_main():
+            return
         record = {k: (float(v) if isinstance(v, (np.floating, np.ndarray)) else v)
                   for k, v in record.items()}
         for backend in self.vis_backends:
@@ -136,7 +147,8 @@ class Runner:
                 # the epoch-seeded shuffle (and augmentation) realigned
                 # with the restored step, as the unresumed run would see it
                 self.train_loader.epoch = self.trainer.iter // spe
-                print(f"resumed from {path}")
+                if is_main():
+                    print(f"resumed from {path}")
         start_epoch = min(self.trainer.iter // spe, self.max_epochs)
         self._last_log = (time.perf_counter(), self.trainer.iter)
         for epoch in range(start_epoch, self.max_epochs):
@@ -184,7 +196,7 @@ class Runner:
         inferencer = DetInferencer.from_module(model, self.trainer.cfg,
                                                batch_size=self.val_loader.batch_size)
         metric = CocoMetric(num_classes=self.num_classes, mask_mode=inferencer.mask_mode)
-        offset = 0
+        offset = getattr(self.val_loader, "start", 0)  # the shard's place in the set
 
         def visualize(metas, dets, probs) -> None:
             nonlocal offset

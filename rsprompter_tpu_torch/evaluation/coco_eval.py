@@ -193,6 +193,17 @@ class CocoEvaluator:
                 slot["ignored"].append(ignored)
                 slot["npig"] += int((~g_ignore_o).sum())
 
+    def merge(self, parts) -> None:
+        """Append the per-image results of other evaluators (their
+        ``_results``), in order, after this one's: the evaluator of shards
+        merged in rank order equals the one that saw every image in that
+        order."""
+        for part in parts:
+            for key, slot in self._results.items():
+                for k in ("scores", "matched", "ignored"):
+                    slot[k].extend(part[key][k])
+                slot["npig"] += part[key]["npig"]
+
     def _ap_recall(self, c: int, aname: str):
         slot = self._results[(c, aname)]
         npig = slot["npig"]

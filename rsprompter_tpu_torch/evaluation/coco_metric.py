@@ -13,6 +13,12 @@ Behavior parity: reference ``mmdet/evaluation/metrics/coco_metric.py:23`` —
 runs COCO AP (:393) and emits ``coco/bbox_mAP``, ``coco/segm_mAP(_50/_75/...)``.
 GT can come from the dataset's annotations (the GT-free path of :378-391 that
 builds COCO structures from data samples maps to passing GT dicts directly).
+
+Sharded evaluation (one shard a rank, in dataset order): each rank
+processes its images (the RLE encode and the per-image match run on every
+rank), then :meth:`CocoMetric.gather` sends every rank's per-image results
+to rank 0 in rank order, which is the dataset's order, so rank 0's
+``compute`` equals a single process's.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from rsprompter_tpu_torch.evaluation.coco_eval import CocoEvaluator
 from rsprompter_tpu_torch.evaluation.rle import RLE, encode_masks
 from rsprompter_tpu_torch.models.roi_heads.mask_head import paste_masks_np
 from rsprompter_tpu_torch.ops.masks import finalize_masks_np, probs_to_f32
+from rsprompter_tpu_torch.parallel.distributed import all_gather_object, is_main
 
 
 @METRICS.register_module()
@@ -59,6 +66,7 @@ class CocoMetric:
         # tools/test.py --out + tools/analysis_tools/eval_metric.py)
         self.dump_path = dump_path
         self._dump_records = [] if dump_path else None
+        self.num_images = 0  # images processed (padded slots skipped)
 
     def process(
         self,
@@ -115,6 +123,7 @@ class CocoMetric:
                 gt = dict(gt, masks=encode_masks(np.asarray(gt["masks"])))
             for m in self.metrics:
                 self.evaluators[m].add_image(det, gt)
+            self.num_images += 1
             if self._dump_records is not None:
                 self._dump_records.append(
                     {
@@ -127,6 +136,22 @@ class CocoMetric:
                         },
                     }
                 )
+
+    def gather(self) -> None:
+        """A collective: every rank's per-image results (and ``--out``
+        records) to rank 0, after its own in rank order. Nothing at world
+        1; on the other ranks the metric keeps its own shard."""
+        parts = all_gather_object(
+            ({m: ev._results for m, ev in self.evaluators.items()}, self._dump_records,
+             self.num_images))
+        if not is_main() or len(parts) == 1:
+            return
+        for m, ev in self.evaluators.items():
+            ev.merge(p[0][m] for p in parts[1:])
+        for _, records, n in parts[1:]:
+            if self._dump_records is not None:
+                self._dump_records.extend(records)
+            self.num_images += n
 
     def compute(self) -> Dict[str, float]:
         out = {}

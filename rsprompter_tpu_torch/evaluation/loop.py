@@ -13,6 +13,14 @@ their mean score and their mean mask probability over every slot of each
 batch, padded slots included, as JAX's validation counts them. A
 ``visit`` callback sees each batch on the host after the metric (the test
 tool's ``--show-dir`` and the runner's drawing of validation images).
+
+Sharded (a process group of more than one rank, each ``loader`` one block
+of the dataset, ``DataLoader(shard_id=rank, num_shards=world)``): each rank
+predicts and processes its shard, the metric's per-image results go to rank
+0 in dataset order (:meth:`CocoMetric.gather`), rank 0 computes COCO, and
+every rank returns its metrics (a broadcast, so every rank takes the same
+branch after); the digest's sums and the image count are summed over the
+ranks (each rank's padded slots counted, as above).
 """
 
 from __future__ import annotations
@@ -24,6 +32,12 @@ import numpy as np
 import torch
 
 from rsprompter_tpu_torch.evaluation.coco_metric import gt_from_raw_sample
+from rsprompter_tpu_torch.parallel.distributed import (
+    all_gather_object,
+    broadcast_object,
+    is_main,
+    world_size,
+)
 
 
 def _to_host(dets):
@@ -81,7 +95,11 @@ def evaluate(inferencer, loader, metric,
         timing["visit_s"] += time.perf_counter() - t3
         n_images += len(samples)
         t0 = time.perf_counter()
-    results = metric.compute()
+    if world_size() > 1:
+        metric.gather()
+        sums = all_gather_object((n_images, n_dets, score_sum, mask_prob_sum))
+        n_images, n_dets, score_sum, mask_prob_sum = (sum(s) for s in zip(*sums))
+    results = broadcast_object(metric.compute() if is_main() else None)
     t_end = time.perf_counter()
     timing["compute_s"] = t_end - t0
     timing["wall_s"] = t_end - t_start

@@ -86,6 +86,7 @@ from rsprompter_tpu_torch.ops.point_utils import (
     uncertain_point_coords,
 )
 from rsprompter_tpu_torch.ops.resize import resize
+from rsprompter_tpu_torch.parallel.distributed import global_count
 
 # The loss weights of JAX's head (:130-136), which no config sets.
 CLS_WEIGHT = 2.0
@@ -422,7 +423,7 @@ class Mask2FormerHead(nn.Module):
         logp = torch.log_softmax(cls_all.float(), dim=-1)
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
         cw = torch.where(labels == self.num_classes, BG_CLS_WEIGHT, 1.0)
-        return CLS_WEIGHT * (nll * cw).sum((1, 2)) / cw.sum((1, 2)).clamp(min=1.0)
+        return CLS_WEIGHT * (nll * cw).sum((1, 2)) / global_count(cw.sum((1, 2)))
 
     def _mask_losses(self, masks, matched, gt_masks, gt_valid, cand, rand):
         """masks (L, B, G, h, w): each GT's matched mask logits, per call.
@@ -441,10 +442,10 @@ class Mask2FormerHead(nn.Module):
                                       coords.reshape(n_calls, b * g, -1, 2))
         tgt = (tgt >= 0.5).float()
         wgt = (gt_valid & (matched >= 0)).reshape(n_calls, b * g).float()
-        num_total = gt_valid.sum().float().clamp(min=1.0)
+        num_total = global_count(gt_valid.sum().float())
         p = torch.sigmoid(pred)
         dice = 1 - (2 * (p * tgt).sum(-1) + 1.0) / (p.sum(-1) + tgt.sum(-1) + 1.0)
         loss_dice = DICE_WEIGHT * (dice * wgt).sum(-1) / num_total
         bce = (pred.clamp(min=0) - pred * tgt + torch.log1p(torch.exp(-pred.abs()))).mean(-1)
-        loss_mask = MASK_WEIGHT * (bce * wgt).sum(-1) / wgt.sum(-1).clamp(min=1.0)
+        loss_mask = MASK_WEIGHT * (bce * wgt).sum(-1) / global_count(wgt.sum(-1))
         return loss_mask, loss_dice

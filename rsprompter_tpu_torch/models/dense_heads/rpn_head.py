@@ -27,6 +27,7 @@ from rsprompter_tpu_torch.models.task_modules.assigners import max_iou_assign
 from rsprompter_tpu_torch.models.task_modules.samplers import random_sample_padded
 from rsprompter_tpu_torch.ops.boxes import DeltaXYWHBBoxCoder, clip_to_shape, take_per_image
 from rsprompter_tpu_torch.ops.nms import batched_nms, sort_desc
+from rsprompter_tpu_torch.parallel.distributed import global_count, local_rows, world_size
 
 
 class RPNHead(nn.Module):
@@ -81,7 +82,7 @@ def rpn_loss(
     safe = (gt_inds - 1).clamp(0, g - 1)
     matched_gt = torch.gather(gt_bboxes, 1, safe[..., None].expand(-1, -1, 4))
     bbox_target = coder.encode(anchors, matched_gt)
-    avg = sample.valid.sum().float().clamp(min=1.0)
+    avg = global_count(sample.valid.sum().float())
     loss_cls = binary_cross_entropy(scores, pos_w, weight=label_w, avg_factor=avg)
     loss_bbox = smooth_l1(
         deltas, bbox_target, beta=cfg.get("smooth_l1_beta", 1.0),
@@ -137,15 +138,17 @@ def rpn_predict(
 
 def propose(rpn_head: RPNHead, anchor_generator: AnchorGenerator,
             feats: Sequence[torch.Tensor], img_shapes: torch.Tensor,
-            test_cfg: Dict[str, Any]) -> Proposals:
+            test_cfg: Dict[str, Any]):
     """The two-stage detectors' test-time proposals: the RPN head on
     ``feats``, then :func:`rpn_predict` with ``test_cfg['rpn']`` over the
-    defaults nms_pre 1000, max_per_img 1000, IoU 0.7."""
+    defaults nms_pre 1000, max_per_img 1000, IoU 0.7. Returns (per-level
+    scores, per-level deltas, :class:`Proposals`): ``mode='tensor'``
+    returns the first two raw."""
     cls_scores, bbox_preds = rpn_head(feats)
     rpn_cfg = dict(nms_pre=1000, max_per_img=1000, nms_iou_thr=0.7)
     rpn_cfg.update(test_cfg.get("rpn", {}))
-    return rpn_predict(cls_scores, bbox_preds, anchor_generator.device_anchors(feats),
-                       img_shapes, rpn_cfg)
+    return cls_scores, bbox_preds, rpn_predict(
+        cls_scores, bbox_preds, anchor_generator.device_anchors(feats), img_shapes, rpn_cfg)
 
 
 def rpn_train_cfgs(train_cfg: Dict[str, Any]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
@@ -169,13 +172,16 @@ def two_stage_loss(rpn_head: RPNHead, anchor_generator: AnchorGenerator, roi_hea
     loss terms, its proposals from the detached outputs (JAX's
     stop-gradient), then ``roi_head.loss`` on them, ``roi_extra`` passed
     before its draws. ``draws`` {'rpn': (3, B, P), 'roi': (3, B, G + N)} are
-    the samplers' uniforms; without them they come from ``generator``."""
+    the samplers' uniforms for the global batch (the ranks' batches in rank
+    order; this batch at world 1); without them they come from
+    ``generator``, which every rank seeds alike. Each rank keeps its own
+    rows."""
     b, g = batch["gt_valid"].shape
 
     def draw(name: str, n: int) -> torch.Tensor:
-        if draws is not None:
-            return draws[name]
-        return torch.rand((3, b, n), generator=generator, device=feats[0].device)
+        full = draws[name] if draws is not None else torch.rand(
+            (3, world_size() * b, n), generator=generator, device=feats[0].device)
+        return local_rows(full, 1, b)
 
     cls_scores, bbox_preds = rpn_head(feats)
     level_anchors = anchor_generator.device_anchors(feats)

@@ -16,6 +16,8 @@ proposals come from the detached RPN outputs (:180-181); the RPN and RoI
 samplers draw from one generator (JAX's two RNG streams), or take explicit
 draws. The module's train / eval mode is
 the BatchNorms' (batch statistics in ``loss``, as JAX's ``train=True``).
+``forward(batch, mode)`` dispatches to ``loss``, ``predict`` or ``tensor``
+(JAX :211: the raw outputs).
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn as nn
 
 from rsprompter_tpu_torch.models.dense_heads.rpn_head import (
     RPNHead,
@@ -32,6 +33,7 @@ from rsprompter_tpu_torch.models.dense_heads.rpn_head import (
     propose,
     two_stage_loss,
 )
+from rsprompter_tpu_torch.models.detectors.base import ThreeModeDetector
 from rsprompter_tpu_torch.models.necks.rsfpn import RSSimpleFPN, build_aggregator
 from rsprompter_tpu_torch.models.preprocess import preprocess_images
 from rsprompter_tpu_torch.models.roi_heads.prompt_roi_head import RSPrompterAnchorRoIPromptHead
@@ -43,7 +45,7 @@ from rsprompter_tpu_torch.models.sam.positional import (
 from rsprompter_tpu_torch.models.sam.vision_encoder import SamVisionEncoder
 
 
-class RSPrompterAnchor(nn.Module):
+class RSPrompterAnchor(ThreeModeDetector):
     def __init__(
         self,
         arch: str = "base",
@@ -125,9 +127,21 @@ class RSPrompterAnchor(nn.Module):
         """batch: images (B, H, W, 3) uint8 BGR (or normalised float) and
         img_shape (B, 2). Returns (DetResult, mask probs (B, N, S, S) fp32)."""
         feats, image_embeddings, image_pe = self.extract_feat(batch["images"])
-        proposals = propose(self.rpn_head, self.anchor_generator, feats, batch["img_shape"],
-                            self.test_cfg)
+        _, _, proposals = propose(self.rpn_head, self.anchor_generator, feats,
+                                  batch["img_shape"], self.test_cfg)
         return self.roi_head.predict(
             feats, proposals.boxes, proposals.valid, batch["img_shape"],
             image_embeddings, image_pe,
         )
+
+    @torch.no_grad()
+    def tensor(self, batch: Dict[str, torch.Tensor]):
+        """``mode='tensor'`` (JAX :211): the per-level RPN scores (B, h, w,
+        A) and deltas (B, h, w, 4A), then the RoI head's raw outputs on the
+        NMS'd proposals (``RSPrompterAnchorRoIPromptHead.tensor``); no
+        decode, threshold or postprocess."""
+        feats, image_embeddings, image_pe = self.extract_feat(batch["images"])
+        cls_scores, bbox_preds, proposals = propose(
+            self.rpn_head, self.anchor_generator, feats, batch["img_shape"], self.test_cfg)
+        return (tuple(cls_scores), tuple(bbox_preds)) + self.roi_head.tensor(
+            feats, proposals.boxes, image_embeddings, image_pe)

@@ -18,6 +18,8 @@ adapters and the optimizer's groups freeze the rest); the head's point
 draws come from one generator, or are given (``draws``, as the anchor's
 ``loss`` takes them). The module's train /
 eval mode is the neck's BatchNorms' (batch statistics in ``loss``).
+``forward(batch, mode)`` dispatches to ``loss``, ``predict`` or ``tensor``
+(JAX :180: every head call's raw logits).
 
 ``SAMSegMask2Former`` (JAX :195-199, reference ``models.py:1248``) is the
 same pipeline with the stock Mask2Former head (``sam_prompting=False``):
@@ -32,9 +34,9 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn as nn
 
 from rsprompter_tpu_torch.models.dense_heads.mask2former_head import Mask2FormerHead
+from rsprompter_tpu_torch.models.detectors.base import ThreeModeDetector
 from rsprompter_tpu_torch.models.necks.rsfpn import RSSimpleFPN, build_aggregator
 from rsprompter_tpu_torch.models.preprocess import preprocess_images
 from rsprompter_tpu_torch.models.sam.configs import SamVisionConfig, sam_config
@@ -44,9 +46,10 @@ from rsprompter_tpu_torch.models.sam.positional import (
 )
 from rsprompter_tpu_torch.models.sam.vision_encoder import SamVisionEncoder
 from rsprompter_tpu_torch.models.seg_heads.fusion_head import instance_postprocess
+from rsprompter_tpu_torch.parallel.distributed import local_rows, world_size
 
 
-class RSPrompterQuery(nn.Module):
+class RSPrompterQuery(ThreeModeDetector):
     def __init__(
         self,
         arch: str = "base",
@@ -113,14 +116,17 @@ class RSPrompterQuery(nn.Module):
              draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """batch: images, gt_labels, gt_valid (B, G) and gt_masks (B, G, H, W)
         at the batch input's resolution. ``draws`` (the head's
-        ``draw_shapes``) are the point samplers' uniforms; without them they
-        come from ``generator``."""
+        ``draw_shapes`` for the global batch: this batch at world 1) are the
+        point samplers' uniforms; without them they come from ``generator``,
+        which every rank seeds alike. Each rank keeps its own rows."""
         feats, image_embeddings, image_pe = self.extract_feat(batch["images"])
         head = self.panoptic_head
+        b, g = batch["gt_valid"].shape
         if draws is None:
-            b, g = batch["gt_valid"].shape
             draws = {k: torch.rand(shape, generator=generator, device=image_embeddings.device)
-                     for k, shape in head.draw_shapes(b, g).items()}
+                     for k, shape in head.draw_shapes(world_size() * b, g).items()}
+        local = head.draw_shapes(b, g)
+        draws = {k: local_rows(v, 1, local[k][1]) for k, v in draws.items()}
         return head.loss(feats, batch["gt_labels"], batch["gt_masks"], batch["gt_valid"],
                          image_embeddings, image_pe, draws)
 
@@ -139,6 +145,22 @@ class RSPrompterQuery(nn.Module):
         scale = batch["images"].shape[1] / mask_pred.shape[-2]
         return instance_postprocess(cls_pred, mask_pred, self.num_classes,
                                     self.max_per_image, scale_boxes=scale)
+
+    @torch.no_grad()
+    def tensor(self, batch: Dict[str, torch.Tensor]):
+        """``mode='tensor'`` (JAX :180-192): every head call's raw class
+        logits (B, Q, C+1) and mask logits, one entry per decoder layer and
+        one before the first, no fusion-head postprocess. The masks are each
+        call's SAM decode of every query (B, Q, 4h, 4w), or the stock head's
+        mask-feature products (B, Q, H/4, W/4). Returns (cls tuple, mask
+        tuple)."""
+        feats, image_embeddings, image_pe = self.extract_feat(batch["images"])
+        head = self.panoptic_head
+        if self.sam_prompting:
+            cls_list, mask_list = head(feats, image_embeddings, image_pe)
+        else:
+            cls_list, _, mask_list = head.run_decoder(feats)
+        return tuple(cls_list), tuple(mask_list)
 
 
 class SAMSegMask2Former(RSPrompterQuery):

@@ -38,6 +38,7 @@ from rsprompter_tpu_torch.models.dense_heads.rpn_head import (
     propose,
     two_stage_loss,
 )
+from rsprompter_tpu_torch.models.detectors.base import ThreeModeDetector
 from rsprompter_tpu_torch.models.necks.fpn import FPN
 from rsprompter_tpu_torch.models.preprocess import preprocess_images
 from rsprompter_tpu_torch.models.roi_heads.bbox_head import DetResult
@@ -68,7 +69,7 @@ def sam_config_for(arch: str, image_size: int,
     )
 
 
-class SAMDet(nn.Module):
+class SAMDet(ThreeModeDetector):
     def __init__(
         self,
         arch: str = "base",
@@ -115,10 +116,21 @@ class SAMDet(nn.Module):
     def detect(self, images: torch.Tensor, img_shapes: torch.Tensor) -> DetResult:
         """The detector half: (B, max_per_img) boxes in batch-input pixels."""
         feats = self.detector_feats(images)
-        proposals = propose(self.rpn_head, self.anchor_generator, feats, img_shapes,
-                            self.test_cfg)
+        _, _, proposals = propose(self.rpn_head, self.anchor_generator, feats, img_shapes,
+                                  self.test_cfg)
         dets, _ = self.roi_head.predict(feats, proposals.boxes, proposals.valid, img_shapes)
         return dets
+
+    @torch.no_grad()
+    def tensor(self, batch: Dict[str, torch.Tensor]):
+        """``mode='tensor'`` of the detector half (JAX :148; the segmentor
+        has no raw path): per-level RPN scores and deltas, then the bbox
+        head's logits and deltas on the NMS'd proposals."""
+        feats = self.detector_feats(batch["images"])
+        cls_scores, bbox_preds, proposals = propose(
+            self.rpn_head, self.anchor_generator, feats, batch["img_shape"], self.test_cfg)
+        return (tuple(cls_scores), tuple(bbox_preds)) + self.roi_head.tensor(
+            feats, proposals.boxes)
 
     def decode_masks(self, images: torch.Tensor, boxes: torch.Tensor,
                      valid: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,6 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn as nn
 
 from rsprompter_tpu_torch.models.dense_heads.rpn_head import (
     RPNHead,
@@ -30,6 +29,7 @@ from rsprompter_tpu_torch.models.dense_heads.rpn_head import (
     propose,
     two_stage_loss,
 )
+from rsprompter_tpu_torch.models.detectors.base import ThreeModeDetector
 from rsprompter_tpu_torch.models.necks.rsfpn import RSSimpleFPN, build_aggregator
 from rsprompter_tpu_torch.models.preprocess import preprocess_images
 from rsprompter_tpu_torch.models.roi_heads.standard_roi_head import StandardRoIHead
@@ -37,7 +37,7 @@ from rsprompter_tpu_torch.models.sam.configs import SamVisionConfig, sam_config
 from rsprompter_tpu_torch.models.sam.vision_encoder import SamVisionEncoder
 
 
-class SAMSegMaskRCNN(nn.Module):
+class SAMSegMaskRCNN(ThreeModeDetector):
     mask_mode = "paste"  # its masks are RoI maps over their boxes
 
     def __init__(
@@ -100,7 +100,17 @@ class SAMSegMaskRCNN(nn.Module):
         img_shape (B, 2). Returns (DetResult, mask probs (B, N, 28, 28) fp32,
         each over its detection's box)."""
         feats = self.extract_feat(batch["images"])
-        proposals = propose(self.rpn_head, self.anchor_generator, feats, batch["img_shape"],
-                            self.test_cfg)
+        _, _, proposals = propose(self.rpn_head, self.anchor_generator, feats,
+                                  batch["img_shape"], self.test_cfg)
         return self.roi_head.predict(feats, proposals.boxes, proposals.valid,
                                      batch["img_shape"])
+
+    @torch.no_grad()
+    def tensor(self, batch: Dict[str, torch.Tensor]):
+        """``mode='tensor'`` (JAX :176): per-level RPN scores and deltas,
+        then ``StandardRoIHead.tensor`` on the NMS'd proposals."""
+        feats = self.extract_feat(batch["images"])
+        cls_scores, bbox_preds, proposals = propose(
+            self.rpn_head, self.anchor_generator, feats, batch["img_shape"], self.test_cfg)
+        return (tuple(cls_scores), tuple(bbox_preds)) + self.roi_head.tensor(
+            feats, proposals.boxes)

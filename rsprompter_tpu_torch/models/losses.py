@@ -9,12 +9,18 @@ loss computes in its logits' dtype, as the JAX functions do; the weighted
 reduction promotes to the weight's fp32. JAX's ``sigmoid_focal_loss``,
 ``dice_loss`` and ``l1_loss`` serve none of its models and are not ported:
 the query head computes its point-sampled BCE and dice itself, as JAX's
-``_loss_single`` does.
+``_loss_single`` does. The counts that normalise (the callers'
+``avg_factor``, the valid instances of :func:`mask_cross_entropy` and
+:func:`accuracy`) are the global batch's under data parallelism
+(``parallel.distributed.global_count``), as JAX's step over its ``data``
+mesh counts them.
 """
 
 from __future__ import annotations
 
 import torch
+
+from rsprompter_tpu_torch.parallel.distributed import global_count
 
 
 def _reduce(loss: torch.Tensor, weight: torch.Tensor, avg_factor) -> torch.Tensor:
@@ -53,10 +59,10 @@ def mask_cross_entropy(mask_logits: torch.Tensor, mask_targets: torch.Tensor,
     over pixels per instance, then over the valid instances."""
     loss = _bce_with_logits(mask_logits, mask_targets.to(mask_logits.dtype))
     per_inst = loss.mean(dim=(-2, -1)) * valid.to(loss.dtype)
-    return per_inst.sum() / valid.sum().clamp(min=1.0)
+    return per_inst.sum() / global_count(valid.sum())
 
 
 def accuracy(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     correct = (logits.argmax(dim=-1) == labels).float()
     v = valid.float()
-    return (correct * v).sum() / v.sum().clamp(min=1.0)
+    return (correct * v).sum() / global_count(v.sum())

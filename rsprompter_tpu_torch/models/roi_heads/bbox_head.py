@@ -21,6 +21,7 @@ from rsprompter_tpu_torch.models.losses import accuracy, cross_entropy, smooth_l
 from rsprompter_tpu_torch.models.sam.common import Linear
 from rsprompter_tpu_torch.ops.boxes import DeltaXYWHBBoxCoder, clip_to_shape
 from rsprompter_tpu_torch.ops.nms import batched_nms, sort_desc
+from rsprompter_tpu_torch.parallel.distributed import global_count
 
 
 class Shared2FCBBoxHead(nn.Module):
@@ -55,7 +56,7 @@ def bbox_head_loss(
     target_stds: Sequence[float] = (0.1, 0.1, 0.2, 0.2),
 ) -> Dict[str, torch.Tensor]:
     coder = DeltaXYWHBBoxCoder(target_stds=target_stds)
-    avg = valid.sum().float().clamp(min=1.0)
+    avg = global_count(valid.sum().float())
     loss_cls = cross_entropy(cls_logits, labels, weight=valid.float(), avg_factor=avg)
     targets = coder.encode(sampled_boxes, matched_gt_boxes)
     idx = labels.clamp(0, num_classes - 1).long()

@@ -12,7 +12,8 @@ with ``jax.image.resize``'s antialiased bilinear weights), then
   mask size instead (antialiased bilinear, as ``jax.image.resize``
   downsamples), thresholds them at 0.5 and takes the CE at that size;
 - ``predict`` (:218): RoIAlign -> bbox head -> per-class NMS, then
-  full-frame SAM masks for the detections.
+  full-frame SAM masks for the detections;
+- ``tensor`` (:190): the raw outputs of ``mode='tensor'``.
 """
 
 from __future__ import annotations
@@ -78,15 +79,20 @@ class RSPrompterAnchorRoIPromptHead(SampledBBoxLoss, nn.Module):
             multimask_output=multimask_output,
         )
 
-    def _mask_logits(self, feats, boxes, image_embeddings, image_pe):
-        """boxes (B, R, 4) -> SAM low-res mask logits (B, R, S, S)."""
+    def _mask_forward(self, feats, boxes, image_embeddings, image_pe):
+        """boxes (B, R, 4) -> (SAM low-res mask logits (B, R, S, S), IoU
+        predictions (B, R))."""
         b, r, _ = boxes.shape
         mask_feats = self._roi_feats(feats, boxes, self.mask_roi_size)
-        masks, _ = self.mask_head(
+        masks, iou = self.mask_head(
             mask_feats.reshape((b, r) + mask_feats.shape[1:]), image_embeddings, image_pe
         )
         s = masks.shape[-1]
-        return masks.reshape(b, r, s, s)
+        return masks.reshape(b, r, s, s), iou.reshape(b, r)
+
+    def _mask_logits(self, feats, boxes, image_embeddings, image_pe):
+        """boxes (B, R, 4) -> SAM low-res mask logits (B, R, S, S)."""
+        return self._mask_forward(feats, boxes, image_embeddings, image_pe)[0]
 
     def loss(
         self,
@@ -127,6 +133,21 @@ class RSPrompterAnchorRoIPromptHead(SampledBBoxLoss, nn.Module):
             valid=pos_mask.reshape(-1),
         )
         return losses
+
+    def tensor(self, feats: Sequence[torch.Tensor], proposals: torch.Tensor,
+               image_embeddings: torch.Tensor, image_pe: torch.Tensor):
+        """Raw outputs, no decode or NMS (JAX :190): the bbox head on every
+        proposal, the mask branch on the first ``num_mask_slots``. Returns
+        (cls_logits (B, N, C+1), bbox_deltas (B, N, 4C), mask_logits (B, M,
+        S, S), iou (B, M))."""
+        if self.with_extra_pe:
+            feats = add_extra_pe(feats, num_feats=feats[0].shape[-1] // 2)
+        b, n, _ = proposals.shape
+        cls_logits, bbox_deltas = self.bbox_head(
+            self._roi_feats(feats, proposals, self.bbox_roi_size))
+        m = min(n, self.num_mask_slots)
+        masks, iou = self._mask_forward(feats, proposals[:, :m], image_embeddings, image_pe)
+        return cls_logits.reshape(b, n, -1), bbox_deltas.reshape(b, n, -1), masks, iou
 
     def predict(
         self,

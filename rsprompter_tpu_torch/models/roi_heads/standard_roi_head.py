@@ -16,7 +16,8 @@ Counterpart of ``rsprompter_tpu/models/roi_heads/standard_roi_head.py``:
   ``roi_sampling_ratio=0``). ``predict`` (:207-254): the proposals' bbox
   head and the per-class decode + NMS, then 14^2 RoI features of the
   detections through the mask head, the detection's class channel (or the
-  one channel of a class-agnostic head) and a sigmoid.
+  one channel of a class-agnostic head) and a sigmoid. ``tensor``
+  (:171-205): the raw outputs of ``mode='tensor'``.
 """
 
 from __future__ import annotations
@@ -179,6 +180,22 @@ class StandardRoIHead(SampledBBoxLoss, nn.Module):
             (smp.is_pos[:, :m] & smp.valid[:, :m]).reshape(-1), self.class_agnostic_mask,
         )
         return losses
+
+    def tensor(self, feats: Sequence[torch.Tensor], proposals: torch.Tensor):
+        """Raw outputs on the proposals (B, N, 4), no decode, NMS or paste
+        (JAX :171): (cls_logits (B, N, C+1), bbox_deltas (B, N, 4C)), and
+        with the mask head its logits on the first min(N, 100) proposals
+        (B, M, S, S, C or 1), as the reference's ``forward`` slices them."""
+        b, n, _ = proposals.shape
+        cls_logits, bbox_deltas = self.bbox_head(
+            self._roi_feats(feats, proposals, self.bbox_roi_size))
+        out = (cls_logits.reshape(b, n, -1), bbox_deltas.reshape(b, n, -1))
+        if self.mask_head is None:
+            return out
+        m = min(n, 100)
+        logits = self.mask_head(self._roi_feats(feats, proposals[:, :m], self.mask_roi_size))
+        s = logits.shape[-2]
+        return out + (logits.reshape(b, m, s, s, -1),)
 
     def predict(
         self,

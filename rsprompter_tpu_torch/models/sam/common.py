@@ -21,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from rsprompter_tpu_torch.parallel.distributed import all_reduce_sum, world_size
+
 
 def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
     return None if t is None else t.to(dtype)
@@ -55,21 +57,32 @@ class Conv2d(nn.Conv2d):
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm on NHWC input, statistics in fp32, output in the input's
-    dtype (eps 1e-5), as flax's ``BatchNorm(momentum=0.9)``.
+    """BatchNorm on NHWC input, statistics in fp32 (float64 for float64
+    input), output in the input's dtype (eps 1e-5), as flax's
+    ``BatchNorm(momentum=0.9)``.
 
     Eval mode normalises with the running statistics. Train mode normalises
     with the batch's mean and its BIASED variance, computed as flax does
     (E[x^2] - E[x]^2, clipped at 0), and moves the running statistics 10%
     of the way to them -- ``nn.BatchNorm2d`` would store the unbiased
-    variance instead."""
+    variance instead. Under a process group of more than one rank the sums
+    of x and x^2 and the count are summed over the ranks (differentiably),
+    so the statistics are the global batch's, as JAX's step over the
+    ``data`` mesh computes them, and the running statistics stay equal on
+    every rank."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # float64 stays
         if self.training:
             dims = tuple(range(x.ndim - 1))
-            mean = xf.mean(dim=dims)
-            var = ((xf * xf).mean(dim=dims) - mean * mean).clamp(min=0.0)
+            if world_size() > 1:
+                n = xf.new_full((1,), xf.numel() // xf.shape[-1])
+                sums = all_reduce_sum(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims), n]))
+                c = xf.shape[-1]
+                mean, sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+            else:
+                mean, sq = xf.mean(dim=dims), (xf * xf).mean(dim=dims)
+            var = (sq - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(0.9).add_(0.1 * mean)
                 self.running_var.mul_(0.9).add_(0.1 * var)

@@ -62,8 +62,7 @@ class CudaKernel:
         digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.source.stem}-{digest.hexdigest()[:12]}.so"
 
-    def build_command(self) -> List[str]:
-        out = self.library_path()
+    def build_command(self, out: Path) -> List[str]:
         return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
 
     def load(self):
@@ -112,17 +111,22 @@ def build(kernels: Iterable[CudaKernel]) -> Dict[str, float]:
         if k.library_path().exists() or k.source in started:
             continue
         started.add(k.source)
-        procs.append((k, time.time(), subprocess.Popen(
-            k.build_command(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        # build under a name of this process, then rename: ranks that build
+        # at once never load a half-written library
+        tmp = k.library_path().with_suffix(f".{os.getpid()}.tmp")
+        procs.append((k, tmp, time.time(), subprocess.Popen(
+            k.build_command(tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,
         )))
     times = {}
     errors = []
-    for k, t0, proc in procs:
+    for k, tmp, t0, proc in procs:
         log, _ = proc.communicate()
         times[k.name] = time.time() - t0
         if proc.returncode != 0:
             errors.append(f"{k.source.name}:\n{log}")
+        else:
+            os.replace(tmp, k.library_path())
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     return times

@@ -45,8 +45,18 @@ The evaluation options, with JAX's flags and defaults (:21-32):
   the image's basename, JPEG at quality 95 for a ``.jpg`` through the port's
   encoder, as JAX's ``cv2.imwrite`` writes it.
 
-Runs on the card unless ``--device cpu`` is given. Not taken: the
-multi-device mesh (ROADMAP A13).
+Runs on the card unless ``--device cpu`` is given. Sharded over N GPUs of
+one host, one process each (JAX :110-199):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m rsprompter_tpu_torch.tools.test CONFIG [CHECKPOINT] [...]
+
+Each rank predicts one block of the set (``DataLoader(shard_id=rank,
+num_shards=world)``, ``val_dataloader.batch_size`` images a batch per
+device) and processes it into the metric; the per-image results go to rank
+0 in dataset order, which computes COCO (``evaluation.loop``); every image
+is counted once. Rank 0 prints the metrics and writes ``--out``; each rank
+draws its own images into ``--show-dir``.
 """
 
 from __future__ import annotations
@@ -71,6 +81,8 @@ from rsprompter_tpu_torch.engine.checkpoint import (
 from rsprompter_tpu_torch.evaluation.coco_metric import CocoMetric
 from rsprompter_tpu_torch.evaluation.loop import _to_host, evaluate  # noqa: F401
 from rsprompter_tpu_torch.models.tta import make_tta_predict, tta_settings
+from rsprompter_tpu_torch.parallel import distributed
+from rsprompter_tpu_torch.parallel.mesh import mesh_from_config
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -127,15 +139,18 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> str:
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Run the evaluation; returns {'metrics', 'digest', 'timing', 'inferencer'}."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = distributed.initialize(resolve_device(args.device))
     cfg = Config.fromfile(args.config)
     cfg.merge_from_options(args.cfg_options)
+    world, _ = mesh_from_config(cfg.get("dist"))
+    main_rank = distributed.is_main()
 
     batch_size = cfg.get("val_dataloader", {}).get("batch_size", 2)
     inferencer = init_detector(cfg, device=device, batch_size=batch_size)
     if args.checkpoint:
         kind = load_checkpoint(inferencer.model, args.checkpoint)
-        print(f"loaded {kind} checkpoint {args.checkpoint}")
+        if main_rank:
+            print(f"loaded {kind} checkpoint {args.checkpoint}")
     if args.oracle:
         if not hasattr(inferencer.model, "oracle_predict"):
             raise SystemExit(f"--oracle: '{cfg['model']['type']}' has no oracle_predict "
@@ -148,7 +163,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     if args.corruption:
         ds_cfg["pipeline"] = [CorruptImage(args.corruption, args.severity)]
     dataset = DATASETS.build(ds_cfg)
-    loader = DataLoader(dataset, batch_size=batch_size, prefetch=1)
+    loader = DataLoader(dataset, batch_size=batch_size, prefetch=1,
+                        shard_id=distributed.rank(), num_shards=world)
     classes = (dataset.metainfo or {}).get("classes")
     metric = CocoMetric(
         num_classes=cfg["model"].get("num_classes", 1), mask_mode=inferencer.mask_mode,
@@ -164,6 +180,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
 
     report = evaluate(inferencer, loader, metric, visit=show if args.show_dir else None)
     results, timing, n_images = report["metrics"], report["timing"], report["timing"]["images"]
+    if not main_rank:
+        return dict(report, inferencer=inferencer)
     for k, v in results.items():
         print(f"{k}: {v}")
     print(f"{n_images} images in {timing['wall_s']:.3f} s "
@@ -175,4 +193,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

@@ -20,8 +20,22 @@ learning rate scaled by ``auto_scale_lr`` where enabled and
 from the newest ``ckpts/step_{n}``; ``tools.test CONFIG
 WORK_DIR/ckpts/step_{n}`` evaluates one.
 
-Runs on the card unless ``--device cpu`` is given, on one device: a config
-whose ``dist`` names more than one raises (ROADMAP A13). A config's
+Runs on the card unless ``--device cpu`` is given. Data parallel on N
+GPUs of one host, one process each (JAX :60-128, :188-205):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m rsprompter_tpu_torch.tools.train CONFIG [...]
+
+Each rank trains on ``cuda:LOCAL_RANK`` over NCCL (gloo with ``--device
+cpu``), takes the config's ``batch_size`` images a step (per device, as
+in the reference and JAX) from its shard of the train set
+(``TrainLoader(shard_id=rank, num_shards=world)``), and validates its block
+of the val set; ``auto_scale_lr`` scales by the global batch (``batch_size
+* world``, JAX :161-166) and the schedule counts the sharded loader's
+steps. The config's ``dist``: ``zero`` (shard AdamW's moments, default
+True), ``enable`` (True without the launcher raises and says how to launch;
+False under a launcher of more than one process raises),
+``model_parallel`` (only 1: TP is not ported). A config's
 ``vis_interval`` > 0 draws validation images into ``WORK_DIR/vis/``.
 """
 
@@ -41,6 +55,8 @@ from rsprompter_tpu_torch.data.transforms import build_test_pipeline, build_trai
 from rsprompter_tpu_torch.engine.runner import Runner
 from rsprompter_tpu_torch.engine.train_state import build_trainer
 from rsprompter_tpu_torch.engine.vis_backend import build_vis_backends
+from rsprompter_tpu_torch.parallel import distributed
+from rsprompter_tpu_torch.parallel.mesh import mesh_from_config
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -53,13 +69,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="dotted config overrides: key=value")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     return p.parse_args(argv)
-
-
-def check_single_device(dist_cfg) -> None:
-    dist_cfg = dict(dist_cfg or {})
-    if dist_cfg.get("enable") or int(dist_cfg.get("model_parallel", 1)) > 1:
-        raise NotImplementedError(
-            f"dist={dist_cfg}: training across devices is not ported (ROADMAP A13)")
 
 
 def check_num_classes(model_cfg, dataset) -> None:
@@ -75,13 +84,16 @@ def check_num_classes(model_cfg, dataset) -> None:
 def main(argv: Optional[Sequence[str]] = None) -> Runner:
     """Train; returns the runner (its ``trainer`` holds the last state)."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = distributed.initialize(resolve_device(args.device))
     cfg = Config.fromfile(args.config)
     cfg.merge_from_options(args.cfg_options)
     if args.amp:
         cfg["model"]["bf16"] = True
     work_dir = args.work_dir or cfg.get("work_dir", "./work_dirs/default")
-    check_single_device(cfg.get("dist"))
+    world, zero = mesh_from_config(cfg.get("dist"))
+    rank = distributed.rank()
+    if world > 1 and distributed.is_main():
+        print(f"data parallel: {world} ranks (zero={zero}), {distributed.process_info()}")
     seed = cfg.get("seed", 0)
     crop = tuple(cfg.get("crop_size", (1024, 1024)))
     max_gt = cfg.get("max_gt", 100)
@@ -93,23 +105,26 @@ def main(argv: Optional[Sequence[str]] = None) -> Runner:
                                 if cfg.get("train_aug", True) else build_test_pipeline(crop))
     train_ds = DATASETS.build(train_ds_cfg)
     check_num_classes(cfg["model"], train_ds)
+    bs = cfg["train_dataloader"].get("batch_size", 2)  # per device
     train_loader = TrainLoader(
-        train_ds, batch_size=cfg["train_dataloader"].get("batch_size", 2), shuffle=True,
-        max_gt=max_gt, pad_shape=crop, rng=aug_rng,
+        train_ds, batch_size=bs, shuffle=True, max_gt=max_gt, pad_shape=crop, rng=aug_rng,
         prefetch=2 if cfg["train_dataloader"].get("num_workers", 0) > 0 else 0,
+        shard_id=rank, num_shards=world,
     )
     val_loader = None
     if cfg.get("val_dataloader"):
         val_ds = DATASETS.build(dict(cfg["val_dataloader"]["dataset"]))
         val_loader = DataLoader(val_ds, batch_size=cfg["val_dataloader"].get("batch_size", 2),
-                                prefetch=1)
+                                prefetch=1, shard_id=rank, num_shards=world)
 
-    # reference auto_scale_lr: linear scaling by the batch size
+    # reference auto_scale_lr: linear scaling by the global batch size
     asl = cfg.get("auto_scale_lr") or {}
     if asl.get("enable"):
-        bs = cfg["train_dataloader"].get("batch_size", 2)
-        cfg["base_lr"] = cfg.get("base_lr", 1e-4) * bs / asl.get("base_batch_size", bs)
-        print(f"auto_scale_lr: lr -> {cfg['base_lr']}")
+        global_bs = bs * world
+        cfg["base_lr"] = (cfg.get("base_lr", 1e-4) * global_bs
+                          / asl.get("base_batch_size", global_bs))
+        if distributed.is_main():
+            print(f"auto_scale_lr: lr -> {cfg['base_lr']}")
 
     # the schedule (warm-up cosine over max_epochs * len(train_loader)) and
     # the freeze rules (freeze_paths_for) are the trainer's
@@ -132,4 +147,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Runner:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

@@ -28,8 +28,8 @@
   float64 here), the ``coco/*`` and ``val/*`` keys; ``ckpts/`` pruned to
   JAX's ``keep`` of 5; both ``best_*`` directories; and ``tools.test`` on the
   last checkpoint gives the last validation's keys exactly (fp32, the same
-  module state). A mismatched ``num_classes`` and a multi-device ``dist``
-  (``enable``, ``model_parallel``) raise.
+  module state). A mismatched ``num_classes``, ``dist.enable`` without a
+  launcher and ``dist.model_parallel`` > 1 raise.
 - ``Runner.validate`` with ``vis_interval``: JAX's ``vis/val_{offset}.jpg``
   drawings at the images' sizes, the metrics unchanged; a drawing that
   cannot read its file is logged, any other error propagates.
@@ -454,7 +454,7 @@ def test_train_tool_end_to_end(coco_dir, scratch, capsys):
 
 
 @pytest.mark.parametrize("option,error", [
-    ("model.num_classes=5", ValueError), ("dist.enable=True", NotImplementedError),
+    ("model.num_classes=5", ValueError), ("dist.enable=True", RuntimeError),
     ("dist.model_parallel=2", NotImplementedError),
 ])
 def test_train_tool_refuses(coco_dir, tmp_path, option, error):
