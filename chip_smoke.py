@@ -129,15 +129,16 @@ Phases (every failure raises; the script exits non-zero and prints no result):
 13. SAM-det and the SAM-seg baselines: ``init_detector`` /
    ``inference_detector`` on ``samdet-nwpu.py`` (fp32; ResNet-50 + FPN +
    RPN + bbox head, its boxes prompting a complete SAM; the encoder's
-   blocks through the bf16 kernels), ``samseg-maskrcnn-nwpu.py`` (bf16, the
+   blocks through the fp32 kernels), ``samseg-maskrcnn-nwpu.py`` (bf16, the
    FCN head's RoI masks pasted into their boxes) and
    ``samseg-mask2former-nwpu.py`` (bf16, 70 queries, the stock head) at
    ViT-B 1024^2, batch 2, seeded weights, phase 3's images: a warm-up and
    10 timed forwards each (ms/batch, images/s, peak memory, the model's
-   predict alone), A, B, C launched as phase 3 counts, every output finite,
-   one profiled forward's busy time, idle share, launches and syncs; for
-   SAM-det its fp32 encoder through the kernels within ``ENCODER_TOL`` of
-   plain fp32, and ``oracle_predict`` on seeded GT (scores equal to valid,
+   predict alone), A, B, C launched as phase 3 counts (SAM-det: their fp32
+   variants, and no bf16 one), every output finite, one profiled forward's
+   busy time, idle share, launches and syncs; for SAM-det its fp32 encoder
+   through the fp32 kernels within ``F32_ENCODER_TOL`` of plain fp32 (TF32
+   off), and ``oracle_predict`` on seeded GT (scores equal to valid,
    labels the GT's); for Mask R-CNN mask probabilities (2, 100, 28, 28),
    each pasted mask empty outside its box; then ``tools.test``'s main over
    phase 9's synthetic set with Mask R-CNN (paste; every key of JAX's tool
@@ -169,8 +170,8 @@ Phases (every failure raises; the script exits non-zero and prints no result):
 15. the ViT-L and ViT-H widths: kernels A, B (and its row pass) and C at
    ViT-L's (C 1024, 16 heads of 64) and ViT-H's (C 1280, 16 heads of 80)
    shapes at 1024^2, batch 2, against their plain versions with phase 2's
-   times and tolerance; each encoder (fp32 parameters, seeded; its blocks
-   through the bf16 kernels) against plain fp32 within ``ENCODER_TOL``,
+   times and tolerance; each encoder (seeded; cast to bf16 as a bf16
+   config predicts) against its plain fp32 copy within ``ENCODER_TOL``,
    with the launches of one forward, the path kernel C took for the
    windows and the global grid (the windows must take the window path at
    both head dims), and the rel-pos tables zeroed moving plain by more than
@@ -284,7 +285,17 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    ``forward(batch, mode='tensor')`` of the anchor detector at ViT-B
    1024^2, batch 2, on phase 3's images: every output finite, JAX's order
    and shapes, A, B and C launched as phase 3 counts (path
-   ``tensor_mode``).
+   ``tensor_mode``);
+20. the fp32 forwards (3xTF32 on wgmma ``.tf32``): kernel A, B's row pass,
+   B and C at fp32, each against its plain fp32 version (TF32 off) within
+   ``F32_TOL`` of the output's largest magnitude, at ViT-B's shapes at
+   1024^2, batch 2 (SAM-det's fp32 encoder: their launches count on phase
+   13's ``samdet_predict``) and at ViT-L's and ViT-H's widths, with the
+   kernel, plain, library (the same composition of fp32 PyTorch calls,
+   SDPA with the bias for C) and bound times (one TF32 pass: 3xTF32 makes
+   three); then the ViT-L and ViT-H fp32 encoders (seeded, no gradient)
+   through the fp32 kernels against plain fp32 within ``F32_ENCODER_TOL``,
+   with their launches (fp32 variants only).
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -307,8 +318,12 @@ QUERY_CONFIG = os.path.join(ROOT, "configs", "rsprompter", "rsprompter_query-nwp
 TRAIN_CONFIG = os.path.join(ROOT, "configs", "rsprompter", "rsprompter_anchor-nwpu-scratch-512.py")
 TRAIN_STEPS_PER_EPOCH = 130  # NWPU's 520 training images at batch 4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_TF32_FLOPS = 494.7e12  # H100 SXM dense TF32 tensor-core rate: one pass
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 TOL = 2e-2  # max |kernel - plain| relative to max |plain| (bf16 inputs)
+# the same for one fp32 kernel (3xTF32 keeps about fp32's accuracy; one TF32
+# pass would read about 1e-3)
+F32_TOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -348,24 +363,47 @@ def cuda_time_ms(fn, warmup: int = 3, iters: int = 15, repeat: int = 10) -> floa
     return statistics.median(times)
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def compare(name: str, got, ref) -> float:
+def compare(name: str, got, ref, tol: float = TOL) -> float:
     import torch
 
     err = (got.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
     if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: kernel output is not finite")
-    if err > TOL * scale:
+    if err > tol * scale:
         raise AssertionError(
-            f"{name}: max |kernel - plain| = {err:.4g} exceeds {TOL} x {scale:.4g}"
+            f"{name}: max |kernel - plain| = {err:.4g} exceeds {tol} x {scale:.4g}"
         )
     return err
+
+
+def operand_terms(dtype) -> dict:
+    """What a kernel row at operand ``dtype`` (bf16, or fp32 on the 3xTF32
+    variants) is held to and timed with: its tolerance, the peak rate of its
+    bound (one TF32 pass for fp32; 3xTF32 makes three), its variant and
+    source suffixes, and its timer (fewer runs for the slow fp32 plain
+    versions, to keep phase 20 short)."""
+    import torch
+
+    if dtype == torch.float32:
+        return dict(tol=F32_TOL, peak=PEAK_TF32_FLOPS, suffix="/f32", src="_f32", name="fp32",
+                    ms=lambda fn: cuda_time_ms(fn, warmup=2, iters=5, repeat=3))
+    if dtype != torch.bfloat16:
+        raise ValueError(f"kernel rows take bf16 or fp32 operands, not {dtype}")
+    return dict(tol=TOL, peak=PEAK_BF16_FLOPS, suffix="", src="", name="bf16", ms=cuda_time_ms)
+
+
+def compare_as(name: str, got, ref, dtype, tol: float) -> float:
+    """``compare``, and the kernel's output must keep its operands' dtype."""
+    if got.dtype != dtype:
+        raise AssertionError(f"{name}: kernel output {got.dtype} from {dtype} operands")
+    return compare(name, got, ref, tol)
 
 
 # ---------------------------------------------------------------------------
@@ -394,7 +432,8 @@ def _replaces(key: str, d: int = 64) -> str:
 def mlp_row(rnd, dev, t: int, c: int, tag: str = "", launches_alone: bool = False,
             inputs=None) -> dict:
     """Kernel A at x (t, c), M = 4 c, against its plain version, with the
-    kernel, plain, composed-library and bound times; ``launches_alone`` also
+    kernel, plain, composed-library and bound times, at the dtype ``rnd``
+    draws in (bf16, or fp32 for the 3xTF32 variant); ``launches_alone`` also
     logs its three launches' times. ``inputs`` = (x, ln_w, ln_b, w1, b1, w2,
     b2, eps), as a layer of the path gives them, replace the random ones."""
     import torch
@@ -407,14 +446,15 @@ def mlp_row(rnd, dev, t: int, c: int, tag: str = "", launches_alone: bool = Fals
         rnd(c, scale=0.1, dtype=torch.float32), rnd(mlp, c, scale=0.02), rnd(mlp, scale=0.02),
         rnd(c, mlp, scale=0.02), rnd(c, scale=0.02), 1e-6)
     x, ln_w, ln_b, w1, b1, w2, b2, eps = args
-    (t, c), mlp, dev = x.shape, w1.shape[0], x.device
+    (t, c), mlp, dev, es = x.shape, w1.shape[0], x.device, x.element_size()
+    op = operand_terms(x.dtype)
     got = fm.ln_mlp_residual(*args)
     torch.cuda.synchronize()
     ref = fm.ln_mlp_residual_plain(*[a.float() if torch.is_tensor(a) else a for a in args])
-    err = compare(f"ln_mlp_residual{tag}", got, ref)
+    err = compare_as(f"ln_mlp_residual{op['suffix']}{tag}", got, ref, x.dtype, op["tol"])
     flops = 4.0 * t * c * mlp
-    nbytes = 2 * t * c * 2 + 2 * c * mlp * 2 + (mlp + c) * 2 + 2 * c * 4
-    b_ms, b_by = bound_ms(flops, nbytes)
+    nbytes = 2 * t * c * es + 2 * c * mlp * es + (mlp + c) * es + 2 * c * 4
+    b_ms, b_by = bound_ms(flops, nbytes, op["peak"])
     if launches_alone:  # the row pass, fc1 + GELU, fc2 + residual
         z, hid, out = torch.empty_like(x), torch.empty((t, mlp), dtype=x.dtype, device=dev), \
             torch.empty_like(x)
@@ -435,20 +475,22 @@ def mlp_row(rnd, dev, t: int, c: int, tag: str = "", launches_alone: bool = Fals
     ln_wb, ln_bb = ln_w.to(x.dtype), ln_b.to(x.dtype)
     F = torch.nn.functional
 
-    def library_a():  # composed of bf16 PyTorch calls: LN -> fc1 -> exact GELU -> fc2 + residual
+    def library_a():  # composed of PyTorch calls: LN -> fc1 -> exact GELU -> fc2 + residual
         z = F.layer_norm(x, (c,), ln_wb, ln_bb, eps)
         return x + F.linear(F.gelu(F.linear(z, w1, b1), approximate="none"), w2, b2)
 
-    torch.testing.assert_close(library_a().float(), ref, atol=TOL * ref.abs().max().item(), rtol=0)
+    torch.testing.assert_close(library_a().float(), ref,
+                               atol=op["tol"] * ref.abs().max().item(), rtol=0)
     return dict(
-        name=f"ln_mlp_residual{tag}", kernel=fm.LN_MLP_RESIDUAL, variant="fc1",
-        route="cuda", source="rsprompter_tpu_torch/csrc/ln_mlp_residual.cu",
+        name=f"ln_mlp_residual{op['suffix']}{tag}", kernel=fm.LN_MLP_RESIDUAL,
+        variant="fc1" + op["suffix"], route="cuda",
+        source=f"rsprompter_tpu_torch/csrc/ln_mlp_residual{op['src']}.cu",
         replaces=_replaces("mlp"),
-        shape=f"x ({t}, {c}) bf16, W1 {c}x{mlp}, W2 {mlp}x{c}",
+        shape=f"x ({t}, {c}) {op['name']}, W1 {c}x{mlp}, W2 {mlp}x{c}",
         max_abs_err=err,
-        ms=cuda_time_ms(lambda: fm.ln_mlp_residual(*args)),
-        plain_ms=cuda_time_ms(lambda: fm.ln_mlp_residual_plain(*args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(library_a),
+        ms=op["ms"](lambda: fm.ln_mlp_residual(*args)),
+        plain_ms=op["ms"](lambda: fm.ln_mlp_residual_plain(*args)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=op["ms"](library_a),
     )
 
 
@@ -456,7 +498,8 @@ def qkv_rows(rnd, dev, bsz: int, grid: int, c: int, heads: int, win: int,
              tag: str = "", inputs=None, variants=("global", "window")) -> list:
     """Kernel B's row pass alone and kernel B (row pass + GEMM) on x (bsz,
     grid, grid, c) with ``heads`` heads of c / heads, global and windowed
-    (``variants``), each against its plain version. ``inputs`` = (x, ln_w,
+    (``variants``), each against its plain version, at the dtype ``rnd``
+    draws in (bf16, or fp32 for the 3xTF32 variants). ``inputs`` = (x, ln_w,
     ln_b, wq, bq, eps), as a layer of the path gives them, replace the random
     ones."""
     import torch
@@ -469,37 +512,40 @@ def qkv_rows(rnd, dev, bsz: int, grid: int, c: int, heads: int, win: int,
         rnd(bsz, grid, grid, c), 1 + rnd(c, scale=0.1, dtype=torch.float32),
         rnd(c, scale=0.1, dtype=torch.float32), rnd(3 * c, c, scale=0.02),
         rnd(3 * c, scale=0.02), 1e-6)
-    (bsz, grid, _, c), dev = xg.shape, xg.device
+    (bsz, grid, _, c), dev, dt, es = xg.shape, xg.device, xg.dtype, xg.element_size()
+    op, sfx = operand_terms(dt), operand_terms(dt)["suffix"]
+    source = f"rsprompter_tpu_torch/csrc/ln_qkv_headmajor{op['src']}.cu"
     d = c // heads
     t = bsz * grid * grid  # the real tokens: a window's zero pad takes no products
-    ln_wb, ln_bb = ln_w.to(xg.dtype), ln_b.to(xg.dtype)
+    ln_wb, ln_bb = ln_w.to(dt), ln_b.to(dt)
     for variant, window in (("global", 0), ("window", win)):
         if variant not in variants:
             continue
         replaces = _replaces(f"qkv/{variant}", d)
         # the row pass alone (LN, window partition, zero pad into z)
         n_img, s = fm._qkv_rows(xg, 3 * heads, window)
-        z = torch.empty((n_img * s, c), dtype=torch.bfloat16, device=dev)
+        z = torch.empty((n_img * s, c), dtype=dt, device=dev)
 
         def row_pass(z=z, window=window):
             fm.LN_ROWS.launch(fm.ptr(xg), fm.ptr(ln_w), fm.ptr(ln_b), fm.ptr(z), bsz, grid,
-                              grid, c, window, eps, variant="check")
+                              grid, c, window, eps, variant="check",
+                              f32=dt == torch.float32)
 
         row_pass()
         torch.cuda.synchronize()
-        err = compare(f"ln_rows/{variant}{tag}", z,
-                      fm.ln_rows_plain(xg.float(), ln_w, ln_b, window, eps))
-        b_ms, b_by = bound_ms(0.0, xg.numel() * 2 + z.numel() * 2 + 2 * c * 4)
+        err = compare(f"ln_rows/{variant}{sfx}{tag}", z,
+                      fm.ln_rows_plain(xg.float(), ln_w, ln_b, window, eps), op["tol"])
+        b_ms, b_by = bound_ms(0.0, xg.numel() * es + z.numel() * es + 2 * c * 4, op["peak"])
         rows.append(dict(
-            name=f"ln_rows/{variant}{tag}", kernel=fm.LN_ROWS, variant=variant, route="cuda",
-            source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor.cu", replaces=replaces,
-            shape=f"x ({bsz}, {grid}, {grid}, {c}) -> z {tuple(z.shape)} bf16",
-            max_abs_err=err, ms=cuda_time_ms(row_pass),
-            plain_ms=cuda_time_ms(lambda window=window: fm.ln_rows_plain(
+            name=f"ln_rows/{variant}{sfx}{tag}", kernel=fm.LN_ROWS, variant=variant + sfx,
+            route="cuda", source=source, replaces=replaces,
+            shape=f"x ({bsz}, {grid}, {grid}, {c}) -> z {tuple(z.shape)} {op['name']}",
+            max_abs_err=err, ms=op["ms"](row_pass),
+            plain_ms=op["ms"](lambda window=window: fm.ln_rows_plain(
                 xg, ln_w, ln_b, window, eps)),
             bound_ms=b_ms, bound_by=b_by,
             # global: one call (LN); window: LN, then the partition and pad
-            library_ms=cuda_time_ms(lambda window=window: fm.window_partition(
+            library_ms=op["ms"](lambda window=window: fm.window_partition(
                 F.layer_norm(xg, (c,), ln_wb, ln_bb, eps), window).contiguous()),
         ))
         del z
@@ -507,29 +553,28 @@ def qkv_rows(rnd, dev, bsz: int, grid: int, c: int, heads: int, win: int,
         got = fm.ln_qkv_headmajor(*a)
         torch.cuda.synchronize()
         ref = fm.ln_qkv_headmajor_plain(*[v.float() if torch.is_tensor(v) else v for v in a])
-        err = compare(f"ln_qkv_headmajor/{variant}{tag}", got, ref)
+        err = compare_as(f"ln_qkv_headmajor/{variant}{sfx}{tag}", got, ref, dt, op["tol"])
 
         def library_b(window=window, shape=got.shape):
-            # composed of bf16 PyTorch calls: LN -> window partition and zero
+            # composed of PyTorch calls: LN -> window partition and zero
             # pad (window layers) -> qkv -> head-major copy
             z = fm.window_partition(F.layer_norm(xg, (c,), ln_wb, ln_bb, eps), window)
             return F.linear(z, wq, bq).reshape(shape[0], shape[2], shape[1], d).permute(
                 0, 2, 1, 3).contiguous()
 
-        torch.testing.assert_close(library_b().float(), ref, atol=TOL * ref.abs().max().item(),
-                                   rtol=0)
+        torch.testing.assert_close(library_b().float(), ref,
+                                   atol=op["tol"] * ref.abs().max().item(), rtol=0)
         flops = 2.0 * t * c * 3 * c
-        nbytes = t * c * 2 + 3 * c * c * 2 + 3 * c * 2 + 2 * c * 4 + got.numel() * 2
-        b_ms, b_by = bound_ms(flops, nbytes)
+        nbytes = t * c * es + 3 * c * c * es + 3 * c * es + 2 * c * 4 + got.numel() * es
+        b_ms, b_by = bound_ms(flops, nbytes, op["peak"])
         rows.append(dict(
-            name=f"ln_qkv_headmajor/{variant}{tag}", kernel=fm.LN_QKV_HEADMAJOR,
-            variant=variant, route="cuda",
-            source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor.cu", replaces=replaces,
-            shape=f"x ({bsz}, {grid}, {grid}, {c}) -> {tuple(got.shape)} bf16",
+            name=f"ln_qkv_headmajor/{variant}{sfx}{tag}", kernel=fm.LN_QKV_HEADMAJOR,
+            variant=variant + sfx, route="cuda", source=source, replaces=replaces,
+            shape=f"x ({bsz}, {grid}, {grid}, {c}) -> {tuple(got.shape)} {op['name']}",
             max_abs_err=err,
-            ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor(*a)),
-            plain_ms=cuda_time_ms(lambda: fm.ln_qkv_headmajor_plain(*a)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(library_b),
+            ms=op["ms"](lambda: fm.ln_qkv_headmajor(*a)),
+            plain_ms=op["ms"](lambda: fm.ln_qkv_headmajor_plain(*a)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=op["ms"](library_b),
         ))
         del got, ref
     return rows
@@ -539,7 +584,9 @@ def attention_rows(rnd, bsz: int, grid: int, heads: int, d: int, win: int,
                    tag: str = "", inputs=None, variants=("global", "window")) -> list:
     """Kernel C on qkv of ``heads`` heads of ``d``, at the global grid and
     the windows of a batch of ``bsz`` (``variants``), against its plain
-    version; the library call is SDPA with the bias materialised in bf16.
+    version, at the dtype ``rnd`` draws in (bf16, or fp32 for the 3xTF32
+    variant); the library call is SDPA with the bias materialised in qkv's
+    dtype.
     ``inputs`` = (qkv, fh, fw), as a layer of the path gives them to the one
     variant asked for, replace the random ones."""
     import torch
@@ -555,39 +602,44 @@ def attention_rows(rnd, bsz: int, grid: int, heads: int, d: int, win: int,
         qkv, fh, fw = inputs or (rnd(n_img, 3 * heads, s, d),
                                  rnd(n_img, heads, s, hw[0], scale=0.5),
                                  rnd(n_img, heads, s, hw[1], scale=0.5))
-        n_img = qkv.shape[0]
+        n_img, op, es = qkv.shape[0], operand_terms(qkv.dtype), qkv.element_size()
+        sfx = op["suffix"]
         got = fa.relpos_attention(qkv, fh, fw, hw)
         torch.cuda.synchronize()
         ref = fa.relpos_attention_plain(qkv.float(), fh.float(), fw.float(), hw)
-        err = compare(f"relpos_attention/{variant}{tag}", got, ref)
+        err = compare_as(f"relpos_attention/{variant}{sfx}{tag}", got, ref, qkv.dtype,
+                         op["tol"])
         del ref
         q, k, v = qkv[:, :heads], qkv[:, heads : 2 * heads], qkv[:, 2 * heads :]
         bias = (fh[..., :, None] + fw[..., None, :]).reshape(n_img, heads, s, s)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = cuda_time_ms(lambda: sdpa(q, k, v, attn_mask=bias))
+        library_ms = op["ms"](lambda: sdpa(q, k, v, attn_mask=bias))
         del bias
         flops = 4.0 * n_img * heads * s * s * d
-        nbytes = qkv.numel() * 2 + fh.numel() * 2 + fw.numel() * 2 + got.numel() * 2
-        b_ms, b_by = bound_ms(flops, nbytes)
+        nbytes = (qkv.numel() + fh.numel() + fw.numel() + got.numel()) * es
+        b_ms, b_by = bound_ms(flops, nbytes, op["peak"])
+        # the fp32 variant has one path for every grid
+        route = "one" if sfx else fa.relpos_attention_route(hw, d)
         rows.append(dict(
-            name=f"relpos_attention/{variant}{tag}", kernel=fa.RELPOS_ATTENTION,
-            variant=variant, route="cuda",
-            source="rsprompter_tpu_torch/csrc/relpos_attention.cu",
+            name=f"relpos_attention/{variant}{sfx}{tag}", kernel=fa.RELPOS_ATTENTION,
+            variant=variant + sfx, route="cuda",
+            source=f"rsprompter_tpu_torch/csrc/relpos_attention{op['src']}.cu",
             replaces=_replaces(f"attention/{variant}", d),
-            shape=f"qkv {tuple(qkv.shape)} bf16, factors h={hw[0]} w={hw[1]}, "
-                  f"{fa.relpos_attention_route(hw, d)} path",
+            shape=f"qkv {tuple(qkv.shape)} {op['name']}, factors h={hw[0]} w={hw[1]}, "
+                  f"{route} path",
             max_abs_err=err,
-            ms=cuda_time_ms(lambda: fa.relpos_attention(qkv, fh, fw, hw)),
-            plain_ms=cuda_time_ms(lambda: fa.relpos_attention_plain(qkv, fh, fw, hw)),
+            ms=op["ms"](lambda: fa.relpos_attention(qkv, fh, fw, hw)),
+            plain_ms=op["ms"](lambda: fa.relpos_attention_plain(qkv, fh, fw, hw)),
             bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
         ))
+        del got
     return rows
 
 
-def log_rows(rows, what: str = "max|plain|") -> None:
+def log_rows(rows, what: str = "max|plain|", tol: float = TOL) -> None:
     for r in rows:
         log(f"kernel {r['name']}: {r['shape']}; max_abs_err {r['max_abs_err']:.4g} "
-            f"(tol {TOL} x {what}); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"(tol {tol} x {what}); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
             f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
 
@@ -3011,6 +3063,8 @@ def sam_baseline_predict(name: str, config: str, kernels, iters: int, imgs, prof
                   "ln_rows": dict(per_kind, mlp=depth * iters),
                   "ln_qkv_headmajor": per_kind, "relpos_attention": per_kind,
                   "qkv_headmajor": {}}
+        if dtype == torch.float32:  # a frozen fp32 encoder: the fp32 variants alone
+            expect = f32_variants(expect)
         for kname, want in expect.items():
             if counts[kname] != want:
                 raise AssertionError(f"{name}: {kname} launches {counts[kname]}, "
@@ -3051,11 +3105,12 @@ def sam_baseline_predict(name: str, config: str, kernels, iters: int, imgs, prof
             enc.impl = "kernel"
         worst = worst_rel_diff(out_k, out_p)
         dts = {str(t.dtype) for t in (out_k[0],) + out_k[1]}
-        log(f"samdet: fp32 encoder, kernels (bf16 inside) vs plain fp32, worst "
+        log(f"samdet: fp32 encoder, fp32 kernels vs plain fp32 (TF32 off), worst "
             f"max|diff|/max|plain| {worst:.4g} over neck + {len(out_k[1])} hidden states "
-            f"(tol {ENCODER_TOL}); outputs {dts}")
-        if worst > ENCODER_TOL or dts != {"torch.float32"}:
-            raise AssertionError(f"samdet: fp32 encoder {worst:.4g} > {ENCODER_TOL} or {dts}")
+            f"(tol {F32_ENCODER_TOL}); outputs {dts}")
+        if worst > F32_ENCODER_TOL or dts != {"torch.float32"}:
+            raise AssertionError(f"samdet: fp32 encoder {worst:.4g} > {F32_ENCODER_TOL} or "
+                                 f"{dts}")
         model.oracle = True
         gts = oracle_gts()
         o_dets, o_probs, _ = model.predict_batch(imgs, gts=gts)
@@ -3099,7 +3154,7 @@ def sam_baseline_predict(name: str, config: str, kernels, iters: int, imgs, prof
 
 def sam_baselines_phase(kernels, iters: int, profile_dir: str = "", configs=None,
                         device: str = "cuda", eval_sizes=EVAL_SIZES):
-    """Phase 13: SAM-det (fp32, its encoder through the bf16 kernels), SAM-seg
+    """Phase 13: SAM-det (fp32, its encoder through the fp32 kernels), SAM-seg
     Mask R-CNN (bf16, RoI masks pasted) and SAM-seg Mask2Former (bf16, 70
     queries) at ViT-B 1024^2, batch 2, on phase 3's images; then
     ``tools.test`` over phase 9's synthetic set with Mask R-CNN (paste:
@@ -3713,17 +3768,20 @@ def wide_kernel_rows(dev) -> list:
 
 
 def wide_encoder_check(arch: str, kernels, dev, seed: int = 0,
-                       attn_impl: str = "fused") -> dict:
-    """The arch's SAM encoder (fp32 parameters, seeded; its blocks run the
-    bf16 kernels) at 1024^2, batch 2, on the ``attn_impl`` route: the
+                       attn_impl: str = "fused", f32: bool = False) -> dict:
+    """The arch's SAM encoder (seeded) at 1024^2, batch 2, on the
+    ``attn_impl`` route through the bf16 kernels, cast to bf16 as a bf16
+    config predicts, or with ``f32`` in fp32 through the fp32 ones: the
     launches of one forward, which path kernel C took for the windows and
-    the global grid, the kernels against plain fp32 within ``ENCODER_TOL``
-    over the neck and every hidden state, and plain with the rel-pos tables
-    zeroed moved by more than twice that. Returns the forward's launch
-    counts."""
+    the global grid, the kernels against the plain fp32 encoder within
+    ``ENCODER_TOL`` (``F32_ENCODER_TOL``) over the neck and every hidden
+    state, and plain with the rel-pos tables zeroed moved by more than twice
+    that. Returns the forward's launch counts."""
+    import copy
+
     import torch
 
-    from rsprompter_tpu_torch.apis.build import init_random_weights
+    from rsprompter_tpu_torch.apis.build import init_random_weights, set_compute_dtype
     from rsprompter_tpu_torch.models.sam.configs import sam_config
     from rsprompter_tpu_torch.models.sam.vision_encoder import SamVisionEncoder
     from rsprompter_tpu_torch.ops import fused_vit_attention as fa
@@ -3732,16 +3790,19 @@ def wide_encoder_check(arch: str, kernels, dev, seed: int = 0,
     enc = SamVisionEncoder(vcfg, attn_impl=attn_impl)
     init_random_weights(enc, seed)
     enc.to(dev).eval()
+    kern = enc if f32 else set_compute_dtype(copy.deepcopy(enc), torch.bfloat16)
+    tol = F32_ENCODER_TOL if f32 else ENCODER_TOL
     g = torch.Generator(device="cpu").manual_seed(seed)
     x = torch.randn(2, vcfg.image_size, vcfg.image_size, 3, generator=g).to(dev)
     tables = [p for n, p in enc.named_parameters() if n.endswith(("rel_pos_h", "rel_pos_w"))]
     with torch.no_grad():
         for k in kernels:
             k.reset_counts()
-        out_k = enc(x)
+        out_k = kern(x)
         torch.cuda.synchronize()
         counts = {k.name: dict(k.variant_launches) for k in kernels}
-        kernel_ms = cuda_time_ms(lambda: enc(x), warmup=1, iters=3, repeat=1)
+        kernel_ms = cuda_time_ms(lambda: kern(x), warmup=1, iters=3, repeat=1)
+        del kern
         enc.impl = "plain"
         out_p = enc(x)
         saved = [t.clone() for t in tables]
@@ -3756,7 +3817,10 @@ def wide_encoder_check(arch: str, kernels, dev, seed: int = 0,
         expect = {k: {} for k in expect}
         expect["relpos_attention"] = expect["qkv_headmajor"] = \
             frozen_forward_launches(enc, 1)["relpos_attention"]
-    check_launches(f"ViT-{arch} encoder ({attn_impl})", counts, expect)
+    if f32:
+        expect = f32_variants(expect)
+    check_launches(f"ViT-{arch} encoder ({attn_impl}{', fp32' if f32 else ''})", counts,
+                   expect)
     if not all(torch.isfinite(a).all() for a in (out_k[0],) + out_k[1]):
         raise AssertionError(f"ViT-{arch} encoder through the kernels: non-finite output")
     worst = worst_rel_diff(out_k, out_p)
@@ -3764,20 +3828,22 @@ def wide_encoder_check(arch: str, kernels, dev, seed: int = 0,
     d = vcfg.hidden_size // vcfg.num_attention_heads
     grid = vcfg.image_size // vcfg.patch_size
     win = vcfg.window_size
+    route = ("one path for every grid (fp32)" if f32 else
+             f"its {fa.relpos_attention_route((win, win), d)} path for the {win}x{win} "
+             f"windows and its {fa.relpos_attention_route((grid, grid), d)} path for the "
+             f"{grid}x{grid} grid")
     log(f"ViT-{arch} encoder (C {vcfg.hidden_size}, {vcfg.num_hidden_layers} layers, "
         f"{vcfg.num_attention_heads} heads of {d}), attn_impl={attn_impl!r}, 1024^2, "
         f"batch 2: launches of one forward "
-        f"{counts}; kernel C took its {fa.relpos_attention_route((win, win), d)} path for "
-        f"the {win}x{win} windows and its {fa.relpos_attention_route((grid, grid), d)} path "
-        f"for the {grid}x{grid} grid; kernels (bf16 inside) vs plain fp32: worst "
-        f"max|diff|/max|plain| {worst:.4g} over neck + {len(out_k[1])} hidden states (tol "
-        f"{ENCODER_TOL}); rel-pos tables zeroed (plain): {bias_effect:.4g}; forward "
-        f"{kernel_ms:.2f} ms through the kernels")
-    if fa.relpos_attention_route((win, win), d) != "window":
+        f"{counts}; kernel C took {route}; kernels ({'fp32' if f32 else 'bf16'} inside) vs "
+        f"plain fp32: worst max|diff|/max|plain| {worst:.4g} over neck + {len(out_k[1])} "
+        f"hidden states (tol {tol}); rel-pos tables zeroed (plain): {bias_effect:.4g}; "
+        f"forward {kernel_ms:.2f} ms through the kernels")
+    if not f32 and fa.relpos_attention_route((win, win), d) != "window":
         raise AssertionError(f"ViT-{arch}: kernel C's windows did not take its window path")
-    if worst > ENCODER_TOL:
-        raise AssertionError(f"ViT-{arch} encoder: kernels vs plain {worst:.4g} > {ENCODER_TOL}")
-    if bias_effect < 2 * ENCODER_TOL:
+    if worst > tol:
+        raise AssertionError(f"ViT-{arch} encoder: kernels vs plain {worst:.4g} > {tol}")
+    if bias_effect < 2 * tol:
         raise AssertionError(f"ViT-{arch} encoder: the rel-pos bias moves the output by "
                              f"{bias_effect:.4g} only")
     del enc, out_k, out_p, out_nobias
@@ -5332,6 +5398,60 @@ def tensor_mode_phase(kernels, config: str = CONFIG, device: str = "cuda") -> di
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the fp32 forwards (3xTF32) against plain fp32
+# ---------------------------------------------------------------------------
+
+# max |kernel - plain| / max |plain| of the fp32 encoder over the neck and
+# every hidden state (SAM-det's segmentor; the bf16 kernels read 0.02484
+# there on an H100, under ENCODER_TOL)
+F32_ENCODER_TOL = 1e-3
+F32_PATH = "samdet_predict"  # where ViT-B's fp32 rows count their launches
+F32_WIDE_PATHS = {"large": "vit_l_fp32_encoder", "huge": "vit_h_fp32_encoder"}
+
+
+def f32_variants(expect: dict) -> dict:
+    """Expected launch counts with every variant's fp32 name ('window' ->
+    'window/f32'): the fp32 variants alone."""
+    return {k: {f"{v}/f32": n for v, n in want.items()} for k, want in expect.items()}
+
+
+def f32_phase(kernels, dev):
+    """Phase 20: the fp32 forwards at ViT-B's shapes (1024^2, batch 2; their
+    launches count on SAM-det's predict) and at ViT-L's and ViT-H's widths
+    against their plain fp32 versions, then the ViT-L and ViT-H fp32
+    encoders through them. Returns (rows, {path: launch counts})."""
+    import torch
+
+    from rsprompter_tpu_torch.models.sam.configs import sam_config
+
+    t_phase = time.time()
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    rows = []
+    bsz, grid, win = 2, 64, 14
+    with torch.no_grad():
+        for arch, tag, path in (("base", "", F32_PATH),) + tuple(
+                (arch, f"@vit-{arch[0]}", path) for arch, path in F32_WIDE_PATHS.items()):
+            v = sam_config(arch).vision_config
+            c, heads = v.hidden_size, v.num_attention_heads
+            arch_rows = [mlp_row(rnd, dev, bsz * grid * grid, c, tag)]
+            arch_rows += qkv_rows(rnd, dev, bsz, grid, c, heads, win, tag)
+            arch_rows += attention_rows(rnd, bsz, grid, heads, c // heads, win, tag)
+            for r in arch_rows:
+                r["path"] = path
+            rows += arch_rows
+            torch.cuda.empty_cache()
+    log_rows(rows, tol=F32_TOL)
+    paths = {path: wide_encoder_check(arch, kernels, dev, f32=True)
+             for arch, path in F32_WIDE_PATHS.items()}
+    log(f"phase 20: {time.time() - t_phase:.1f} s")
+    return rows, paths
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=10,
@@ -5395,6 +5515,9 @@ def main() -> int:
     ddp_overhead()
     torchrun_phase(evaluation["metrics"])
     paths[TENSOR_PATH] = tensor_mode_phase(kernels)
+    f32_kernel_rows, f32_paths = f32_phase(kernels, dev)
+    rows += f32_kernel_rows
+    paths.update(f32_paths)
     out = []
     for r in rows:
         name, variant = r["kernel"].name, r["variant"]

@@ -42,12 +42,15 @@ adapter is K12' (``ops.fused_mlp.qkv_headmajor_lora``); the rel-pos factors
 and the MLP follow the route (kernel A on ``'fused'``, which JAX keeps with
 LoRA, ``:437-451``). Kernels B and B' never run there.
 
-Weights are cast to the activations' dtype at each use, so fp32 master
-parameters train through bf16 kernels. The kernels take bf16 only: on the
-card, an fp32 model's blocks (SAM-det's frozen segmentor) run in bf16 on
-the kernel route -- the patch embedding is cast before block 0, the neck's
-input and the hidden states back to fp32 -- where JAX runs its Pallas
-kernels in fp32. The plain versions, and every route on the CPU, keep fp32. ``impl='plain'`` runs either route
+Weights are cast to the activations' dtype at each use. The forward
+kernels take bf16 or fp32 (their 3xTF32 variants), the backward kernels
+bf16 only, so on the card an fp32 encoder that takes no gradient (SAM-det's
+frozen segmentor, every predict) runs its blocks in fp32 through the fp32
+kernels, as JAX runs its Pallas kernels in fp32; an fp32 encoder that takes
+gradients runs them in bf16 -- the patch embedding cast before block 0, the
+neck's input and the hidden states back to fp32 -- so fp32 master
+parameters train through the bf16 kernels and their backwards. The plain
+versions, and every route on the CPU, keep the model's dtype. ``impl='plain'`` runs either route
 through the plain forward versions under torch autograd (the oracle the GPU
 checks compare against, forward and gradients).
 
@@ -250,6 +253,14 @@ class SamVisionEncoder(nn.Module):
         )
         self.neck = SamVisionNeck(config.hidden_size, config.output_channels)
 
+    def block_dtype(self, x: torch.Tensor) -> torch.dtype:
+        """The dtype the blocks run in on the card's kernel route, given the
+        patch embedding ``x``: x's, except that an fp32 encoder that takes
+        gradients runs bf16 (the backward kernels take bf16 only)."""
+        takes_grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        return torch.bfloat16 if x.dtype == torch.float32 and takes_grad else x.dtype
+
     def forward(self, pixel_values: torch.Tensor):
         x = self.patch_embed(pixel_values)
         if self.pos_embed is not None:
@@ -259,8 +270,8 @@ class SamVisionEncoder(nn.Module):
             x = x + pe.to(x.dtype)
         hidden_states = [x]
         dt = x.dtype
-        if self.impl == "kernel" and x.is_cuda and dt == torch.float32:
-            x = x.to(torch.bfloat16)  # the kernels take bf16 only
+        if self.impl == "kernel" and x.device.type != "cpu":
+            x = x.to(self.block_dtype(x))
         for layer in self.layers:
             x = layer(x, self.impl)
             hidden_states.append(x.to(dt))

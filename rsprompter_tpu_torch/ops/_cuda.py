@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,14 +44,21 @@ def _nvcc() -> str:
 
 class CudaKernel:
     """One C entry point in one ``.cu`` source, with its launch counts per
-    variant (the call site's shape family); their sum is the total."""
+    variant (the call site's shape family); their sum is the total.
 
-    def __init__(self, name: str, source: str, symbol: str, argtypes: Sequence):
+    ``f32`` = (source, symbol) names the kernel's fp32 variant (3xTF32 on
+    wgmma), an entry point with the same arguments: ``launch(..., f32=True)``
+    calls it and counts the launch under the variant's name with ``/f32``
+    appended, so one kernel's counts hold both dtypes apart."""
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes: Sequence,
+                 f32: Optional[Tuple[str, str]] = None):
         self.name = name
         self.source = CSRC_DIR / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.variant_launches: Dict[str, int] = {}
+        self.f32 = CudaKernel(name, *f32, argtypes) if f32 else None
         self._fn = None
         self._lock = threading.Lock()
 
@@ -77,14 +84,17 @@ class CudaKernel:
                 self._fn = fn
         return self._fn
 
-    def launch(self, *args, variant: str = "") -> None:
+    def launch(self, *args, variant: str = "", f32: bool = False) -> None:
         """Launch on the current stream; raise if CUDA refused the launch.
-        ``variant`` names the call site's shape family (e.g. 'window')."""
-        fn = self._fn or self.load()
+        ``variant`` names the call site's shape family (e.g. 'window');
+        ``f32`` launches the fp32 variant (counted as ``variant + '/f32'``)."""
+        entry = self.f32 if f32 else self
+        fn = entry._fn or entry.load()
         err = fn(*args, _current_stream())
         if err != 0:
-            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: error {err}")
-        self.variant_launches[variant] = self.variant_launches.get(variant, 0) + 1
+            raise RuntimeError(f"CUDA kernel {entry.symbol} failed to launch: error {err}")
+        key = variant + "/f32" if f32 else variant
+        self.variant_launches[key] = self.variant_launches.get(key, 0) + 1
 
     def reset_counts(self) -> None:
         self.variant_launches = {}
@@ -100,14 +110,16 @@ def _current_stream() -> int:
 
 
 def build(kernels: Iterable[CudaKernel]) -> Dict[str, float]:
-    """Compile every missing library at once (one nvcc per source, all
-    started together). Returns {kernel name: seconds} for the ones built."""
+    """Compile every missing library of ``kernels`` and their fp32 variants
+    at once (one nvcc per source, all started together). Returns {source
+    name: seconds} for the ones built."""
     import time
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     started = set()  # kernels that share a source share its library
-    for k in kernels:
+    entries = [e for k in kernels for e in (k, k.f32) if e is not None]
+    for k in entries:
         if k.library_path().exists() or k.source in started:
             continue
         started.add(k.source)
@@ -122,7 +134,7 @@ def build(kernels: Iterable[CudaKernel]) -> Dict[str, float]:
     errors = []
     for k, tmp, t0, proc in procs:
         log, _ = proc.communicate()
-        times[k.name] = time.time() - t0
+        times[k.source.stem] = time.time() - t0
         if proc.returncode != 0:
             errors.append(f"{k.source.name}:\n{log}")
         else:
@@ -135,6 +147,30 @@ def build(kernels: Iterable[CudaKernel]) -> Dict[str, float]:
 def ptr(t: torch.Tensor) -> int:
     """A tensor's device address, for a ``c_void_p`` argument."""
     return t.data_ptr()
+
+
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)  # the forward kernels' two variants
+
+
+def operand_dtype(what: str, x: torch.Tensor, *others: torch.Tensor) -> torch.dtype:
+    """The one dtype of a kernel's activations ``x`` and its weights and
+    biases ``others``: bf16 or fp32 (the fp32 variant). Raises, before any
+    device check or launch, on another dtype or on a mix."""
+    dt = x.dtype
+    if dt not in KERNEL_DTYPES:
+        raise ValueError(f"{what}: x is {dt}; the kernels take bf16 or fp32")
+    mixed = sorted({str(t.dtype) for t in others if t.dtype != dt})
+    if mixed:
+        raise ValueError(f"{what}: x is {dt} but weights or biases are {mixed}: one dtype "
+                         "for x, its weights and biases")
+    return dt
+
+
+def backward_bf16(what: str, dt: torch.dtype) -> None:
+    """The backward kernels take bf16 only (their fp32 variants are to
+    come): an fp32 encoder that takes gradients runs the bf16 forwards."""
+    if dt != torch.bfloat16:
+        raise ValueError(f"{what}: the backward kernel takes bf16, got {dt}")
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None):
@@ -154,7 +190,8 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None
 def all_kernels() -> List[CudaKernel]:
     """Every kernel of the port: the encoder layer's forwards in order
     (kernel B's row pass, then its GEMM), then their backwards, then the
-    'flash' route's K12'."""
+    'flash' route's K12'. A forward's fp32 variant rides on it (``.f32``):
+    ``build`` builds both, and its launches count in the same kernel."""
     from rsprompter_tpu_torch.ops import fused_mlp as fm
     from rsprompter_tpu_torch.ops import fused_vit_attention as fa
 

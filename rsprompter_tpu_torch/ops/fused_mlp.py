@@ -43,6 +43,18 @@ kernel takes 64 and XLA projects ViT-H's 80-wide heads). The encoder's
 its K (``qkv_headmajor_lora``, K = C + 64). Its backward is plain torch
 products on every device, as JAX's ``_qkv_pair_bwd_vjp`` leaves it to XLA.
 
+Kernels A, B (with its row pass) and K12' each have an fp32 variant for an
+fp32 model (SAM-det's frozen segmentor, any config without ``bf16=True``),
+as the TPU kernels compute in their inputs' dtype: hand-written 3xTF32
+products on wgmma ``.tf32`` (``csrc/tf32.cuh``; ``ln_mlp_residual_f32.cu``,
+``ln_qkv_headmajor_f32.cu``), each fp32 operand split into a TF32 high part
+and remainder, three passes accumulated in fp32, nothing rounded below fp32.
+A wrapper takes x, its weights and biases all bf16 or all fp32 (LN
+parameters fp32) and launches the matching variant, counted under the same
+kernel with ``/f32`` after the variant's name; a mix raises before any
+launch. The backwards take bf16 only, so an fp32 encoder that takes
+gradients runs the bf16 forwards (``SamVisionEncoder.block_dtype``).
+
 The public functions are ``torch.autograd.Function``s: their forward is the
 kernel, their backward the backward kernel, for CUDA tensors; for tensors on
 the CPU both are the plain versions. A CUDA tensor gets the kernel or an
@@ -62,15 +74,19 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from rsprompter_tpu_torch.ops._cuda import CudaKernel, check_cuda_tensor, ptr
+from rsprompter_tpu_torch.ops._cuda import (
+    CudaKernel, backward_bf16, check_cuda_tensor, operand_dtype, ptr,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# kernel A's two products, counted apart by variant ('fc1', 'fc2')
+# kernel A's two products, counted apart by variant ('fc1', 'fc2'; 'fc1/f32',
+# 'fc2/f32' for the fp32 variant)
 LN_MLP_RESIDUAL = CudaKernel(
     "ln_mlp_residual", "ln_mlp_residual.cu", "rsp_mlp_gemm", [_P] * 5 + [_I] * 4 + [_P],
+    f32=("ln_mlp_residual_f32.cu", "rsp_mlp_gemm_f32"),
 )
 # A': one count per call (six device launches inside, see its source)
 LN_MLP_RESIDUAL_BWD = CudaKernel(
@@ -85,15 +101,17 @@ WGMMA_GEMM_FORMS = ((False, False, 256), (False, True, 256), (False, True, 128),
                     (True, True, 256))
 LN_ROWS = CudaKernel(
     "ln_rows", "ln_qkv_headmajor.cu", "rsp_ln_rows", [_P] * 4 + [_I] * 5 + [_F, _P],
+    f32=("ln_qkv_headmajor_f32.cu", "rsp_ln_rows_f32"),
 )
 # kernel B's GEMM and K12' are one entry point, counted apart by call site
+_QKV_F32 = ("ln_qkv_headmajor_f32.cu", "rsp_qkv_headmajor_f32")
 LN_QKV_HEADMAJOR = CudaKernel(
     "ln_qkv_headmajor", "ln_qkv_headmajor.cu", "rsp_qkv_headmajor",
-    [_P] * 4 + [_I] * 5 + [_P],
+    [_P] * 4 + [_I] * 5 + [_P], f32=_QKV_F32,
 )
 QKV_HEADMAJOR = CudaKernel(
     "qkv_headmajor", "ln_qkv_headmajor.cu", "rsp_qkv_headmajor",
-    [_P] * 4 + [_I] * 5 + [_P],
+    [_P] * 4 + [_I] * 5 + [_P], f32=_QKV_F32,
 )
 # the widths each kernel takes on the card, its backward too: kernel A's C
 # (its M is 4 C), kernel B's and K12''s head dim (ViT-B, ViT-L, ViT-H)
@@ -191,35 +209,40 @@ def ln_mlp_residual_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, dout,
 
 
 def _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2):
-    """Kernel A's (and A''s) arguments; raise on any width they do not take."""
+    """Kernel A's (and A''s) arguments: x and the weights all bf16 or all
+    fp32, LN parameters fp32; raise on any width or dtype they do not take.
+    Returns (t, c, m, dtype)."""
+    dt = operand_dtype("ln_mlp_residual", x, w1, b1, w2, b2)
     t, c = x.shape
     m = w1.shape[0]
     if c not in MLP_WIDTHS or m != 4 * c:
         raise ValueError(f"ln_mlp_residual: unsupported widths C={c}, M={m} "
                          f"(C one of {MLP_WIDTHS}, M = 4 C)")
-    bf = torch.bfloat16
-    check_cuda_tensor("x", x, bf, (t, c))
+    check_cuda_tensor("x", x, dt, (t, c))
     check_cuda_tensor("ln_w", ln_w, torch.float32, (c,))
     check_cuda_tensor("ln_b", ln_b, torch.float32, (c,))
-    check_cuda_tensor("w1", w1, bf, (m, c))
-    check_cuda_tensor("b1", b1, bf, (m,))
-    check_cuda_tensor("w2", w2, bf, (c, m))
-    check_cuda_tensor("b2", b2, bf, (c,))
-    return t, c, m
+    check_cuda_tensor("w1", w1, dt, (m, c))
+    check_cuda_tensor("b1", b1, dt, (m,))
+    check_cuda_tensor("w2", w2, dt, (c, m))
+    check_cuda_tensor("b2", b2, dt, (c,))
+    return t, c, m, dt
+
 
 
 def _ln_mlp_residual_fwd(x, ln_w, ln_b, w1, b1, w2, b2, eps):
     if x.device.type == "cpu":
         return ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
-    t, c, m = _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2)
+    t, c, m, dt = _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2)
+    f32 = dt == torch.float32
     z = torch.empty_like(x)
-    LN_ROWS.launch(ptr(x), ptr(ln_w), ptr(ln_b), ptr(z), 1, 1, t, c, 0, eps, variant="mlp")
-    hid = torch.empty((t, m), dtype=torch.bfloat16, device=x.device)
+    LN_ROWS.launch(ptr(x), ptr(ln_w), ptr(ln_b), ptr(z), 1, 1, t, c, 0, eps, variant="mlp",
+                   f32=f32)
+    hid = torch.empty((t, m), dtype=dt, device=x.device)
     LN_MLP_RESIDUAL.launch(ptr(z), ptr(w1), ptr(b1), _NULL, ptr(hid), t, m, c, 0,
-                           variant="fc1")
+                           variant="fc1", f32=f32)
     out = torch.empty_like(x)
     LN_MLP_RESIDUAL.launch(ptr(hid), ptr(w2), ptr(b2), ptr(x), ptr(out), t, c, m, 1,
-                           variant="fc2")
+                           variant="fc2", f32=f32)
     return out
 
 
@@ -228,7 +251,8 @@ def ln_mlp_residual_bwd(x, ln_w, ln_b, w1, b1, w2, b2, dout, eps: float = 1e-6):
     gradients of :func:`ln_mlp_residual` given dO."""
     if x.device.type == "cpu":
         return ln_mlp_residual_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, dout, eps)
-    t, c, m = _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2)
+    t, c, m, dt = _check_mlp_args(x, ln_w, ln_b, w1, b1, w2, b2)
+    backward_bf16("ln_mlp_residual_bwd", dt)
     check_cuda_tensor("dout", dout, torch.bfloat16, (t, c))
     f32, bf = torch.float32, torch.bfloat16
     parts = -(-t // 128) * m + -(-t // 16) * 3 * c  # db1's, then dgamma/dbeta/db2's
@@ -287,10 +311,15 @@ class _LnMlpResidual(torch.autograd.Function):
 
 
 def ln_mlp_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-6):
-    """Kernel A on CUDA tensors (bf16 x and weights, fp32 LN params), with
-    A' as its backward; the plain versions on the CPU."""
+    """Kernel A on CUDA tensors (x and weights all bf16, or all fp32 for the
+    3xTF32 variant; fp32 LN params), with A' as its backward (bf16 only);
+    the plain versions on the CPU. Recording a graph on the card, fp32
+    operands raise before any launch."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, ln_w, ln_b, w1, b1, w2, b2)):
+        if x.device.type != "cpu":
+            backward_bf16("ln_mlp_residual",
+                          operand_dtype("ln_mlp_residual", x, w1, b1, w2, b2))
         return _LnMlpResidual.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps)
     return _ln_mlp_residual_fwd(x, ln_w, ln_b, w1, b1, w2, b2, eps)  # no graph to record
 
@@ -412,37 +441,39 @@ def _head_dim(w, heads3: int, what: str) -> int:
 
 
 def _check_qkv_args(x, ln_w, ln_b, w, b, heads3):
-    """Kernel B's (and B''s) arguments; returns d."""
+    """Kernel B's (and B''s) arguments: x, w and b all bf16 or all fp32, LN
+    parameters fp32. Returns (d, dtype)."""
+    dt = operand_dtype("ln_qkv_headmajor", x, w, b)
     bsz, hh, ww, c = x.shape
-    bf = torch.bfloat16
     d = _head_dim(w, heads3, "ln_qkv_headmajor")
-    check_cuda_tensor("x", x, bf, (bsz, hh, ww, c))
-    check_cuda_tensor("w", w, bf, (heads3 * d, c))
-    check_cuda_tensor("b", b, bf, (heads3 * d,))
+    check_cuda_tensor("x", x, dt, (bsz, hh, ww, c))
+    check_cuda_tensor("w", w, dt, (heads3 * d, c))
+    check_cuda_tensor("b", b, dt, (heads3 * d,))
     if ln_w is not None:
         check_cuda_tensor("ln_w", ln_w, torch.float32, (c,))
         check_cuda_tensor("ln_b", ln_b, torch.float32, (c,))
     if c % 64 or c > 2048:
         raise ValueError(f"ln_qkv_headmajor: C={c} is not a multiple of 64 up to 2048")
-    return d
+    return d, dt
 
 
 def _ln_qkv_headmajor_fwd(x, ln_w, ln_b, w, b, heads3, window, eps):
     if x.device.type == "cpu":
         return ln_qkv_headmajor_plain(x, ln_w, ln_b, w, b, heads3, window, eps)
-    d = _check_qkv_args(x, ln_w, ln_b, w, b, heads3)
+    d, dt = _check_qkv_args(x, ln_w, ln_b, w, b, heads3)
+    f32 = dt == torch.float32
     bsz, hh, ww, c = x.shape
     n, s = _qkv_rows(x, heads3, window)
     variant = "window" if window else "global"
-    z = torch.empty((n * s, c), dtype=torch.bfloat16, device=x.device)
+    z = torch.empty((n * s, c), dtype=dt, device=x.device)
     LN_ROWS.launch(
         ptr(x), ptr(ln_w) if ln_w is not None else _NULL,
         ptr(ln_b) if ln_b is not None else _NULL, ptr(z), bsz, hh, ww, c, window, eps,
-        variant=variant,
+        variant=variant, f32=f32,
     )
-    out = torch.empty((n, heads3, s, d), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((n, heads3, s, d), dtype=dt, device=x.device)
     LN_QKV_HEADMAJOR.launch(ptr(z), ptr(w), ptr(b), ptr(out), n, s, c, heads3, d,
-                            variant=variant)
+                            variant=variant, f32=f32)
     return out
 
 
@@ -452,7 +483,8 @@ def ln_qkv_headmajor_bwd(x, ln_w, ln_b, w, b, dy, heads3: int, window: int = 0,
     gradients of :func:`ln_qkv_headmajor` given dy (N, heads3, S, d)."""
     if x.device.type == "cpu":
         return ln_qkv_headmajor_bwd_plain(x, ln_w, ln_b, w, b, dy, heads3, window, eps)
-    d = _check_qkv_args(x, ln_w, ln_b, w, b, heads3)
+    d, dt = _check_qkv_args(x, ln_w, ln_b, w, b, heads3)
+    backward_bf16("ln_qkv_headmajor_bwd", dt)
     bsz, hh, ww, c = x.shape
     n, s = _qkv_rows(x, heads3, window)
     if c % 256 or c > 1280:  # the row kernels' widths, up to ViT-H
@@ -494,8 +526,13 @@ class _LnQkvHeadmajor(torch.autograd.Function):
 
 def ln_qkv_headmajor(x, ln_w, ln_b, w, b, heads3: int, window: int = 0,
                      eps: float = 1e-6):
-    """Kernel B on CUDA tensors (bf16 x and weights, fp32 LN params), with
-    B' as its backward; the plain versions on the CPU."""
+    """Kernel B on CUDA tensors (x, w and b all bf16, or all fp32 for the
+    3xTF32 variant; fp32 LN params), with B' as its backward (bf16 only);
+    the plain versions on the CPU. Recording a graph on the card, fp32
+    operands raise before any launch."""
+    if x.device.type != "cpu" and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, ln_w, ln_b, w, b)):
+        backward_bf16("ln_qkv_headmajor", operand_dtype("ln_qkv_headmajor", x, w, b))
     return _LnQkvHeadmajor.apply(x, ln_w, ln_b, w, b, heads3, window, eps)
 
 
@@ -516,17 +553,18 @@ def qkv_headmajor_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 def _qkv_headmajor_fwd(x, w, b, heads3, n):
     if x.device.type == "cpu":
         return qkv_headmajor_plain(x, w, b, heads3, n)
+    dt = operand_dtype("qkv_headmajor", x, w, b)
     t, c = x.shape
-    bf = torch.bfloat16
     d = _head_dim(w, heads3, "qkv_headmajor")
-    check_cuda_tensor("x", x, bf, (t, c))
-    check_cuda_tensor("w", w, bf, (heads3 * d, c))
-    check_cuda_tensor("b", b, bf, (heads3 * d,))
+    check_cuda_tensor("x", x, dt, (t, c))
+    check_cuda_tensor("w", w, dt, (heads3 * d, c))
+    check_cuda_tensor("b", b, dt, (heads3 * d,))
     if c % 64 or t % n:
         raise ValueError(f"qkv_headmajor: C={c} not a multiple of 64 or {t} rows for N={n}")
-    out = torch.empty((n, heads3, t // n, d), dtype=bf, device=x.device)
+    out = torch.empty((n, heads3, t // n, d), dtype=dt, device=x.device)
     QKV_HEADMAJOR.launch(ptr(x), ptr(w), ptr(b), ptr(out), n, t // n, c, heads3, d,
-                         variant="window" if t // n <= 512 else "global")
+                         variant="window" if t // n <= 512 else "global",
+                         f32=dt == torch.float32)
     return out
 
 
@@ -554,8 +592,9 @@ class _QkvHeadmajor(torch.autograd.Function):
 
 
 def qkv_headmajor(x, w, b, heads3: int, n: int):
-    """Kernel K12' on CUDA tensors (bf16 x (N*S, C), w (heads3*d, C), b, d
-    = 64 or 80); the plain version on the CPU. Returns (N, heads3, S, d).
+    """Kernel K12' on CUDA tensors (x (N*S, C), w (heads3*d, C) and b all
+    bf16, or all fp32 for the 3xTF32 variant; d = 64 or 80); the plain
+    version on the CPU. Returns (N, heads3, S, d).
     Its backward is :func:`qkv_headmajor_bwd` on every device."""
     return _QkvHeadmajor.apply(x, w, b, heads3, n)
 

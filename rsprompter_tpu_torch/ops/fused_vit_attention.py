@@ -33,6 +33,12 @@ count it computes ``fused_vit_attention.py``'s per-head ``_window_kernel`` /
 ``_global_kernel`` (K11; the clamp dropped as above). Launches at an odd head
 count are counted under their own variant (``window/odd``, ``global/odd``).
 
+On fp32 qkv and factors (an fp32 model, no gradient) kernel C launches its
+fp32 variant (``csrc/relpos_attention_f32.cu``, counted with ``/f32`` after
+the variant's name): 3xTF32 products on wgmma ``.tf32``, an exact online
+softmax in fp32 over 64-key tiles, one path for every grid; no row
+log-sum-exp, as C' takes bf16 only.
+
 ``relpos_attention`` is a ``torch.autograd.Function``: kernel forward and
 backward for CUDA tensors, the plain versions for tensors on the CPU.
 """
@@ -44,7 +50,9 @@ from typing import Tuple
 
 import torch
 
-from rsprompter_tpu_torch.ops._cuda import CudaKernel, check_cuda_tensor, ptr
+from rsprompter_tpu_torch.ops._cuda import (
+    CudaKernel, backward_bf16, check_cuda_tensor, operand_dtype, ptr,
+)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +62,7 @@ _NULL = ctypes.c_void_p(None)
 RELPOS_ATTENTION = CudaKernel(
     "relpos_attention", "relpos_attention.cu", "rsp_relpos_attention",
     [_P] * 5 + [_I] * 6 + [_F, _P],
+    f32=("relpos_attention_f32.cu", "rsp_relpos_attention_f32"),
 )
 RELPOS_ATTENTION_BWD = CudaKernel(
     "relpos_attention_bwd", "relpos_attention_bwd.cu", "rsp_relpos_attention_bwd",
@@ -131,30 +140,35 @@ def relpos_attention_bwd_plain(qkv, fh, fw, dout, hw: Tuple[int, int]):
 
 
 def _check_attention_args(qkv, fh, fw, hw):
+    """Kernel C's (and C''s) arguments: qkv and the factors all bf16 or all
+    fp32. Returns (nb, n, s, d, dtype)."""
+    dt = operand_dtype("relpos_attention", qkv, fh, fw)
     h, w = hw
     nb, n3, s, d = qkv.shape
     n = n3 // 3
-    bf = torch.bfloat16
     if d not in HEAD_DIMS:
         raise ValueError(f"relpos_attention: head dim {d} is not one of {HEAD_DIMS}")
-    check_cuda_tensor("qkv", qkv, bf, (nb, 3 * n, h * w, d))
-    check_cuda_tensor("fh", fh, bf, (nb, n, s, h))
-    check_cuda_tensor("fw", fw, bf, (nb, n, s, w))
+    check_cuda_tensor("qkv", qkv, dt, (nb, 3 * n, h * w, d))
+    check_cuda_tensor("fh", fh, dt, (nb, n, s, h))
+    check_cuda_tensor("fw", fw, dt, (nb, n, s, w))
     if h > 64 or w > 64:
         raise ValueError(f"relpos_attention: grid {h}x{w} exceeds 64x64")
-    return nb, n, s, d
+    return nb, n, s, d, dt
 
 
 def _relpos_attention_fwd(qkv, fh, fw, hw, with_lse: bool):
     """(out, row log-sum-exp or None); the log-sum-exp only from the kernel."""
     if qkv.device.type == "cpu":
         return relpos_attention_plain(qkv, fh, fw, hw), None
-    nb, n, s, d = _check_attention_args(qkv, fh, fw, hw)
-    out = torch.empty((nb, n, s, d), dtype=torch.bfloat16, device=qkv.device)
+    nb, n, s, d, dt = _check_attention_args(qkv, fh, fw, hw)
+    f32 = dt == torch.float32
+    if with_lse:
+        backward_bf16("relpos_attention", dt)
+    out = torch.empty((nb, n, s, d), dtype=dt, device=qkv.device)
     lse = torch.empty((nb, n, s), dtype=torch.float32, device=qkv.device) if with_lse else None
     RELPOS_ATTENTION.launch(
         ptr(qkv), ptr(fh), ptr(fw), ptr(out), ptr(lse) if with_lse else _NULL,
-        nb, n, s, hw[0], hw[1], d, d ** -0.5, variant=_variant(s, n),
+        nb, n, s, hw[0], hw[1], d, d ** -0.5, variant=_variant(s, n), f32=f32,
     )
     return out, lse
 
@@ -164,7 +178,8 @@ def relpos_attention_bwd(qkv, fh, fw, out, lse, dout, hw: Tuple[int, int]):
     log-sum-exp; the plain backward on the CPU. Returns (dqkv, dfh, dfw)."""
     if qkv.device.type == "cpu":
         return relpos_attention_bwd_plain(qkv, fh, fw, dout, hw)
-    nb, n, s, d = _check_attention_args(qkv, fh, fw, hw)
+    nb, n, s, d, dt = _check_attention_args(qkv, fh, fw, hw)
+    backward_bf16("relpos_attention_bwd", dt)
     check_cuda_tensor("out", out, torch.bfloat16, (nb, n, s, d))
     check_cuda_tensor("dout", dout, torch.bfloat16, (nb, n, s, d))
     check_cuda_tensor("lse", lse, torch.float32, (nb, n, s))
@@ -204,8 +219,12 @@ class _RelposAttention(torch.autograd.Function):
 
 def relpos_attention(qkv: torch.Tensor, fh: torch.Tensor, fw: torch.Tensor,
                      hw: Tuple[int, int]) -> torch.Tensor:
-    """Kernel C on CUDA tensors (bf16, head dim 64 or 80, h and w <= 64), with
-    C' as its backward; the plain versions on the CPU."""
+    """Kernel C on CUDA tensors (qkv and factors all bf16, or all fp32 for
+    the 3xTF32 variant; head dim 64 or 80, h and w <= 64), with C' as its
+    backward (bf16 only); the plain versions on the CPU. Recording a graph
+    on the card, fp32 operands raise before any launch."""
     if torch.is_grad_enabled() and (qkv.requires_grad or fh.requires_grad or fw.requires_grad):
+        if qkv.device.type != "cpu":
+            backward_bf16("relpos_attention", operand_dtype("relpos_attention", qkv, fh, fw))
         return _RelposAttention.apply(qkv, fh, fw, hw)
     return _relpos_attention_fwd(qkv, fh, fw, hw, False)[0]  # no graph to record

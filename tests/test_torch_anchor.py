@@ -2,7 +2,8 @@
 
 A tiny model (hidden 128, two heads of 64, two layers, 128^2 input) is built
 by the JAX package's ``DetInferencer`` (``attn_impl='xla'`` on the CPU, exact
-softmax); its variables, with random rel-pos tables and pos-embed, go to the
+softmax); its variables, drawn with numpy on ``jax.eval_shape``'s tree of
+the model's init (random rel-pos tables and pos-embed among them), go to the
 port through ``rsprompter_tpu_torch.utils.convert`` and
 ``init_detector(device='cpu')``. Both run the same seeded uint8 images, given
 at the crop size so neither resizes (the JAX pipeline resizes with OpenCV,
@@ -14,6 +15,7 @@ import os
 import pathlib
 import subprocess
 import sys
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -52,16 +54,26 @@ TINY = dict(
 CROP = (128, 128)
 
 
-def _randomize(params, rng):
-    out = {}
-    for k, v in params.items():
-        if isinstance(v, dict):
-            out[k] = _randomize(v, rng)
-        elif k in ("rel_pos_h", "rel_pos_w", "pos_embed"):
-            out[k] = rng.standard_normal(v.shape).astype(np.float32) * 0.5
-        else:
-            out[k] = np.asarray(v)
-    return out
+def seeded_jax_inferencer(cfg, rng):
+    """JAX's inferencer for ``cfg`` (batch 2) and variables drawn with numpy
+    on ``jax.eval_shape``'s tree of its model's init
+    (``test_torch_query._random_variables``). Call the inferencer inside
+    ``taking(jinf, variables)``: its first call then takes them in place of
+    running init, which XLA would compile as a program of its own."""
+    from rsprompter_tpu.core.config import Config as JaxConfig
+    from test_torch_query import _random_variables
+
+    jinf = jax_init_detector(JaxConfig.fromdict(cfg), batch_size=2)
+    h, w = cfg["crop_size"]
+    batch = {"images": np.zeros((2, h, w, 3), np.uint8),
+             "img_shape": np.full((2, 2), h, np.int32)}
+    shapes = jax.eval_shape(lambda: jinf.model.init(
+        {"params": jax.random.PRNGKey(0)}, batch, method="predict"))
+    return jinf, _random_variables(shapes, rng)
+
+
+def taking(jinf, variables):
+    return mock.patch.object(type(jinf.model), "init", lambda *a, **k: variables)
 
 
 @pytest.fixture(scope="module")
@@ -69,18 +81,9 @@ def both():
     rng = np.random.default_rng(0)
     imgs = [rng.integers(0, 256, (128, 128, 3), dtype=np.uint8) for _ in range(2)]
     cfg = {"model": dict(TINY), "crop_size": CROP}
-    from rsprompter_tpu.core.config import Config as JaxConfig
-
-    jinf = jax_init_detector(JaxConfig.fromdict(cfg), batch_size=2)
-    jinf(imgs[:1])  # initialise the variables
-    variables = jax.tree_util.tree_map(np.asarray, jinf._variables)
-    variables["params"] = _randomize(variables["params"], rng)
-    stats = variables["batch_stats"]
-    variables["batch_stats"] = jax.tree_util.tree_map(
-        lambda a: (np.abs(rng.standard_normal(a.shape)) + 0.5).astype(np.float32), stats
-    )
-    jinf._variables = jax.tree_util.tree_map(jnp.asarray, variables)
-    j_preds = jinf(imgs)["predictions"]
+    jinf, variables = seeded_jax_inferencer(cfg, rng)
+    with taking(jinf, variables):
+        j_preds = jinf(imgs)["predictions"]
 
     from rsprompter_tpu_torch.core.config import Config
 

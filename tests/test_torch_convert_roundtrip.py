@@ -17,7 +17,13 @@ TINY = SamVisionConfig(
 
 
 def _roundtrip(module, *init_args, **init_kwargs):
-    params = module.init(jax.random.PRNGKey(0), *init_args, **init_kwargs)["params"]
+    # the tree's shapes from a trace of init (no op runs), seeded values on
+    # them: the roundtrip must give back every value, whatever it is
+    shapes = jax.eval_shape(
+        lambda: module.init(jax.random.PRNGKey(0), *init_args, **init_kwargs))["params"]
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map(
+        lambda a: rng.standard_normal(a.shape).astype(a.dtype), shapes)
     sd = flax_to_torch(params)
     restored, missing, used = torch_to_flax(sd, params)
     assert not missing, missing[:5]

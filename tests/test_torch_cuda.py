@@ -8,7 +8,9 @@ skip where ``torch.cuda.is_available()`` is false. On a GPU machine:
 Shapes are small and ragged (row counts and grids that are not multiples of
 the kernels' tiles) to reach the edge paths the main-path shapes do not;
 ``chip_smoke.py`` covers the main-path shapes. bf16 inputs, fp32 plain
-reference, tolerance 2e-2 of the output's largest magnitude.
+reference, tolerance 2e-2 of the output's largest magnitude; the fp32
+variants (3xTF32) against the plain fp32 versions with TF32 off, tolerance
+1e-4 (``F32_TOL``), and repeatable bit for bit.
 """
 
 import pytest
@@ -398,15 +400,16 @@ def test_wrappers_record_their_backward_on_cuda(gen):
     assert qkv.grad is not None and fh.grad is not None and fw.grad is not None
 
 
-ENCODER_TOL = 4e-2  # chip_smoke.py's limit: max|kernels - plain| / max|plain|
+F32_ENCODER_TOL = 1e-3  # chip_smoke.py's limit: max|fp32 kernels - plain| / max|plain|
 
 
-def test_fp32_encoder_runs_the_bf16_kernels(gen):
-    """An fp32 model's encoder (SAM-det's segmentor) on the kernel route:
-    its blocks launch kernels A, B and C in bf16 (none raises on fp32
-    activations) and return fp32, within ``ENCODER_TOL`` of the plain fp32
-    encoder, which casts nothing. A 10 x 10 grid under window 4 pads each
-    windowed layer to 12 x 12."""
+def test_fp32_encoder_runs_the_fp32_kernels(gen, tf32_off):
+    """An fp32 model's encoder (SAM-det's segmentor) on the kernel route,
+    taking no gradient: its blocks launch the fp32 variants of kernels A, B
+    and C (no bf16 variant, no cast) and return fp32, within
+    ``F32_ENCODER_TOL`` of the plain fp32 encoder (the bf16 kernels read
+    about 2.5e-2 there on an H100, under a 4e-2 gate). A 10 x 10 grid under window 4
+    pads each windowed layer to 12 x 12."""
     from rsprompter_tpu_torch.apis.build import init_random_weights
     from rsprompter_tpu_torch.models.sam.configs import SamVisionConfig
     from rsprompter_tpu_torch.models.sam.vision_encoder import SamVisionEncoder
@@ -418,18 +421,51 @@ def test_fp32_encoder_runs_the_bf16_kernels(gen):
     enc.to("cuda").eval()
     x = torch.randn(2, 160, 160, 3, generator=gen).to("cuda")
     kernels = (fm.LN_MLP_RESIDUAL, fm.LN_QKV_HEADMAJOR, fa.RELPOS_ATTENTION)
-    before = [sum(k.variant_launches.values()) for k in kernels]
+    for k in kernels:
+        k.reset_counts()
     with torch.no_grad():
         got = enc(x)
-        launched = [sum(k.variant_launches.values()) - b for k, b in zip(kernels, before)]
+        launched = [dict(k.variant_launches) for k in kernels]
         enc.impl = "plain"
         ref = enc(x)
-    assert launched == [4, 2, 2], launched  # A: fc1 + fc2 a layer
+    f32 = [sum(n for v, n in c.items() if v.endswith("/f32")) for c in launched]
+    assert f32 == [4, 2, 2], launched  # A: fc1 + fc2 a layer
+    assert all(v.endswith("/f32") for c in launched for v in c), launched
     for a, b in zip((got[0],) + got[1], (ref[0],) + ref[1]):
         assert a.dtype == b.dtype == torch.float32
         assert torch.isfinite(a).all()
         err = (a - b).abs().max().item()
-        assert err <= ENCODER_TOL * b.abs().max().item(), err
+        assert err <= F32_ENCODER_TOL * b.abs().max().item(), err
+
+
+def test_fp32_flash_encoder_runs_the_fp32_kernels(gen, tf32_off):
+    """The 'flash' route of an fp32 encoder that takes no gradient: K12' and
+    C launch their fp32 variants (LN1, the partition, LN2 and the MLP in
+    torch), within ``F32_ENCODER_TOL`` of plain fp32."""
+    from rsprompter_tpu_torch.apis.build import init_random_weights
+    from rsprompter_tpu_torch.models.sam.configs import SamVisionConfig
+    from rsprompter_tpu_torch.models.sam.vision_encoder import SamVisionEncoder
+
+    cfg = SamVisionConfig(hidden_size=768, num_hidden_layers=2, num_attention_heads=12,
+                          global_attn_indexes=(1,), image_size=160, window_size=4)
+    enc = SamVisionEncoder(cfg, attn_impl="flash")
+    init_random_weights(enc, 1)
+    enc.to("cuda").eval()
+    x = torch.randn(2, 160, 160, 3, generator=gen).to("cuda")
+    kernels = (fm.QKV_HEADMAJOR, fa.RELPOS_ATTENTION, fm.LN_QKV_HEADMAJOR, fm.LN_MLP_RESIDUAL)
+    for k in kernels:
+        k.reset_counts()
+    with torch.no_grad():
+        got = enc(x)
+        launched = [dict(k.variant_launches) for k in kernels]
+        enc.impl = "plain"
+        ref = enc(x)
+    assert [sum(c.values()) for c in launched] == [2, 2, 0, 0], launched
+    assert all(v.endswith("/f32") for c in launched for v in c), launched
+    for a, b in zip((got[0],) + got[1], (ref[0],) + ref[1]):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all()
+        err = (a - b).abs().max().item()
+        assert err <= F32_ENCODER_TOL * b.abs().max().item(), err
 
 
 # --- the ViT-L and ViT-H widths ---------------------------------------------
@@ -600,3 +636,128 @@ def test_qkv_headmajor_lora_hd80(gen, n, s):
     got.backward(dy)
     ref.backward(dy.float())
     _close_each([t.grad for t in leaves], [t.grad for t in ref_leaves])
+
+
+# --- the fp32 variants (3xTF32 on wgmma .tf32) ---------------------------------
+
+F32_TOL = 1e-4
+
+
+@pytest.fixture()
+def tf32_off():
+    """The plain fp32 references in full fp32: no TF32 in matmuls or convs."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _f32_close_and_repeatable(run, plain):
+    """The fp32 kernel within F32_TOL of its output's largest magnitude
+    against plain fp32, and the same bits from a second launch."""
+    got, again = run(), run()
+    ref = plain()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    assert err <= F32_TOL * ref.abs().max().item(), err
+    assert torch.equal(got, again)
+
+
+def _rf32(gen, *shape, scale=1.0):
+    return _rnd(gen, *shape, scale=scale, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("t,c", [(100, 768), (8193, 768), (300, 1024), (4096, 1280)])
+def test_ln_mlp_residual_rf32(gen, tf32_off, t, c):
+    """Kernel A's fp32 variant (row pass, fc1 + GELU, fc2 + residual) at row
+    counts off the GEMM's 128-row tile and at ViT-L's and ViT-H's widths."""
+    m = 4 * c
+    args = (_rf32(gen, t, c), 1 + _rf32(gen, c, scale=0.1), _rf32(gen, c, scale=0.1),
+            _rf32(gen, m, c, scale=0.02), _rf32(gen, m, scale=0.02), _rf32(gen, c, m, scale=0.02),
+            _rf32(gen, c, scale=0.02), 1e-6)
+    _f32_close_and_repeatable(lambda: fm.ln_mlp_residual(*args),
+                              lambda: fm.ln_mlp_residual_plain(*args))
+
+
+@pytest.mark.parametrize("c,heads,grid,window", [
+    (768, 12, (10, 9), 0), (768, 12, (10, 9), 4), (768, 12, (64, 64), 14),
+    (1024, 16, (15, 14), 14), (1280, 16, (10, 9), 0), (1280, 16, (15, 14), 14),
+    (320, 4, (10, 9), 4),
+])
+def test_ln_qkv_headmajor_rf32(gen, tf32_off, c, heads, grid, window):
+    """Kernel B's fp32 variant, heads of 64 and of 80 (four heads of 80:
+    960 columns, the last 128-column tile partly past the weight), global
+    and windowed at ragged grids."""
+    args = (_rf32(gen, 2, *grid, c), 1 + _rf32(gen, c, scale=0.1), _rf32(gen, c, scale=0.1),
+            _rf32(gen, 3 * c, c, scale=0.02), _rf32(gen, 3 * c, scale=0.02), 3 * heads, window,
+            1e-6)
+    with torch.no_grad():
+        _f32_close_and_repeatable(lambda: fm.ln_qkv_headmajor(*args),
+                                  lambda: fm.ln_qkv_headmajor_plain(*args))
+
+
+@pytest.mark.parametrize("grid,window,ln", [((10, 9), 4, True), ((64, 64), 14, True),
+                                            ((10, 9), 0, True), ((15, 14), 14, False)])
+def test_ln_rows_rf32(gen, tf32_off, grid, window, ln):
+    """Kernel B's row pass at fp32 alone: LN (or none), the window map and
+    its zero pad, at C 1280."""
+    c = 1280
+    x = _rf32(gen, 2, *grid, c)
+    ln_w, ln_b = (1 + _rf32(gen, c, scale=0.1), _rf32(gen, c, scale=0.1)) if ln else (None, None)
+    n_img, s = fm._qkv_rows(x, 3, window)
+
+    def run():
+        z = torch.empty((n_img * s, c), device="cuda")
+        fm.LN_ROWS.launch(fm.ptr(x), fm.ptr(ln_w) if ln else fm._NULL,
+                          fm.ptr(ln_b) if ln else fm._NULL, fm.ptr(z), 2, *grid, c, window,
+                          1e-6, variant="test", f32=True)
+        return z
+
+    _f32_close_and_repeatable(run, lambda: fm.ln_rows_plain(x, ln_w, ln_b, window, 1e-6))
+
+
+@pytest.mark.parametrize("d,heads,hw,n_img", [
+    (64, 3, (14, 14), 5), (64, 5, (9, 7), 3), (64, 1, (1, 1), 2), (64, 4, (16, 16), 2),
+    (64, 12, (64, 64), 1), (80, 16, (14, 14), 3), (80, 3, (9, 7), 2), (80, 16, (32, 32), 1),
+    (80, 2, (64, 64), 1),
+])
+def test_relpos_attention_rf32(gen, tf32_off, d, heads, hw, n_img):
+    """Kernel C's fp32 variant at head dims 64 and 80, odd and even head
+    counts, window and global grids, ragged ones (a partial last key tile,
+    factor rows of odd length)."""
+    s = hw[0] * hw[1]
+    qkv = _rf32(gen, n_img, 3 * heads, s, d)
+    fh, fw = _rf32(gen, n_img, heads, s, hw[0], scale=0.5), _rf32(gen, n_img, heads, s, hw[1],
+                                                                scale=0.5)
+    _f32_close_and_repeatable(lambda: fa.relpos_attention(qkv, fh, fw, hw),
+                              lambda: fa.relpos_attention_plain(qkv, fh, fw, hw))
+
+
+@pytest.mark.parametrize("n,s,d", [(1, 37, 64), (5, 196, 64), (3, 100, 80), (2, 1024, 80)])
+def test_qkv_headmajor_rf32(gen, tf32_off, n, s, d):
+    """K12''s fp32 variant (the 'flash' route of an fp32 encoder)."""
+    heads, c = 4, 256
+    x, w = _rf32(gen, n * s, c), _rf32(gen, 3 * heads * d, c, scale=0.05)
+    b = _rf32(gen, 3 * heads * d, scale=0.05)
+    with torch.no_grad():
+        _f32_close_and_repeatable(lambda: fm.qkv_headmajor(x, w, b, 3 * heads, n),
+                                  lambda: fm.qkv_headmajor_plain(x, w, b, 3 * heads, n))
+
+
+def test_f32_variants_count_apart_and_refuse_backward(gen):
+    """A launch of an fp32 variant counts under its variant's name with
+    '/f32'; the backward kernels take bf16 only, so an fp32 call that
+    records a graph for them, or a backward on fp32 operands, raises."""
+    hw = (9, 7)
+    qkv = _rf32(gen, 1, 6, 63, 64)
+    fh, fw = _rf32(gen, 1, 2, 63, 9), _rf32(gen, 1, 2, 63, 7)
+    fa.RELPOS_ATTENTION.reset_counts()
+    fa.relpos_attention(qkv, fh, fw, hw)
+    assert fa.RELPOS_ATTENTION.variant_launches == {"window/f32": 1}
+    with pytest.raises(ValueError, match="takes bf16"):
+        fa.relpos_attention(qkv.requires_grad_(True), fh, fw, hw)
+    args = _mlp_args(gen, 8)
+    args = [a.float() if torch.is_tensor(a) else a for a in args]
+    with pytest.raises(ValueError, match="takes bf16"):
+        fm.ln_mlp_residual_bwd(*args[:7], _rf32(gen, 8, 768))

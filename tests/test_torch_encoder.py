@@ -49,10 +49,10 @@ def test_encoder_matches_jax(image):
     jcfg = JaxVisionConfig(**VISION_KW)
     jenc = JaxEncoder(config=jcfg, attn_impl="xla")
     pixels = rng.standard_normal((2, image, image, 3)).astype(np.float32)
-    variables = jenc.init(jax.random.PRNGKey(0), pixels)
+    variables = jax.jit(jenc.init)(jax.random.PRNGKey(0), pixels)  # one program, not op by op
     params = jax.tree_util.tree_map(np.asarray, variables["params"])
     params = _random_tables(jax.tree_util.tree_map(np.array, params), rng)
-    j_neck, j_hidden = jenc.apply({"params": params}, pixels)
+    j_neck, j_hidden = jax.jit(jenc.apply)({"params": params}, pixels)
 
     enc = SamVisionEncoder(SamVisionConfig(**VISION_KW))
     enc.load_state_dict(jax_to_state_dict({"params": params}), strict=True)
@@ -65,3 +65,35 @@ def test_encoder_matches_jax(image):
         np.testing.assert_allclose(
             h.numpy(), np.asarray(jh), atol=TOL, rtol=TOL, err_msg=f"hidden {i}"
         )
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["frozen", "takes-grad"])
+def test_kernel_route_operand_dtype(grad, monkeypatch):
+    """Off the CPU, an fp32 encoder that takes no gradient (SAM-det's frozen
+    segmentor, every predict) hands fp32 operands to kernels A, B and C with
+    no bf16 cast; one that takes gradients hands them bf16 (the backward
+    kernels take bf16 only). Meta tensors stand in for the card: stubs in
+    place of the three wrappers record what they are given and return the
+    plain versions' results."""
+    from rsprompter_tpu_torch.ops import fused_mlp as fm
+    from rsprompter_tpu_torch.ops import fused_vit_attention as fa
+
+    seen = []
+
+    def stub(name, plain):
+        def fn(*args):
+            seen.append((name, args[0].dtype, args[0].device.type))
+            return plain(*args)
+        return fn
+
+    monkeypatch.setattr(fm, "ln_qkv_headmajor", stub("B", fm.ln_qkv_headmajor_plain))
+    monkeypatch.setattr(fa, "relpos_attention", stub("C", fa.relpos_attention_plain))
+    monkeypatch.setattr(fm, "ln_mlp_residual", stub("A", fm.ln_mlp_residual_plain))
+    enc = SamVisionEncoder(SamVisionConfig(**VISION_KW)).to("meta")
+    pixels = torch.empty((1, 160, 160, 3), device="meta")
+    with torch.set_grad_enabled(grad):
+        neck, hidden = enc(pixels)
+    want = torch.bfloat16 if grad else torch.float32
+    layers = VISION_KW["num_hidden_layers"]
+    assert seen == [(n, want, "meta") for n in ("B", "C", "A")] * layers
+    assert all(t.dtype == torch.float32 for t in (neck,) + hidden)

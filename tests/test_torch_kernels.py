@@ -142,7 +142,117 @@ def test_attention_rel_pos_matches_jax(tables):
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     """A CUDA-side check runs before any launch: wrong dtype raises (here
-    on a meta tensor, so no card is needed)."""
+    on a meta tensor, so no card is needed): default-fp32 activations with
+    bf16 weights are a mix no kernel variant takes."""
     x = torch.empty((8, 768), device="meta")
-    with pytest.raises(ValueError):
-        fm.ln_mlp_residual(x, x[0], x[0], x, x[0], x, x[0])
+    w1 = torch.empty((3072, 768), device="meta", dtype=torch.bfloat16)
+    w2 = torch.empty((768, 3072), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="one dtype"):
+        fm.ln_mlp_residual(x, x[0], x[0], w1, w1[:, 0], w2, w2[:, 0])
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(shape, device="meta", dtype=dtype)
+
+
+def _wrapper_call(kind, act, wt):
+    """(wrapper, args) of a forward kernel at ViT-B's widths on meta tensors:
+    activations in ``act``, weights, biases and factors in ``wt``."""
+    c, heads = 768, 12
+    if kind == "A":
+        return fm.ln_mlp_residual, (_meta(8, c, dtype=act), _meta(c), _meta(c),
+                                    _meta(4 * c, c, dtype=wt), _meta(4 * c, dtype=wt),
+                                    _meta(c, 4 * c, dtype=wt), _meta(c, dtype=wt))
+    if kind == "B":
+        return fm.ln_qkv_headmajor, (_meta(1, 4, 4, c, dtype=act), _meta(c), _meta(c),
+                                     _meta(3 * c, c, dtype=wt), _meta(3 * c, dtype=wt),
+                                     3 * heads, 0)
+    if kind == "K12'":
+        return fm.qkv_headmajor, (_meta(16, c, dtype=act), _meta(3 * c, c, dtype=wt),
+                                  _meta(3 * c, dtype=wt), 3 * heads, 1)
+    return fa.relpos_attention, (_meta(1, 3 * heads, 16, 64, dtype=act),
+                                 _meta(1, heads, 16, 4, dtype=wt),
+                                 _meta(1, heads, 16, 4, dtype=wt), (4, 4))
+
+
+@pytest.mark.parametrize("act,wt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float16, torch.float16),
+], ids=["fp32", "bf16", "fp32-x-bf16-w", "bf16-x-fp32-w", "fp16"])
+@pytest.mark.parametrize("kind", ["A", "B", "K12'", "C"])
+def test_wrappers_take_one_dtype_and_refuse_a_mix(kind, act, wt, monkeypatch):
+    """Kernels A, B, K12' and C take x and their weights (C: qkv and the
+    factors) all bf16 or all fp32 (the 3xTF32 variant). On meta tensors a
+    consistent set passes the dtype check and stops at the device check; a
+    mix, or another dtype, stops at the dtype check. Neither launches."""
+    from rsprompter_tpu_torch.ops import _cuda
+
+    def no_launch(self, *args, **kwargs):
+        raise AssertionError(f"{self.name} launched")
+
+    monkeypatch.setattr(_cuda.CudaKernel, "launch", no_launch)
+    fn, args = _wrapper_call(kind, act, wt)
+    ok = act == wt and act in (torch.float32, torch.bfloat16)
+    with pytest.raises(ValueError, match="expected a CUDA tensor" if ok else "bf16 or fp32|one dtype"):
+        with torch.no_grad():
+            fn(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("kind", ["A", "B", "K12'", "C"])
+def test_wrappers_refuse_an_fp32_graph_before_any_launch(kind, dtype, monkeypatch):
+    """Recording a graph, A, B and C refuse fp32 operands in the wrapper,
+    before the forward launches (their backwards A', B', C' take bf16 only);
+    K12''s backward is torch products, so it takes fp32 there. bf16, and
+    K12' at fp32, pass on to the device check (meta tensors)."""
+    from rsprompter_tpu_torch.ops import _cuda
+
+    def no_launch(self, *args, **kwargs):
+        raise AssertionError(f"{self.name} launched")
+
+    monkeypatch.setattr(_cuda.CudaKernel, "launch", no_launch)
+    fn, args = _wrapper_call(kind, dtype, dtype)
+    args[0].requires_grad_(True)
+    refused = dtype == torch.float32 and kind != "K12'"
+    with pytest.raises(ValueError, match="backward kernel takes bf16" if refused
+                       else "expected a CUDA tensor"):
+        fn(*args)
+
+
+def test_ln_qkv_headmajor_plain_matches_jax_hd80():
+    """Head dim 80 (ViT-H), where JAX's LN + qkv kernels take 64 only and
+    its encoder projects with XLA: kernel B's plain version against
+    ``jnp`` LN, the zero-padded window partition and the projection, held
+    head-major, fp32."""
+    rng = np.random.default_rng(5)
+    bsz, h, w, heads, d, win = 2, 5, 6, 2, 80, 4
+    c = heads * d
+    x = rng.standard_normal((bsz, h, w, c)).astype(np.float32)
+    g, b = _ln_params(rng, c)
+    wq = (rng.standard_normal((c, 3 * c)) * 0.05).astype(np.float32)
+    bq = (rng.standard_normal(3 * c) * 0.05).astype(np.float32)
+    xj = jnp.asarray(x)
+    mu = xj.mean(-1, keepdims=True)
+    z = (xj - mu) / jnp.sqrt(((xj - mu) ** 2).mean(-1, keepdims=True) + 1e-6) * g + b
+    z = jnp.pad(z, ((0, 0), (0, 8 - h), (0, 8 - w), (0, 0)))
+    z = z.reshape(bsz, 2, win, 2, win, c).transpose(0, 1, 3, 2, 4, 5).reshape(-1, win * win, c)
+    ref = (z @ wq + bq).reshape(-1, win * win, 3 * heads, d).transpose(0, 2, 1, 3)
+    got = fm.ln_qkv_headmajor(_t(x), _t(g), _t(b), _t(wq.T), _t(bq), 3 * heads, win, 1e-6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
+
+
+def test_relpos_attention_plain_matches_jax_hd80():
+    """Head dim 80: kernel C's plain version (factors from the port's
+    einsum) against ``rsprompter_tpu.ops.attention`` (XLA: JAX's route at
+    head dim 80), on a ragged 6 x 5 grid, fp32."""
+    rng = np.random.default_rng(6)
+    h, w, d = 6, 5, 80
+    q, k, v = (rng.standard_normal((2, 2, h * w, d)).astype(np.float32) for _ in range(3))
+    th = (rng.standard_normal((2 * h - 1, d)) * 0.3).astype(np.float32)
+    tw = (rng.standard_normal((2 * w - 1, d)) * 0.3).astype(np.float32)
+    ref = jax_attention_rel_pos(*(jnp.asarray(a) for a in (q, k, v)), (h, w),
+                                jnp.asarray(th), jnp.asarray(tw))
+    fh, fw = rel_pos_factors(_t(q), _t(th), _t(tw), (h, w))
+    got = fa.relpos_attention(torch.cat([_t(q), _t(k), _t(v)], dim=1), fh, fw, (h, w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL, rtol=TOL)

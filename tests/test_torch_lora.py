@@ -178,8 +178,12 @@ def test_pseudo_aggregator_matches_jax():
     shapes = jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), (x,)))
     params = _random_variables(shapes, rng)["params"]
     cot = rng.standard_normal((2, 8, 8, 256)).astype(np.float32)
-    out, vjp = jax.vjp(lambda p: jmod.apply({"params": p}, (x,)), params)
-    (jgrads,) = vjp(jnp.asarray(cot))
+
+    def fwd_bwd(p, cot):  # one program: an eager vjp compiles each operation alone
+        out, vjp = jax.vjp(lambda p: jmod.apply({"params": p}, (x,)), p)
+        return out, vjp(cot)[0]
+
+    out, jgrads = jax.jit(fwd_bwd)(params, jnp.asarray(cot))
 
     mod = PseudoFeatureAggregator(32, 64, 256)
     mod.load_state_dict(jax_to_state_dict({"params": params}), strict=True)

@@ -61,7 +61,7 @@ from rsprompter_tpu_torch.ops import point_utils as tpu
 from rsprompter_tpu_torch.utils.convert import jax_to_state_dict
 from rsprompter_tpu_torch.utils.synthetic import synthetic_batch
 from test_torch_query import TINY as QUERY_TINY
-from test_torch_query import _random_variables
+from test_torch_query import FAST_COMPILE, _random_variables
 
 LOSS_TOL = 1e-4
 GRAD_TOL = 2e-2
@@ -146,7 +146,8 @@ def _run_case():
 
         counter = itertools.count()
         rec["matched"].clear()
-        (_, jlosses), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+        step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+        (_, jlosses), jgrads = step.lower(params).compile(compiler_options=FAST_COMPILE)(params)
         jax.block_until_ready(jgrads)
 
     got = {"matched": [], "coords": []}
@@ -267,8 +268,12 @@ def _sampler_inputs(seed, n=6, h=9, w=11, p=40):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_loss_sampler_and_its_gradient_match_jax(seed):
     masks, pts, g = _sampler_inputs(seed)
-    out, vjp = jax.vjp(lambda m: jpu.sample_mask_points_matmul(m, jnp.asarray(pts)), masks)
-    (dm,) = vjp(jnp.asarray(g))
+
+    def fwd_bwd(m, g):  # one program: an eager vjp compiles each operation alone
+        out, vjp = jax.vjp(lambda m: jpu.sample_mask_points_matmul(m, jnp.asarray(pts)), m)
+        return out, vjp(g)[0]
+
+    out, dm = jax.jit(fwd_bwd)(masks, jnp.asarray(g))
     tm = _t(masks).requires_grad_(True)
     tout = tpu.sample_mask_points_bf16(tm, _t(pts))
     tout.backward(_t(g))

@@ -10,17 +10,14 @@ those shares, beside a torch bilinear interpolation's and OpenCV's own
 uint8 path's.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from rsprompter_tpu.apis.inference import init_detector as jax_init_detector
 from rsprompter_tpu_torch.apis.inference import _target_size, inference_detector, init_detector
 from rsprompter_tpu_torch.ops.image import resize_bilinear_cv2
 from rsprompter_tpu_torch.utils.convert import jax_to_state_dict
-from test_torch_anchor import CROP, TINY, TOL, _randomize
+from test_torch_anchor import CROP, TINY, TOL, seeded_jax_inferencer, taking
 
 cv2 = pytest.importorskip("cv2")
 
@@ -52,14 +49,9 @@ def test_predict_with_resize_matches_jax():
     rng = np.random.default_rng(5)
     imgs = [rng.integers(0, 256, s + (3,), dtype=np.uint8) for s in ((100, 150), (90, 70))]
     cfg = {"model": dict(TINY), "crop_size": CROP}
-    from rsprompter_tpu.core.config import Config as JaxConfig
-
-    jinf = jax_init_detector(JaxConfig.fromdict(cfg), batch_size=2)
-    jinf(imgs[:1])  # initialise the variables
-    variables = jax.tree_util.tree_map(np.asarray, jinf._variables)
-    variables["params"] = _randomize(variables["params"], rng)
-    jinf._variables = jax.tree_util.tree_map(jnp.asarray, variables)
-    j_preds = jinf(imgs)["predictions"]
+    jinf, variables = seeded_jax_inferencer(cfg, rng)
+    with taking(jinf, variables):
+        j_preds = jinf(imgs)["predictions"]
 
     from rsprompter_tpu_torch.core.config import Config
 

@@ -199,8 +199,8 @@ def test_fcn_mask_loss_matches_jax(agnostic):
     targets = (rng.random((12, 28, 28)) > 0.5).astype(np.float32)
     labels = rng.integers(0, 3, 12)
     valid = rng.random(12) > 0.3
-    ref, jgrad = jax.value_and_grad(lambda x: jax_fcn_mask_loss(
-        x, jnp.asarray(targets), jnp.asarray(labels), jnp.asarray(valid), agnostic))(
+    ref, jgrad = jax.jit(jax.value_and_grad(lambda x: jax_fcn_mask_loss(
+        x, jnp.asarray(targets), jnp.asarray(labels), jnp.asarray(valid), agnostic)))(
         jnp.asarray(logits))
     x = _t(logits).requires_grad_(True)
     got = fcn_mask_loss(x, _t(targets), _t(labels), _t(valid), agnostic)

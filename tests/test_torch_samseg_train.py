@@ -48,7 +48,7 @@ from rsprompter_tpu_torch.engine.train_state import build_trainer, total_loss
 from rsprompter_tpu_torch.utils.convert import jax_to_state_dict
 from rsprompter_tpu_torch.utils.synthetic import synthetic_batch
 
-from test_torch_query import _random_variables
+from test_torch_query import FAST_COMPILE, _random_variables
 from test_torch_samdet_train import (
     MAX_GT,
     N_ANCHORS,
@@ -204,7 +204,9 @@ def test_no_plus_predict_matches_jax():
     shapes = jax.eval_shape(lambda: jmod.init(
         {"params": jax.random.PRNGKey(0)}, batch, method="predict"))
     variables = _random_variables(shapes, rng)
-    j_cls, j_masks = jax.jit(lambda v, b: jmod.apply(v, b, method="tensor"))(variables, batch)
+    tensor = jax.jit(lambda v, b: jmod.apply(v, b, method="tensor"))
+    j_cls, j_masks = tensor.lower(variables, batch).compile(compiler_options=FAST_COMPILE)(
+        variables, batch)
     # JAX's predict is its fusion head on the last call's logits
     j_dets, j_probs = jax.vmap(lambda c, m: jax_instance_postprocess(
         c, m, 3, cfg["test_cfg"]["max_per_image"], scale_boxes=IMAGE / m.shape[-1]))(

@@ -76,6 +76,20 @@ def _t(a):
     return torch.from_numpy(np.array(a, np.float32))
 
 
+def _vjp(fn, args, rng):
+    """fn's output, a seeded cotangent of its shape, and the vjp of that
+    cotangent, in one jitted program (an eager ``jax.vjp`` dispatches and
+    compiles each operation on its own)."""
+    ct = rng.standard_normal(jax.eval_shape(fn, *args).shape).astype(np.float32)
+
+    def run(args, ct):
+        out, vjp = jax.vjp(fn, *args)
+        return out, vjp(ct)
+
+    out, grads = jax.jit(run)(args, ct)
+    return out, ct, grads
+
+
 def _assert_close(name, got, ref):
     ref = np.asarray(ref, np.float64)
     err = float(np.abs(got.detach().double().numpy() - ref).max())
@@ -104,9 +118,7 @@ def test_hd80_qkv_backward_matches_jax_xla(window):
         dense = _HeadMajorDense(heads=heads3, head_dim=d)
         return dense.apply({"params": {"kernel": kernel, "bias": bias}}, z)
 
-    ref, vjp = jax.vjp(jax_qkv, x, scale, shift, kernel, bias)
-    dy = rng.standard_normal(ref.shape).astype(np.float32)
-    j_grads = vjp(dy)
+    ref, dy, j_grads = _vjp(jax_qkv, (x, scale, shift, kernel, bias), rng)
 
     leaves = [_t(a).requires_grad_(True) for a in (x, scale, shift, kernel.T, bias)]
     out = fm.ln_qkv_headmajor(*leaves, heads3, window)
@@ -130,11 +142,9 @@ def test_hd80_attention_backward_matches_jax_xla(hw):
     q, k, v = (rng.standard_normal((n_img, heads, s, d)).astype(np.float32) for _ in range(3))
     rel_h = (0.5 * rng.standard_normal((2 * hw[0] - 1, d))).astype(np.float32)
     rel_w = (0.5 * rng.standard_normal((2 * hw[1] - 1, d))).astype(np.float32)
-    ref, vjp = jax.vjp(
+    ref, dout, j_grads = _vjp(
         lambda q, k, v, rh, rw: jax_attention_rel_pos(q, k, v, hw, rh, rw, impl="xla"),
-        q, k, v, rel_h, rel_w)
-    dout = rng.standard_normal(ref.shape).astype(np.float32)
-    j_grads = vjp(dout)
+        (q, k, v, rel_h, rel_w), rng)
 
     leaves = [_t(a).requires_grad_(True) for a in (q, k, v, rel_h, rel_w)]
     fh, fw = rel_pos_factors(leaves[0], leaves[3], leaves[4], hw)
