@@ -295,7 +295,23 @@ Phases (every failure raises; the script exits non-zero and prints no result):
    SDPA with the bias for C) and bound times (one TF32 pass: 3xTF32 makes
    three); then the ViT-L and ViT-H fp32 encoders (seeded, no gradient)
    through the fp32 kernels against plain fp32 within ``F32_ENCODER_TOL``,
-   with their launches (fp32 variants only).
+   with their launches (fp32 variants only); and K10, K11 and K12' at fp32
+   as phase 2 measures them in bf16 (C on the 'flash' route's shapes, C at
+   three heads, B's fp32 GEMM alone), which no shipped path launches;
+21. the WHU data path on a machine without OpenCV: every image-format
+   fixture (``tests/data/formats``: PNG and TIFF forms, the JPEG fixtures)
+   read in colour and in grey must give OpenCV's digest; a seeded tree of
+   512 x 512 WHU-style TIFF tiles and masks (uncompressed and PackBits)
+   goes through ``tools.rsprompter.whu2coco`` (its JSON's sha256 must be
+   the JAX tool's, ``WHU_JSON_SHA256``), ``tools.misc.print_config``,
+   ``tools.train`` on ``rsprompter_anchor-whu.py`` at full width through
+   ``tools/slurm_train.sh`` in a faked one-node SLURM job (6 steps), and
+   ``tools.test`` on its checkpoint (every test tile evaluated,
+   ``coco/segm_mAP`` printed); each rank runs ``tools.train``'s main through
+   a wrapper (``TRAIN_MODULE``) that writes its launch counts, and
+   ``tools.test``'s are counted here: A, B and C a forward, no backward
+   kernel. Prints the host ms of a TIFF decode by compression and of
+   ``whu2coco`` a tile, train s an iteration and test images/s.
 
 It prints a ``kernels`` JSON line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
@@ -324,6 +340,21 @@ TOL = 2e-2  # max |kernel - plain| relative to max |plain| (bf16 inputs)
 # the same for one fp32 kernel (3xTF32 keeps about fp32's accuracy; one TF32
 # pass would read about 1e-3)
 F32_TOL = 1e-4
+
+
+PYCACHE = os.path.join(ROOT, "build", "pycache")
+
+
+def enable_bytecode_cache() -> None:
+    """Let this process and the ones it starts (the tools, torchrun's ranks)
+    keep compiled bytecode in ``build/pycache`` of the checkout. Where the
+    environment forbids writing it (``PYTHONDONTWRITEBYTECODE``, as on the
+    card's machine), every process compiles torch anew on import: about 17
+    s for ``import torch, torch._dynamo`` there, about 9 s with the cache."""
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = PYCACHE
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
 
 
 def log(msg: str) -> None:
@@ -648,8 +679,9 @@ def k12_row(name: str, x, w, b, heads3: int, n_img: int, variant: str, path: str
             adapter=None) -> dict:
     """K12' on flat tokens ``x`` (n_img windows or images) against its plain
     version, or with ``adapter`` = (la, lb, scale) K12' with the LoRA
-    adapter folded into its K; the library call composed of bf16 PyTorch
-    calls. Returns its kernel row."""
+    adapter folded into its K; the library call composed of PyTorch calls in
+    x's dtype (bf16, or fp32 for the 3xTF32 variant: SGEMM, TF32 off).
+    Returns its kernel row."""
     import torch
 
     from rsprompter_tpu_torch.ops import fused_mlp as fm
@@ -658,9 +690,11 @@ def k12_row(name: str, x, w, b, heads3: int, n_img: int, variant: str, path: str
     a = (x, w, b) + (tuple(adapter) if adapter else ()) + (heads3, n_img)
     fn = fm.qkv_headmajor_lora if adapter else fm.qkv_headmajor
     plain = fm.qkv_headmajor_lora_plain if adapter else fm.qkv_headmajor_plain
+    op, es = operand_terms(x.dtype), x.element_size()
     got = fn(*a)
     torch.cuda.synchronize()
-    err = compare(name, got, plain(*[v.float() if torch.is_tensor(v) else v for v in a]))
+    err = compare_as(name, got, plain(*[v.float() if torch.is_tensor(v) else v for v in a]),
+                     x.dtype, op["tol"])
     d = w.shape[0] // heads3
 
     def library():
@@ -671,21 +705,27 @@ def k12_row(name: str, x, w, b, heads3: int, n_img: int, variant: str, path: str
         return y.reshape(n_img, -1, heads3, d).permute(0, 2, 1, 3).contiguous()
 
     m, c, k = x.shape[0], x.shape[1], w.shape[0]
-    flops, nbytes = 2.0 * m * c * k, (x.numel() + w.numel() + b.numel() + got.numel()) * 2
+    flops, nbytes = 2.0 * m * c * k, (x.numel() + w.numel() + b.numel() + got.numel()) * es
     if adapter:
         r = adapter[0].shape[1]
         flops += 2.0 * m * r * (c + k)
-        nbytes += (adapter[0].numel() + adapter[1].numel()) * 2
-    b_ms, b_by = bound_ms(flops, nbytes)
+        nbytes += (adapter[0].numel() + adapter[1].numel()) * es
+    b_ms, b_by = bound_ms(flops, nbytes, op["peak"])
     return dict(
-        name=name, kernel=fm.QKV_HEADMAJOR, variant=variant, route="cuda",
-        source="rsprompter_tpu_torch/csrc/ln_qkv_headmajor.cu",
+        name=name, kernel=fm.QKV_HEADMAJOR, variant=variant + op["suffix"], route="cuda",
+        source=f"rsprompter_tpu_torch/csrc/ln_qkv_headmajor{op['src']}.cu",
         replaces="rsprompter_tpu/ops/fused_mlp.py:154" + ("" if d == 64 else HD80_NOTE),
         path=path, shape=f"x {tuple(x.shape)}" + (f" + adapter r {r}" if adapter else "")
-        + f" -> {tuple(got.shape)} bf16", max_abs_err=err,
-        ms=cuda_time_ms(lambda: fn(*a)), plain_ms=cuda_time_ms(lambda: plain(*a)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=cuda_time_ms(library),
+        + f" -> {tuple(got.shape)} {op['name']}", max_abs_err=err,
+        ms=op["ms"](lambda: fn(*a)), plain_ms=op["ms"](lambda: plain(*a)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=op["ms"](library),
     )
+
+
+# the TPU kernels that kernel C replaces on the 'flash' route (K10)
+FLASH_REPLACES = {"global": "rsprompter_tpu/ops/flash_attention.py:37",
+                  "window": "rsprompter_tpu/ops/flash_attention.py:101"}
+ODD_HEADS_REPLACES = "rsprompter_tpu/ops/fused_vit_attention.py:254"  # K11
 
 
 def kernel_phase(dev):
@@ -707,11 +747,9 @@ def kernel_phase(dev):
     wq, bq = rnd(3 * c, c, scale=0.02), rnd(3 * c, scale=0.02)
 
     # --- K10': kernel C on the 'flash' route, at K3's and K5's shapes --------
-    flash_replaces = {"global": "rsprompter_tpu/ops/flash_attention.py:37",
-                      "window": "rsprompter_tpu/ops/flash_attention.py:101"}
     for r in [r for r in rows if r["kernel"] is fa.RELPOS_ATTENTION]:
         rows.append(dict(r, name=f"relpos_attention/flash-{r['variant']}",
-                         replaces=flash_replaces[r["variant"]], path="query_flash"))
+                         replaces=FLASH_REPLACES[r["variant"]], path="query_flash"))
 
     # --- K11': kernel C at an odd head count (three heads, window shape) ----
     heads3, n_img, hw = 3, bsz * 25, (win, win)
@@ -733,7 +771,7 @@ def kernel_phase(dev):
     rows.append(dict(
         name="relpos_attention/odd-heads", kernel=fa.RELPOS_ATTENTION, variant="window/odd",
         route="cuda", source="rsprompter_tpu_torch/csrc/relpos_attention.cu",
-        replaces="rsprompter_tpu/ops/fused_vit_attention.py:254", path=None,
+        replaces=ODD_HEADS_REPLACES, path=None,
         shape=f"qkv {tuple(qkv.shape)} bf16, factors h={hw[0]} w={hw[1]}",
         max_abs_err=err, ms=cuda_time_ms(lambda: fa.relpos_attention(qkv, fh, fw, hw)),
         plain_ms=cuda_time_ms(lambda: fa.relpos_attention_plain(qkv, fh, fw, hw)),
@@ -5409,11 +5447,46 @@ F32_ENCODER_TOL = 1e-3
 F32_PATH = "samdet_predict"  # where ViT-B's fp32 rows count their launches
 F32_WIDE_PATHS = {"large": "vit_l_fp32_encoder", "huge": "vit_h_fp32_encoder"}
 
+# the WHU data path (phase 21)
+WHU_CONFIG = os.path.join(ROOT, "configs", "rsprompter", "rsprompter_anchor-whu.py")
+WHU_SEED = 0  # utils.synthetic.synthetic_whu's tree: 6 train tiles (and one without a mask), 4 test
+# sha256 of the JAX tool's JSON (tools/rsprompter/whu2coco.py, with OpenCV)
+# on that tree, split by split; tests/test_torch_whu.py holds them to it
+WHU_JSON_SHA256 = {
+    "train": "e0bf7fdeabc345e15d1dfc7aedebaecc8982cee4b2396cc70cfe9cf20867eee7",
+    "test": "93e1dcc45151a1eadee02ed7d94240ae288d4dfb302b1bd840332f9788aa240a",
+}
+
 
 def f32_variants(expect: dict) -> dict:
     """Expected launch counts with every variant's fp32 name ('window' ->
     'window/f32'): the fp32 variants alone."""
     return {k: {f"{v}/f32": n for v, n in want.items()} for k, want in expect.items()}
+
+
+def flash_odd_k12_f32_rows(rnd, rows, bsz: int, grid: int, win: int) -> list:
+    """K10, K11 and K12' at fp32, at ViT-B's shapes (1024^2, batch 2), as
+    phase 2 measures them in bf16: kernel C on the 'flash' route (ViT-B's
+    fp32 C rows in ``rows`` under K10's names: the same kernel at the same
+    shapes), kernel C at three heads on the window shape, and K12' (B's fp32
+    GEMM alone) at the global and window shapes. No shipped fp32 config
+    runs these (their launches read 0)."""
+    from rsprompter_tpu_torch.models.sam.configs import sam_config
+    from rsprompter_tpu_torch.ops import fused_vit_attention as fa
+
+    v = sam_config("base").vision_config
+    c, heads = v.hidden_size, v.num_attention_heads
+    out = [dict(r, name=f"relpos_attention/flash-{r['variant']}",
+                replaces=FLASH_REPLACES[r["variant"].split("/")[0]], path=None)
+           for r in rows if r["kernel"] is fa.RELPOS_ATTENTION and r["path"] == F32_PATH]
+    odd = attention_rows(rnd, bsz, grid, 3, 64, win, tag="/odd-heads", variants=("window",))
+    out += [dict(r, variant="window/odd/f32", replaces=ODD_HEADS_REPLACES, path=None)
+            for r in odd]
+    wq, bq = rnd(3 * c, c, scale=0.02), rnd(3 * c, scale=0.02)
+    for variant, n_img, s in (("global", bsz, grid * grid), ("window", bsz * 25, win * win)):
+        out.append(k12_row(f"qkv_headmajor/{variant}/f32", rnd(n_img * s, c), wq, bq,
+                           3 * heads, n_img, variant, None))
+    return out
 
 
 def f32_phase(kernels, dev):
@@ -5445,11 +5518,249 @@ def f32_phase(kernels, dev):
                 r["path"] = path
             rows += arch_rows
             torch.cuda.empty_cache()
+        rows += flash_odd_k12_f32_rows(rnd, rows, bsz, grid, win)
     log_rows(rows, tol=F32_TOL)
     paths = {path: wide_encoder_check(arch, kernels, dev, f32=True)
              for arch, path in F32_WIDE_PATHS.items()}
     log(f"phase 20: {time.time() - t_phase:.1f} s")
     return rows, paths
+
+
+FORMATS_DIR = os.path.join(ROOT, "tests", "data")
+WHU_EPOCHS = 2  # of 3 steps: 6 train tiles at the config's batch of 2
+WHU_TIMEOUT_S = 600
+
+
+def format_fixture_check() -> int:
+    """Every fixture of ``tests/data/formats/digests.json`` (PNG and TIFF
+    forms, and the JPEG fixtures), read by ``data/io.imread`` in colour and
+    in grey: the sha256 and shape ``cv2.imread`` gave where the digests
+    were written. Returns the number of decodes checked."""
+    import hashlib
+
+    import numpy as np
+
+    from rsprompter_tpu_torch.data.io import IMREAD_COLOR, IMREAD_GRAYSCALE, imread
+
+    with open(os.path.join(FORMATS_DIR, "formats", "digests.json")) as f:
+        digests = json.load(f)
+    n = 0
+    for key, want in sorted(digests.items()):
+        for mode, flag in (("color", IMREAD_COLOR), ("gray", IMREAD_GRAYSCALE)):
+            img = imread(os.path.join(FORMATS_DIR, key), flag)
+            got = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+            if got != want[mode]["sha256"] or list(img.shape) != want[mode]["shape"]:
+                raise AssertionError(f"{key} ({mode}): {img.shape} {got[:12]}, OpenCV gave "
+                                     f"{want[mode]['shape']} {want[mode]['sha256'][:12]}")
+            n += 1
+    return n
+
+
+def tiff_decode_ms(root: str) -> dict:
+    """Host ms a tile of ``decode_tiff`` on the tree's train tiles, by kind
+    and compression (the median of each kind's files, 3 reads each); LZW
+    on one mask re-encoded here."""
+    import glob
+
+    from rsprompter_tpu_torch.data import tiff
+
+    out = {}
+    for kind, sub, gray in (("image", "image", False), ("mask", "label", True)):
+        by_comp = {}
+        for path in sorted(glob.glob(os.path.join(root, "imgs", "train", sub, "*.tif"))):
+            with open(path, "rb") as f:
+                data = f.read()
+            comp = {tiff.NONE: "none", tiff.PACKBITS: "packbits"}[
+                tiff._ifd(data, path)[1][tiff.COMPRESSION][0]]
+            for _ in range(3):
+                t0 = time.perf_counter()
+                tiff.decode_tiff(data, path, gray)
+                by_comp.setdefault(comp, []).append(1e3 * (time.perf_counter() - t0))
+        for comp, ms in by_comp.items():
+            out[f"{kind}/{comp}"] = statistics.median(ms)
+        if kind == "mask":
+            mask = tiff.decode_tiff(data, path, True)
+            lzw = tiff.encode_tiff(mask, tiff.MIN_IS_BLACK, compression=tiff.LZW,
+                                   rows_per_strip=128)
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                again = tiff.decode_tiff(lzw, "lzw mask", True)
+                ms.append(1e3 * (time.perf_counter() - t0))
+            if not (again == mask).all():
+                raise AssertionError("the LZW mask does not decode to the mask")
+            out["mask/lzw"] = statistics.median(ms)
+    return out
+
+
+def _fake_slurm(bin_dir: str) -> dict:
+    """A one-node SLURM job's environment, with an ``scontrol`` on ``PATH``
+    that names this host (the card's machine has no SLURM)."""
+    import socket
+
+    os.makedirs(bin_dir, exist_ok=True)
+    scontrol = os.path.join(bin_dir, "scontrol")
+    with open(scontrol, "w") as f:
+        f.write('#!/bin/sh\n[ "$1 $2" = "show hostnames" ] || exit 1\necho 127.0.0.1\n')
+    os.chmod(scontrol, 0o755)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, SLURM_JOB_NODELIST="node0", SLURM_NNODES="1", SLURM_NTASKS="1",
+               SLURM_NODEID="0", SLURM_PROCID="0", MASTER_PORT=str(port),
+               PATH=f"{bin_dir}:{os.environ['PATH']}", PYTHONPATH=ROOT, OMP_NUM_THREADS="4")
+    for key in ("MASTER_ADDR", "NNODES", "NODE_RANK", "GPUS_PER_NODE", "TRAIN_MODULE"):
+        env.pop(key, None)
+    return env
+
+
+def _run_tool(cmd, env, what: str) -> str:
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=WHU_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-5000:]}")
+    log(f"{what}: {time.time() - t0:.1f} s")
+    return proc.stdout
+
+
+# the module slurm_train.sh's rank runs (TRAIN_MODULE): tools.train's main,
+# then the launch counts of this fresh process to $WHU_COUNTS
+WHU_TRAIN_MODULE = """import json, os, sys
+from rsprompter_tpu_torch.ops import _cuda
+from rsprompter_tpu_torch.tools import train
+train.main(sys.argv[1:])
+with open(os.environ["WHU_COUNTS"], "w") as f:
+    json.dump({k.name: k.variant_launches for k in _cuda.all_kernels()}, f)
+"""
+
+
+def whu_phase(kernels) -> dict:
+    """Phase 21, the WHU data path, as a user runs it on a machine without
+    OpenCV: the image-format fixtures; a seeded WHU-style tree of 512 x 512
+    TIFF tiles (``utils.synthetic.synthetic_whu``, uncompressed and PackBits)
+    through ``tools.rsprompter.whu2coco`` (its JSON text's sha256 must be
+    the JAX tool's, ``WHU_JSON_SHA256``); ``tools.misc.print_config`` on
+    ``rsprompter_anchor-whu.py``; ``tools.train`` on that config at full
+    width (ViT-B, 1024^2, encoder frozen as configured, seeded weights)
+    through ``tools/slurm_train.sh`` in a faked one-node SLURM job, two
+    epochs of three steps; then ``tools.test`` on its checkpoint: every test
+    tile evaluated, ``coco/segm_mAP`` printed. The launch counts (the rank
+    runs ``WHU_TRAIN_MODULE``, which writes its own; ``tools.test``'s main
+    runs in this process, counted from 0) must be A, B and C a forward as
+    phase 3 counts one, and no backward kernel. Returns
+    {path: launch counts}."""
+    import contextlib
+    import hashlib
+    import io
+    import math
+    import tempfile
+    import types
+
+    from rsprompter_tpu_torch.data import contours
+    from rsprompter_tpu_torch.models.sam.configs import sam_config
+    from rsprompter_tpu_torch.tools import test as tools_test
+    from rsprompter_tpu_torch.tools.misc import print_config
+    from rsprompter_tpu_torch.tools.rsprompter import whu2coco
+    from rsprompter_tpu_torch.utils.synthetic import WHU_SPLITS, synthetic_whu
+
+    t_phase = time.time()
+    card = card_line()
+    t0 = time.time()
+    n_decodes = format_fixture_check()
+    log(f"image formats: {n_decodes} fixture decodes (PNG, TIFF, JPEG; colour and grey) equal "
+        f"to OpenCV's digests in {time.time() - t0:.2f} s")
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "whu")
+        t0 = time.time()
+        synthetic_whu(root, WHU_SPLITS, seed=WHU_SEED)
+        log(f"WHU tree: {sum(WHU_SPLITS.values())} tiles of 512^2 (and one image without a mask) "
+            f"written in {time.time() - t0:.2f} s")
+        decode = tiff_decode_ms(root)
+        log("TIFF decode, host ms a tile (" + card + "): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in decode.items()))
+        os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+        t0 = time.time()
+        contours.load_library()  # its first-use build stays out of whu2coco's time
+        log(f"contours library built and loaded in {time.time() - t0:.2f} s")
+        for split, n in WHU_SPLITS.items():
+            out = os.path.join(root, "annotations", f"WHU_building_{split}.json")
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                whu2coco.main([os.path.join(root, "imgs", split, "image"),
+                               os.path.join(root, "imgs", split, "label"), out])
+            ms = 1e3 * (time.perf_counter() - t0) / (n + (split == "train"))
+            with open(out, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+            if digest != WHU_JSON_SHA256[split]:
+                raise AssertionError(f"whu2coco {split}: sha256 {digest}, the JAX tool's "
+                                     f"{WHU_JSON_SHA256[split]}")
+            log(f"whu2coco {split}: {said.getvalue().strip()}; sha256 {digest[:16]} (the JAX "
+                f"tool's); {ms:.1f} host ms a tile ({card})")
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            print_config.main([WHU_CONFIG])
+        printed = json.loads(said.getvalue())
+        if printed["model"]["num_classes"] != 1:
+            raise AssertionError(f"print_config: num_classes {printed['model']['num_classes']}")
+        log(f"print_config {os.path.basename(WHU_CONFIG)}: {len(said.getvalue())} bytes of JSON, "
+            f"model.num_classes 1, train_dataloader.dataset.type "
+            f"{printed['train_dataloader']['dataset']['type']}")
+
+        opts = [f"{s}_dataloader.dataset.data_root={root}" for s in ("train", "val", "test")]
+        opts += [f"max_epochs={WHU_EPOCHS}", "val_interval=100", f"ckpt_interval={WHU_EPOCHS}",
+                 "log_interval=1"]
+        env = _fake_slurm(os.path.join(tmp, "bin"))
+        with open(os.path.join(tmp, "whu_train_counts.py"), "w") as f:
+            f.write(WHU_TRAIN_MODULE)
+        env.update(TRAIN_MODULE="whu_train_counts", PYTHONPATH=f"{tmp}:{ROOT}",
+                   WHU_COUNTS=os.path.join(tmp, "train_counts.json"))
+        work = os.path.join(tmp, "work")
+        _run_tool(["bash", os.path.join(ROOT, "rsprompter_tpu_torch", "tools", "slurm_train.sh"),
+                   WHU_CONFIG, "--work-dir", work, "--cfg-options", *opts], env,
+                  "slurm_train.sh -> tools.train (one node, faked SLURM)")
+        recs = _read_records(work)
+        train = [r for r in recs if "loss" in r]
+        steps = WHU_EPOCHS * (WHU_SPLITS["train"] // 2)
+        if [r["iter"] for r in train] != list(range(1, steps + 1)) or not all(
+                math.isfinite(r["loss"]) for r in train):
+            raise AssertionError(f"WHU tools.train: {[(r['iter'], r['loss']) for r in train]}")
+        ckpt = os.path.join(work, "ckpts", f"step_{steps}")
+        if not os.path.isdir(ckpt):
+            raise AssertionError(f"WHU tools.train: no checkpoint at step {steps}")
+        s_iter = [1.0 / r["it_per_s"] for r in train]
+        log(f"WHU tools.train: {steps} steps at batch 2, losses "
+            f"{[round(r['loss'], 4) for r in train]}; s an iteration {s_iter[0]:.3f} (the first) "
+            f"then median {statistics.median(s_iter[1:]):.3f} ({card})")
+        with open(env["WHU_COUNTS"]) as f:
+            counts = {"train": json.load(f)}
+        # tools.test in this process (its main, as a user's `python -m` runs
+        # it), its launches counted from 0
+        for k in kernels:
+            k.reset_counts()
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            report = tools_test.main([WHU_CONFIG, ckpt, "--cfg-options", *opts])
+        counts["test"] = {k.name: dict(k.variant_launches) for k in kernels}
+        printed = dict(line.partition(": ")[::2] for line in said.getvalue().splitlines())
+        n_images = report["timing"]["images"]
+        if n_images != WHU_SPLITS["test"] or "coco/segm_mAP" not in printed:
+            raise AssertionError(f"WHU tools.test: {n_images} images, coco/segm_mAP printed: "
+                                 f"{'coco/segm_mAP' in printed}")
+        log(f"WHU tools.test on the checkpoint: {time.time() - t0:.1f} s; {n_images} images, "
+            f"coco/segm_mAP {printed['coco/segm_mAP']} (random weights: not gated), "
+            f"{n_images / report['timing']['wall_s']:.3f} images/s ({card})")
+        enc = types.SimpleNamespace(config=sam_config("base").vision_config)
+        for name, forwards in (("train", steps), ("test", -(-WHU_SPLITS["test"] // 2))):
+            check_launches(f"WHU tools.{name}", counts[name],
+                           frozen_forward_launches(enc, forwards))
+            paths[f"whu_{name}"] = counts[name]
+            log(f"WHU tools.{name}: A, B and C launched for each of {forwards} forwards "
+                f"(12 layers, 4 global), no backward kernel: "
+                + json.dumps({k: v for k, v in counts[name].items() if v}))
+    log(f"phase 21: {time.time() - t_phase:.1f} s")
+    return paths
 
 
 def main() -> int:
@@ -5466,6 +5777,7 @@ def main() -> int:
     t_start = time.time()
 
     sys.path.insert(0, ROOT)
+    enable_bytecode_cache()
     import torch
 
     if not torch.cuda.is_available():
@@ -5518,6 +5830,7 @@ def main() -> int:
     f32_kernel_rows, f32_paths = f32_phase(kernels, dev)
     rows += f32_kernel_rows
     paths.update(f32_paths)
+    paths.update(whu_phase(kernels))
     out = []
     for r in rows:
         name, variant = r["kernel"].name, r["variant"]

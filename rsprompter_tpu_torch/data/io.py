@@ -1,18 +1,32 @@
-"""Image files -> HWC BGR uint8 arrays, as ``cv2.imread(path, IMREAD_COLOR)``.
+"""Image files -> uint8 arrays, as ``cv2.imread(path, IMREAD_COLOR)``
+(HWC BGR) and ``cv2.imread(path, IMREAD_GRAYSCALE)`` (HW) read them.
 
-The JAX package reads images with OpenCV (``data/coco.py:117``); the card's
-machine has neither OpenCV nor PIL. So the port decodes PNG itself, with
-``zlib`` and numpy: 8-bit grey, grey + alpha, RGB and RGBA, non-interlaced,
-all five row filters. Alpha is dropped and grey is repeated into three
-channels, as ``IMREAD_COLOR`` does. A file that starts with JPEG's SOI
-marker goes to the port's baseline decoder (``data/jpeg.py``), never to
-OpenCV, which raises for a JPEG it refuses. ``.npy`` files are read as they
-are. Any other format goes to ``cv2.imread`` where OpenCV imports, and
-raises ``ValueError`` otherwise. ``decode_image`` does the same for bytes
-(the server's request bodies). ``encode_png`` and ``imwrite`` write the
-port's drawn images: ``imwrite`` picks the format by the file's extension as
-``cv2.imwrite`` does (``.jpg`` / ``.jpeg``: the port's JPEG encoder at
-OpenCV's default quality 95; ``.png``: ``encode_png``).
+The JAX package reads images with OpenCV (``data/coco.py:117``, and the
+WHU converter's masks in grey); the card's machine has neither OpenCV nor
+PIL. So the port decodes by the file's magic, itself:
+
+- PNG with ``zlib`` and numpy: every colour type and bit depth (grey at 1,
+  2, 4, 8 and 16 bits, palette with or without ``tRNS``, grey + alpha, RGB
+  and RGBA at 8 and 16), non-interlaced or Adam7, all five row filters.
+  libpng's transforms as OpenCV sets them: 16-bit samples keep their high
+  byte, sub-byte grey is scaled to 8 bits, alpha and ``tRNS`` are dropped,
+  grey is repeated into three channels, and a colour file read in grey goes
+  through ``png_set_rgb_to_gray`` (``_png_rgb_to_gray``);
+- TIFF (``II*\\0``, ``MM\\0*``) with ``data/tiff.py``;
+- JPEG (SOI marker) with the port's baseline decoder (``data/jpeg.py``);
+- ``.npy`` files as they are.
+
+A file of these formats that the port refuses raises ``ValueError``; it is
+never handed to OpenCV. The error is ``NotDecoded`` (a ``ValueError``) where
+the file is valid and OpenCV would decode it, so that a caller that skips
+what ``cv2.imread`` cannot read, as ``whu2coco`` does, still stops on it.
+Any other format goes to ``cv2.imread`` where OpenCV imports, and raises
+``NotDecoded`` otherwise. ``decode_image`` does the same
+for bytes (the server's request bodies) without the OpenCV branch.
+``encode_png`` and ``imwrite`` write the port's drawn images: ``imwrite``
+picks the format by the file's extension as ``cv2.imwrite`` does (``.jpg``
+/ ``.jpeg``: the port's JPEG encoder at OpenCV's default quality 95;
+``.png``: ``encode_png``).
 """
 
 from __future__ import annotations
@@ -24,47 +38,69 @@ import zlib
 
 import numpy as np
 
-from rsprompter_tpu_torch.data.jpeg import JPEG_SOI, decode_jpeg, encode_jpeg
+from rsprompter_tpu_torch.data.jpeg import JPEG_SOI, NotDecoded, decode_jpeg, encode_jpeg
+from rsprompter_tpu_torch.data.tiff import TIFF_MAGIC, decode_tiff
+
+IMREAD_GRAYSCALE, IMREAD_COLOR = 0, 1  # cv2's values
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 NPY_MAGIC = b"\x93NUMPY"
-# PNG colour type -> channels (8-bit samples); 3 (palette) is not decoded
-PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# PNG colour type -> channels and bit depths
+PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7's passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+# png_set_rgb_to_gray_fixed's weights of 0.299 and 0.587 (truncated to
+# 15 bits), blue the rest
+PNG_GRAY_R, PNG_GRAY_G = 9797, 19234
+PNG_GRAY_B = (1 << 15) - PNG_GRAY_R - PNG_GRAY_G
+PNG_GAMMA_THRESHOLD = 5000  # PNG_GAMMA_THRESHOLD_FIXED: a gamma this near 1 is none
+PNG_SRGB_GAMMA = 45455
+PNG_MAX_PIXELS = 1 << 30  # OpenCV's CV_IO_MAX_IMAGE_PIXELS
 PNG_LEVEL = 1  # zlib level of encode_png: OpenCV's default PNG compression
 
 
-def imread(path: str) -> np.ndarray:
-    """An image file -> (H, W, 3) uint8 BGR (a ``.npy`` file: its array)."""
+def imread(path: str, flags: int = IMREAD_COLOR) -> np.ndarray:
+    """An image file -> (H, W, 3) uint8 BGR, or (H, W) uint8 with
+    ``flags=IMREAD_GRAYSCALE`` (a ``.npy`` file: its array)."""
+    if flags not in (IMREAD_COLOR, IMREAD_GRAYSCALE):
+        raise ValueError(f"imread flags {flags!r}: IMREAD_COLOR (1) or IMREAD_GRAYSCALE (0)")
     with open(path, "rb") as f:
         head = f.read(8)
-        if head == PNG_SIGNATURE:
-            return decode_png(head + f.read())
-        if head.startswith(JPEG_SOI):
-            return decode_jpeg(head + f.read(), str(path))
-    if head.startswith(NPY_MAGIC):
-        return np.load(path)
+        if _is_decoded(head):
+            return decode_image(head + f.read(), flags, str(path))
     try:
         import cv2
     except ImportError:
-        raise ValueError(
+        raise NotDecoded(
             f"{path}: no decoder for this format on this machine (the port decodes PNG, "
-            "JPEG and .npy itself; other formats need OpenCV)") from None
-    img = cv2.imread(path, cv2.IMREAD_COLOR)
+            "TIFF, JPEG and .npy itself; other formats need OpenCV)") from None
+    img = cv2.imread(path, flags)
     if img is None:
         raise ValueError(f"{path}: OpenCV cannot decode this file")
     return img
 
 
-def decode_image(data: bytes) -> np.ndarray:
-    """PNG, JPEG or ``.npy`` bytes -> (H, W, 3) uint8 BGR (``.npy``: its
-    array); anything else raises ``ValueError``."""
+def _is_decoded(head: bytes) -> bool:
+    return (head.startswith(PNG_SIGNATURE) or head[:4] in TIFF_MAGIC
+            or head.startswith(JPEG_SOI) or head.startswith(NPY_MAGIC))
+
+
+def decode_image(data: bytes, flags: int = IMREAD_COLOR, name: str = "image data") -> np.ndarray:
+    """PNG, TIFF, JPEG or ``.npy`` bytes -> (H, W, 3) uint8 BGR, or (H, W)
+    uint8 with ``flags=IMREAD_GRAYSCALE`` (``.npy``: its array); anything
+    else raises ``ValueError``."""
+    gray = flags == IMREAD_GRAYSCALE
     if data.startswith(PNG_SIGNATURE):
-        return decode_png(data)
+        return decode_png(data, gray)
+    if data[:4] in TIFF_MAGIC:
+        return decode_tiff(data, name, gray)
     if data.startswith(JPEG_SOI):
-        return decode_jpeg(data)
+        return decode_jpeg(data, name, gray)
     if data.startswith(NPY_MAGIC):
         return np.load(io.BytesIO(data), allow_pickle=False)
-    raise ValueError("not a PNG, JPEG or .npy image")
+    raise ValueError(f"{name}: not a PNG, JPEG, TIFF or .npy image")
 
 
 def encode_png(img: np.ndarray) -> bytes:
@@ -119,14 +155,23 @@ def _chunks(data: bytes):
         pos += 12 + length
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W, 3) uint8 BGR."""
+def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 BGR, or (H, W) uint8 with ``gray``:
+    ``cv2.imread``'s bytes under ``IMREAD_COLOR`` / ``IMREAD_GRAYSCALE``."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG file")
-    header, idat = None, []
+    header, palette, gamma, idat = None, None, None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
+            if len(body) != 13:
+                raise ValueError(f"PNG IHDR of {len(body)} bytes, not 13")
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
+        elif kind == b"gAMA" and len(body) == 4 and gamma is None:
+            gamma = struct.unpack(">I", body)[0]
+        elif kind == b"sRGB":
+            gamma = PNG_SRGB_GAMMA
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -134,21 +179,93 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None:
         raise ValueError("PNG without IHDR")
     w, h, depth, colour, _, _, interlace = header
-    if depth != 8 or colour not in PNG_CHANNELS or interlace != 0:
+    if depth not in PNG_DEPTHS.get(colour, ()) or interlace > 1:
         raise ValueError(f"PNG of bit depth {depth}, colour type {colour}, interlace "
-                         f"{interlace}: only 8-bit grey, grey + alpha, RGB and RGBA, "
-                         "non-interlaced, are decoded")
-    ch = PNG_CHANNELS[colour]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    stride = w * ch
-    if raw.size != h * (stride + 1):
-        raise ValueError(f"PNG data of {raw.size} bytes for {h} rows of {stride}")
-    rows = raw.reshape(h, stride + 1)
-    pix = unfilter(rows[:, 0], rows[:, 1:], ch)
-    img = pix.reshape(h, w, ch)
-    if ch <= 2:  # grey (+ alpha): the grey channel three times
-        return np.repeat(img[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(img[:, :, 2::-1])  # RGB(A) -> BGR
+                         f"{interlace}: not a PNG form that is decoded")
+    if colour == 3 and palette is None:
+        raise ValueError("palette PNG without PLTE")
+    if w * h > PNG_MAX_PIXELS or w == 0 or h == 0:
+        raise ValueError(f"PNG of {w} x {h} pixels")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as err:  # a cut or corrupt file
+        raise ValueError(f"PNG data do not inflate: {err}") from None
+    s = _png_samples(np.frombuffer(raw, np.uint8), w, h, depth, PNG_CHANNELS[colour],
+                     interlace)
+    if colour == 3:
+        if int(s.max(initial=0)) >= len(palette):
+            raise ValueError(f"PNG palette index {int(s.max())} past its "
+                             f"{len(palette)} entries")
+        s = palette[s[:, :, 0]]
+    elif colour in (0, 4) and depth < 8:  # png_set_expand_gray_1_2_4_to_8
+        s = s * (255 // ((1 << depth) - 1))
+    if colour & 2 == 0:  # grey (+ alpha): its plane
+        g = s[:, :, 0]
+        g = (g >> 8).astype(np.uint8) if depth == 16 else g.astype(np.uint8)
+        return g if gray else np.repeat(g[:, :, None], 3, axis=2)
+    rgb = s[:, :, :3]
+    if gray:
+        return _png_rgb_to_gray(rgb, depth, gamma)
+    if depth == 16:  # png_set_strip_16: the high byte
+        rgb = rgb >> 8
+    return np.ascontiguousarray(rgb[:, :, ::-1].astype(np.uint8))
+
+
+def _png_rgb_to_gray(rgb: np.ndarray, depth: int, gamma) -> np.ndarray:
+    """libpng's ``png_set_rgb_to_gray(png, 1, 0.299, 0.587)``, as OpenCV
+    sets it: truncated 15-bit weights at 8 bits, rounded at 16 bits then
+    the high byte; with a significant file gamma (``gAMA`` more than 0.05
+    from 1, or ``sRGB``) at 8 bits through libpng's gamma tables."""
+    r, g, b = (rgb[:, :, i].astype(np.int64) for i in range(3))
+    if gamma is not None and abs(gamma - 100000) > PNG_GAMMA_THRESHOLD:
+        if depth == 16:
+            raise NotDecoded("16-bit colour PNG with a file gamma: its grey read "
+                             "(libpng's 16-bit gamma tables) is not decoded")
+        i = np.arange(256) / 255.0
+        to_linear = np.floor(255 * i ** (100000 / gamma) + 0.5).astype(np.int64)
+        from_linear = np.floor(255 * i ** (gamma / 100000) + 0.5).astype(np.uint8)
+        lin = (PNG_GRAY_R * to_linear[r] + PNG_GRAY_G * to_linear[g]
+               + PNG_GRAY_B * to_linear[b] + (1 << 14)) >> 15
+        same = (r == g) & (g == b)
+        return np.where(same, r, from_linear[lin]).astype(np.uint8)
+    y = PNG_GRAY_R * r + PNG_GRAY_G * g + PNG_GRAY_B * b
+    if depth == 16:
+        return (((y + (1 << 14)) >> 15) >> 8).astype(np.uint8)
+    return (y >> 15).astype(np.uint8)
+
+
+def _png_samples(raw: np.ndarray, w: int, h: int, depth: int, ch: int,
+                 interlace: int) -> np.ndarray:
+    """Inflated IDAT -> (H, W, ch) samples (uint8, or uint16 at depth 16);
+    Adam7's seven passes each unfiltered as an image of its own."""
+    bits = depth * ch
+    out = np.empty((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in ADAM7 if interlace else ((0, 0, 1, 1),):
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = -(-pw * bits // 8)
+        n = ph * (stride + 1)
+        if pos + n > raw.size:
+            raise ValueError(f"PNG data of {raw.size} bytes end inside the image "
+                             f"({pos + n} needed)")
+        rows = raw[pos:pos + n].reshape(ph, stride + 1)
+        pos += n
+        pix = unfilter(rows[:, 0], rows[:, 1:], max(1, bits // 8))
+        out[y0::dy, x0::dx] = _png_unpack(pix, pw, ch, depth)
+    return out
+
+
+def _png_unpack(pix: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+    """(rows, stride) unfiltered bytes -> (rows, w, ch) samples."""
+    rows = pix.shape[0]
+    if depth == 16:
+        return pix.view(">u2").astype(np.uint16).reshape(rows, w, ch)
+    if depth < 8:  # MSB first, each row padded to a byte
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        pix = ((pix[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(rows, -1)
+    return pix[:, :w * ch].reshape(rows, w, ch)
 
 
 def _unfilter_diagonals(kinds: np.ndarray, filtered: np.ndarray, bpp: int) -> np.ndarray:

@@ -16,7 +16,9 @@ arithmetic-coded file, 12-bit samples, 4 components, data that end
 before the last MCU, Huffman tables that are no prefix code and frames of
 more than 2^30 pixels (OpenCV's ``CV_IO_MAX_IMAGE_PIXELS``) raise
 ``ValueError`` with the file's name and the marker; nothing falls back to
-OpenCV. The server hands it untrusted bytes. The EXIF orientation is applied as
+OpenCV. Where OpenCV would decode the file (a progressive, lossless,
+hierarchical or arithmetic-coded one, 12-bit samples, 4 components) the
+error is ``NotDecoded``. The server hands it untrusted bytes. The EXIF orientation is applied as
 OpenCV's ``imread`` applies it.
 
 ``encode_jpeg`` is the port's own baseline encoder,
@@ -44,14 +46,18 @@ ENCODER_SOURCE = PACKAGE_DIR / "native" / "jpeg_encode.cpp"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "native"
 JPEG_SOI = b"\xff\xd8"
 _ERR_LEN = 256
+_REFUSED = 2  # the C entry points' code for a valid file of a form left out
 
 _intp = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "jpeg_header": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_int64, _intp, _intp, _intp,
                                    ctypes.c_char_p, ctypes.c_int]),
-    "jpeg_decode": (ctypes.c_int, [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
-                                   ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int]),
 }
+_SIGNATURES.update({
+    name: (ctypes.c_int, [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_char_p, ctypes.c_int])
+    for name in ("jpeg_decode", "jpeg_decode_gray")
+})
 _ENCODER_SIGNATURES = {
     "jpeg_encode": (ctypes.c_int64, [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                      ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p,
@@ -81,24 +87,38 @@ def load_encoder() -> ctypes.CDLL:
 def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
     """EXIF orientation 1-8, as OpenCV's ``ApplyExifOrientation``."""
     if orientation >= 5:  # the rows are the image's columns
-        img = img.transpose(1, 0, 2)
+        img = img.swapaxes(0, 1)
     flips = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
     for axis in flips:
         img = np.flip(img, axis)
     return np.ascontiguousarray(img)
 
 
-def decode_jpeg(data: bytes, name: str = "JPEG data") -> np.ndarray:
-    """Baseline JPEG bytes -> (H, W, 3) uint8 BGR; ``name`` (the file's)
-    heads the message of the ``ValueError`` a refused file raises."""
+class NotDecoded(ValueError):
+    """A valid image of a form that the port's decoders leave out and that
+    ``cv2.imread`` decodes; a file that is cut or corrupt, which OpenCV
+    cannot read either, raises a plain ``ValueError``."""
+
+
+def _error(code: int, name: str, err) -> ValueError:
+    return (NotDecoded if code == _REFUSED else ValueError)(f"{name}: {err.value.decode()}")
+
+
+def decode_jpeg(data: bytes, name: str = "JPEG data", gray: bool = False) -> np.ndarray:
+    """Baseline JPEG bytes -> (H, W, 3) uint8 BGR, or (H, W) uint8 with
+    ``gray`` (``IMREAD_GRAYSCALE``); ``name`` (the file's) heads the message
+    of the ``ValueError`` a refused file raises."""
     lib = load_library()
     h, w, orientation = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(_ERR_LEN)
-    if lib.jpeg_header(data, len(data), h, w, orientation, err, _ERR_LEN):
-        raise ValueError(f"{name}: {err.value.decode()}")
-    out = np.empty((h.value, w.value, 3), np.uint8)
-    if lib.jpeg_decode(data, len(data), out.ctypes.data, h.value, w.value, err, _ERR_LEN):
-        raise ValueError(f"{name}: {err.value.decode()}")
+    code = lib.jpeg_header(data, len(data), h, w, orientation, err, _ERR_LEN)
+    if code:
+        raise _error(code, name, err)
+    out = np.empty((h.value, w.value) if gray else (h.value, w.value, 3), np.uint8)
+    decode = lib.jpeg_decode_gray if gray else lib.jpeg_decode
+    code = decode(data, len(data), out.ctypes.data, h.value, w.value, err, _ERR_LEN)
+    if code:
+        raise _error(code, name, err)
     return _orient(out, orientation.value)
 
 

@@ -7,7 +7,7 @@
 // ratios and for planes two columns wide or less), the first sample row
 // repeated above the image and the last below it (jdmainct.c), and the
 // fixed-point YCbCr -> RGB tables of jdcolor.c. Grey is repeated into three
-// channels. The output is BGR.
+// channels. The output is BGR, or one grey plane (IMREAD_GRAYSCALE).
 //
 // Scope: baseline sequential Huffman (SOF0, and SOF1 at 8-bit precision);
 // DQT with 8- and 16-bit entries, DHT, SOS (interleaved, or one component a
@@ -23,7 +23,8 @@
 // OpenCV's imread refuses them.
 //
 // Plain C ABI for ctypes: each entry point returns 0, or 1 with a message
-// in ``err``. No state is shared between calls.
+// in ``err``, or 2 with a message where the file is valid but of a form left
+// out above. No state is shared between calls.
 
 #include <cstdarg>
 #include <cstdint>
@@ -36,15 +37,31 @@ namespace {
 
 struct DecodeError {
     std::string msg;
+    bool refused;  // a valid file of a form this decoder leaves out
 };
 
-[[noreturn]] void fail(const char* fmt, ...) {
+std::string format(const char* fmt, va_list ap) {
     char buf[256];
+    vsnprintf(buf, sizeof buf, fmt, ap);
+    return buf;
+}
+
+// Data that are cut or corrupt: OpenCV's imread gives no image either.
+[[noreturn]] void fail(const char* fmt, ...) {
     va_list ap;
     va_start(ap, fmt);
-    vsnprintf(buf, sizeof buf, fmt, ap);
+    std::string msg = format(fmt, ap);
     va_end(ap);
-    throw DecodeError{buf};
+    throw DecodeError{msg, false};
+}
+
+// A valid file that libjpeg under OpenCV decodes and this decoder does not.
+[[noreturn]] void refuse(const char* fmt, ...) {
+    va_list ap;
+    va_start(ap, fmt);
+    std::string msg = format(fmt, ap);
+    va_end(ap);
+    throw DecodeError{msg, true};
 }
 
 const int kNatural[64] = {  // zigzag position -> natural (row-major) index
@@ -311,6 +328,7 @@ struct Decoder {
     int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
     int restart_interval = 0, orientation = 1;
     int expect_height = 0, expect_width = 0;  // the output's size, where one is given
+    bool gray = false;  // one plane out (IMREAD_GRAYSCALE), not three
     bool frame = false, jfif = false, adobe = false;
     int adobe_transform = -1;
     uint16_t qt[4][64];
@@ -393,6 +411,9 @@ struct Decoder {
                 fail("RST%d marker outside a scan", m - 0xD0);
             } else if (m == 0xD8) {
                 fail("a second SOI marker");
+            } else if ((m >= 0xC1 && m <= 0xCF) || (m >= 0xDC && m <= 0xDF)) {  // forms left out
+                refuse("unsupported marker %s: only baseline sequential Huffman JPEG is decoded",
+                       marker_name(m).c_str());
             } else {
                 fail("unsupported marker %s: only baseline sequential Huffman JPEG is decoded",
                      marker_name(m).c_str());
@@ -408,7 +429,8 @@ struct Decoder {
         width = (s[3] << 8) | s[4];
         ncomp = s[5];
         if (precision != 8)
-            fail("SOF%d at %d-bit precision: only 8-bit samples are decoded", m - 0xC0, precision);
+            refuse("SOF%d at %d-bit precision: only 8-bit samples are decoded", m - 0xC0,
+                   precision);
         if (height == 0) fail("image height 0 (height given by a DNL marker)");
         if (width == 0) fail("image width 0");
         if ((int64_t)width * height > kMaxPixels)
@@ -416,7 +438,7 @@ struct Decoder {
                  height);
         if (expect_height && (height != expect_height || width != expect_width))
             fail("the output's size is not the image's");
-        if (ncomp == 4) fail("4 components (CMYK or YCCK)");
+        if (ncomp == 4) refuse("4 components (CMYK or YCCK)");
         if (ncomp != 1 && ncomp != 3) fail("%d components: only 1 or 3 are decoded", ncomp);
         if (len != 6 + 3 * ncomp) fail("bad SOF length");
         hmax = vmax = 1;
@@ -644,9 +666,19 @@ struct Decoder {
         for (int i = 0; i < ncomp; ++i)
             if (!comp[i].latched) fail("component %d is in no scan", comp[i].id);
         size_t n = (size_t)width * height;
-        if (ncomp == 1) {
+        // jdapimin.c default_decompress_parms: RGB where Adobe's transform
+        // says 0 or the component ids spell R, G, B (and no JFIF marker)
+        bool rgb = ncomp == 3 && !jfif &&
+                   ((adobe && adobe_transform == 0) ||
+                    (!adobe && comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B'));
+        if (ncomp == 1 || (gray && !rgb)) {
+            // grey out of YCbCr is the Y plane alone (jdcolor.c grayscale_convert)
             std::vector<uint8_t> y;
             upsample(comp[0], y);
+            if (gray) {
+                memcpy(out, y.data(), n);
+                return;
+            }
             for (size_t i = 0; i < n; ++i) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = y[i];
             return;
         }
@@ -654,10 +686,15 @@ struct Decoder {
         upsample(comp[0], a);
         upsample(comp[1], b);
         upsample(comp[2], c);
-        // jdapimin.c default_decompress_parms: RGB where Adobe's transform
-        // says 0 or the component ids spell R, G, B (and no JFIF marker)
-        bool rgb = !jfif && ((adobe && adobe_transform == 0) ||
-                             (!adobe && comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B'));
+        if (rgb && gray) {
+            // jdcolor.c rgb_gray_convert: the rgb_ycc tables' Y row, SCALEBITS 16
+            auto fix = [](double x) { return (int64_t)(x * 65536.0 + 0.5); };
+            const int64_t half = (int64_t)1 << 15;
+            for (size_t i = 0; i < n; ++i)
+                out[i] = (uint8_t)((fix(0.29900) * a[i] + fix(0.58700) * b[i] +
+                                    fix(0.11400) * c[i] + half) >> 16);
+            return;
+        }
         if (rgb) {
             for (size_t i = 0; i < n; ++i) {
                 out[3 * i] = c[i];
@@ -690,7 +727,7 @@ struct Decoder {
 
 int report(const DecodeError& e, char* err, int errlen) {
     if (errlen > 0) snprintf(err, errlen, "%s", e.msg.c_str());
-    return 1;
+    return e.refused ? 2 : 1;
 }
 
 }  // namespace
@@ -722,6 +759,23 @@ int jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out, int height, int wi
         Decoder d(data, n);
         d.expect_height = height;
         d.expect_width = width;
+        d.run(out, false);
+        return 0;
+    } catch (const DecodeError& e) {
+        return report(e, err, errlen);
+    }
+}
+
+// As jpeg_decode, into height x width bytes of grey: OpenCV's
+// IMREAD_GRAYSCALE, libjpeg's JCS_GRAYSCALE output (the Y plane of a YCbCr
+// file, jdcolor.c's weights for an RGB one).
+int jpeg_decode_gray(const uint8_t* data, int64_t n, uint8_t* out, int height, int width,
+                     char* err, int errlen) {
+    try {
+        Decoder d(data, n);
+        d.expect_height = height;
+        d.expect_width = width;
+        d.gray = true;
         d.run(out, false);
         return 0;
     } catch (const DecodeError& e) {

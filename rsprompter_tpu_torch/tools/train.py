@@ -4,8 +4,9 @@
         [--amp] [--cfg-options k=v ...] [--device cuda|cpu]
 
 The port's counterpart of the JAX package's ``tools/train.py`` (``main``
-:39-213), for the detectors the port trains (``RSPrompterAnchor``,
-``RSPrompterQuery``). The train set runs through the train pipeline
+:39-213), for every detector family the port builds (``RSPrompterAnchor``,
+``RSPrompterQuery``, SAM-det, SAM-seg Mask R-CNN and SAM-seg Mask2Former).
+The train set runs through the train pipeline
 (``train_aug``, the default) or the deterministic test pipeline
 (``train_aug=False``), batched by ``TrainLoader`` (shuffled per epoch,
 ``max_gt`` GT an image, padded to ``crop_size``, decoded two batches ahead

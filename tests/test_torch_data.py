@@ -2,8 +2,8 @@
 
 - ``data/io.py``: the PNG decoder against ``cv2.imread(..., IMREAD_COLOR)``
   on grey, RGB and RGBA PNGs that OpenCV writes at compression 0-9 and with
-  each of the five row filters forced, and a grey + alpha PNG from PIL:
-  bytes equal. ``.npy`` read as is; another format without OpenCV raises.
+  each of the five row filters forced, and a grey + alpha and a palette PNG
+  from PIL: bytes equal; a PNG of no colour type raises. ``.npy`` read as is; another format without OpenCV raises.
 - ``data/polygon.py`` through ``data/coco.py``'s ``poly_to_mask``: against
   JAX's (``cv2.fillPoly``) on seeded polygons, convex, concave, with
   touching edges, sub-pixel, partly and wholly outside the image: pixels
@@ -16,6 +16,7 @@
 """
 
 import sys
+import zlib
 
 import cv2
 import numpy as np
@@ -85,8 +86,13 @@ def test_png_grey_alpha_and_refusals(tmp_path):
     Image.fromarray(la, "LA").save(tmp_path / "la.png")
     _assert_same_as_cv2(tmp_path / "la.png")
     Image.fromarray(la[:, :, 0], "L").convert("P").save(tmp_path / "palette.png")
-    with pytest.raises(ValueError, match="colour type 3"):
-        imread(str(tmp_path / "palette.png"))
+    _assert_same_as_cv2(tmp_path / "palette.png")  # palette PNGs are decoded now
+    data = bytearray((tmp_path / "palette.png").read_bytes())
+    data[25] = 5  # IHDR's colour type: 5 is no PNG colour type
+    data[29:33] = zlib.crc32(bytes(data[12:29])).to_bytes(4, "big")
+    (tmp_path / "bad.png").write_bytes(bytes(data))
+    with pytest.raises(ValueError, match="colour type 5"):
+        imread(str(tmp_path / "bad.png"))
     with pytest.raises(ValueError, match="not a PNG"):
         decode_png(b"GIF89a")
 
